@@ -28,3 +28,9 @@ class _Strategies:
 
 
 st = _Strategies()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card of compute capability >= 9.0; "
+        "skips elsewhere (run on the card: python -m pytest -m gpu)")

@@ -1,0 +1,115 @@
+"""Rules of the port: it imports nothing of JAX or of the reference
+package, its entry points never fall back to the CPU, a CPU tensor takes
+the plain path without touching the kernel's launch count, and (on a card)
+the kernel agrees with its plain version."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.core import baselines
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ragged_decode import LAUNCHES, ragged_decode
+from repro_torch.launch.serve import ServeLoop, greedy_generate
+from repro_torch.models.transformer import Model
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = reduced(get_config("longchat-7b"))
+    prune = baselines.unicaim(heavy=24, reserve=8, select_k=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg, prune)
+    model = Model(cfg, prune, device="cpu")
+    params = model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeLoop(model, params, lanes=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        greedy_generate(model, params, {"tokens": torch.zeros(1, 4,
+                                                              dtype=torch.long)},
+                        2)
+
+
+def _kernel_args(bh, g, d, s, fills, kv_dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    fills = torch.as_tensor(fills, dtype=torch.int32)
+    valid = (torch.arange(s)[None, :] < fills[:, None]).to(torch.int8)
+    prot = (torch.rand((bh, s), generator=gen) < 0.1).to(torch.int8) * valid
+
+    def codes(*shape, hi=8):
+        return torch.randint(-hi + 1, hi, shape, generator=gen,
+                             dtype=torch.int8)
+
+    if kv_dtype == torch.int8:
+        k, v = codes(bh, s, d, hi=128), codes(bh, s, d, hi=128)
+        ks = torch.rand((bh, s), generator=gen) * 0.02 + 0.001
+        vs = torch.rand((bh, s), generator=gen) * 0.02 + 0.001
+    else:
+        k = torch.randn((bh, s, d), generator=gen).to(kv_dtype)
+        v = torch.randn((bh, s, d), generator=gen).to(kv_dtype)
+        ks = vs = torch.ones((bh, s))
+    args = [torch.randn((bh, g, d), generator=gen), codes(bh, g, d),
+            torch.rand((bh, g), generator=gen) + 0.05, codes(bh, s, d),
+            torch.rand((bh, s), generator=gen) + 0.05, ks, vs, valid, prot,
+            k, v]
+    return fills.to(device), [a.to(device) for a in args]
+
+
+def test_cpu_tensor_takes_plain_path_without_a_launch():
+    fills, args = _kernel_args(4, 2, 16, 40, [0, 7, 33, 40], torch.bfloat16,
+                               "cpu")
+    before = LAUNCHES["ragged_decode"]
+    out, probs = ops.fused_decode(*args, select_k=8, fills=fills)
+    assert LAUNCHES["ragged_decode"] == before
+    out_r, probs_r = ref.fused_decode_ref(*args, select_k=8)
+    torch.testing.assert_close(out, out_r, rtol=0, atol=0)
+    torch.testing.assert_close(probs, probs_r, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ragged_decode(fills, *args, select_k=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,d,s,k,kv", [
+    (1, 128, 576, 64, torch.bfloat16), (1, 128, 1088, 128, torch.int8),
+    (4, 64, 576, 64, torch.bfloat16), (4, 64, 576, 64, torch.int8),
+])
+def test_ragged_kernel_matches_plain_version_on_card(g, d, s, k, kv):
+    if not (torch.cuda.is_available()
+            and torch.cuda.get_device_capability() >= (9, 0)):
+        pytest.skip("needs a CUDA card of compute capability >= 9.0")
+    bh = 16
+    fill_list = [0, k - 5, 333, s] + list(
+        np.random.default_rng(s).integers(1, s + 1, bh - 4))
+    fills, args = _kernel_args(bh, g, d, s, fill_list, kv, "cuda")
+    before = LAUNCHES["ragged_decode"]
+    out, probs = ragged_decode(fills, *args, select_k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_decode"] == before + 1
+    out_r, probs_r = ref.fused_decode_ref(*args, select_k=k)
+    torch.testing.assert_close(out, out_r, rtol=0, atol=1e-3)
+    torch.testing.assert_close(probs, probs_r, rtol=0, atol=1e-5)
+    assert not out[0].any() and not probs[0].any()     # the free lane
