@@ -31,10 +31,14 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 
 
-def _dense_attend(cache: KVCache, q: torch.Tensor, head_dim: int):
-    """Exact attention over all valid slots: q [B,Hq,d] → (out [B,Hq,dv],
-    probs [B,Hq,S])."""
+def _dense_attend(cache: KVCache, q: torch.Tensor, head_dim: int,
+                  mask: Optional[torch.Tensor] = None):
+    """Exact attention over all valid slots (and, given `mask` [B,Hq,S]
+    bool, only those it keeps): q [B,Hq,d] → (out [B,Hq,dv], probs
+    [B,Hq,S])."""
     s_exact = scoring.exact_scores(q, cache.k_values(), cache.valid)
+    if mask is not None:
+        s_exact = torch.where(mask, s_exact, torch.full_like(s_exact, NEG_INF))
     probs = scoring.score_probs(s_exact, head_dim)
     b, hq, s = probs.shape
     hk = cache.k.shape[1]
@@ -66,6 +70,42 @@ def _gathered_attend(cache: KVCache, q: torch.Tensor, idx: torch.Tensor,
                          torch.full_like(logits, NEG_INF))
     probs = scoring.score_probs(logits.reshape(b, hq, k), head_dim)
     out = torch.matmul(probs.reshape(b, hk, g, k), v_sel.float())
+    return out.reshape(b, hq, -1)
+
+
+def _gathered_attend_blocked(cache: KVCache, q: torch.Tensor,
+                             idx: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Exact attention over block-local top-k slots (the per-array CAM
+    race): q [B,Hq,d], idx [B,Hk,nb,k_loc] winners within each of the nb
+    slot blocks → out [B,Hq,dv] f32, one softmax over all nb·k_loc
+    winners."""
+    b, hq, d = q.shape
+    _, hk, nb, k_loc = idx.shape
+    g = hq // hk
+    s = cache.k.shape[2]
+
+    def rows(x):                 # [B,Hk,S,·] → the winners [B,Hk,nb,kl,·]
+        xb = x.reshape(b, hk, nb, s // nb, x.shape[-1])
+        return torch.gather(xb, 3, idx[..., None].expand(
+            -1, -1, -1, -1, x.shape[-1]))
+
+    def per_slot(x):             # [B,Hk,S] → [B,Hk,nb,kl]
+        return torch.gather(x.reshape(b, hk, nb, s // nb), 3, idx)
+
+    k_sel, v_sel = rows(cache.k), rows(cache.v)
+    valid_sel = per_slot(cache.valid)
+    if cache.quantized_kv:
+        k_sel = k_sel.float() * per_slot(cache.kscale)[..., None]
+        v_sel = v_sel.float() * per_slot(cache.vscale)[..., None]
+    logits = torch.einsum("bhgd,bhnkd->bhgnk", q.reshape(b, hk, g, d).float(),
+                          k_sel.float()) / math.sqrt(head_dim)
+    logits = torch.where(valid_sel[:, :, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=(-2, -1), keepdim=True)                 # cross-block
+    e = torch.exp(logits - m) * (logits > NEG_INF / 2)
+    z = e.sum(dim=(-2, -1), keepdim=True)
+    p = e / torch.clamp(z, min=1e-30)
+    out = torch.einsum("bhgnk,bhnkd->bhgd", p, v_sel.float())
     return out.reshape(b, hq, -1)
 
 
@@ -147,7 +187,8 @@ def decode_attention(cache: KVCache, q: torch.Tensor, k_new: torch.Tensor,
 def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Post-write half of a decode step: policy dispatch (dense / h2o /
-    unicaim fused or composed) + charge-domain accumulation."""
+    unicaim fused, or composed with the global top-k, the block-local race
+    or the threshold race) + charge-domain accumulation."""
     head_dim = q.shape[-1]
     hk = cache.k.shape[1]
 
@@ -164,21 +205,44 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
     # ---- unicaim ----
     if _fused_eligible(cache, prune):
         return _fused_decode_attend(cache, q, prune, active)
-    if prune.select_mode != "topk" or prune.select_blocks > 1:
-        raise NotImplementedError(
-            "the threshold race and blocked selection are not ported yet")
 
     # CAM mode: approximate scores over the quantized mirror (in int8-KV
     # mode the stored K itself is the mirror)
+    b, hq, _ = q.shape
     qq, qs = quant.quantize_query(q, prune.query_bits)
     mirror = cache.kq if cache.kq is not None else cache.k
     s_approx = scoring.approx_scores(qq, qs, mirror, cache.kscale,
                                      cache.valid)                # [B,Hq,S]
     grouped = topk.gqa_group_scores(s_approx, hk)                # [B,Hk,S]
     prot = protected_mask(cache, prune)
-    biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
-    _, idx = topk.exact_topk(biased, prune.select_k)             # [B,Hk,k]
-    out = _gathered_attend(cache, q, idx, head_dim)
+
+    if prune.select_mode == "threshold":
+        # CAM race semantics: masked exact attention, no gather. The race
+        # runs over the finite evictable scores only (the ±1e30 sentinels
+        # would blow the binary search's resolution), the protected mask is
+        # unioned back in, and the per-row target shrinks accordingly.
+        evictable = cache.valid & ~prot
+        k_dyn = torch.clamp(prune.select_k - prot.sum(dim=-1, keepdim=True),
+                            min=1)
+        mask = topk.threshold_race(grouped, k_dyn, prune.threshold_iters,
+                                   eligible=evictable) | prot   # [B,Hk,S]
+        mask_q = mask.repeat_interleave(hq // hk, dim=1)
+        out, _ = _dense_attend(cache, q, head_dim, mask=mask_q)
+    elif prune.select_blocks > 1:
+        biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
+        nb = prune.select_blocks
+        s = biased.shape[-1]
+        if s % nb or prune.select_k % nb:
+            raise ValueError(f"blocked selection needs S={s} and select_k="
+                             f"{prune.select_k} divisible by select_blocks="
+                             f"{nb}")
+        _, idx = topk.exact_topk(biased.reshape(b, hk, nb, s // nb),
+                                 prune.select_k // nb)  # [B,Hk,nb,k_loc]
+        out = _gathered_attend_blocked(cache, q, idx, head_dim)
+    else:
+        biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
+        _, idx = topk.exact_topk(biased, prune.select_k)         # [B,Hk,k]
+        out = _gathered_attend(cache, q, idx, head_dim)
 
     # charge-domain mode: same-cycle accumulation of approximate probs
     if prune.accumulate == "approx":

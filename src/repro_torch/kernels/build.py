@@ -7,9 +7,10 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
 
 The output goes to `build/repro_torch/` at the root of the checkout, built
-at first use and cached by a hash of the source and the flags. `build_all`
-starts one nvcc for each source, all together. Nothing here runs when the
-module is imported.
+at first use and cached by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags. `build_all` starts one nvcc for each source,
+all together. Nothing here runs when the module is imported. The checks
+every kernel wrapper makes before a launch live here too.
 """
 from __future__ import annotations
 
@@ -22,9 +23,12 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"ragged_decode": CSRC / "ragged_decode.cu"}
+SOURCES = {name: CSRC / f"{name}.cu" for name in (
+    "ragged_decode", "fused_decode", "approx_score", "gather_attention")}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 
@@ -40,8 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -87,3 +94,45 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+# ---------------------------------------------------------------------------
+# checks shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def check_tensors(kernel: str, spec, dev: torch.device) -> None:
+    """Raise unless every tensor of `spec` ({name: (tensor, shape, dtype)})
+    has that shape and dtype and lies contiguous on the CUDA device
+    `dev`."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on a CUDA tensor, got {dev}")
+    for name, (t, shp, dt) in spec.items():
+        if tuple(t.shape) != tuple(shp) or t.dtype != dt:
+            raise ValueError(f"{kernel}: {name} is {tuple(t.shape)} "
+                             f"{t.dtype}, expected {tuple(shp)} {dt}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous on {dev}")
+
+
+def check_aligned(kernel: str, *tensors) -> None:
+    """Raise unless each int8 tensor starts 4-byte aligned (dp4a words)."""
+    if any(t.data_ptr() % 4 for t in tensors):
+        raise ValueError(f"{kernel}: int8 rows must be 4-byte aligned for "
+                         "dp4a")
+
+
+def check_smem(kernel: str, smem: int, dev: torch.device, what: str) -> None:
+    """Raise when one CTA needs more dynamic shared memory (`smem` bytes,
+    for `what`) than `dev` lets a block opt into."""
+    props = torch.cuda.get_device_properties(dev)
+    limit = int(getattr(props, "shared_memory_per_block_optin", 232448))
+    if smem > limit:
+        raise ValueError(f"{kernel}: {what} need {smem} bytes of shared "
+                         f"memory per CTA, above the card's {limit}")
+
+
+def check_launch(kernel: str, rc: int) -> None:
+    """Raise when a C launcher returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")

@@ -3,13 +3,58 @@
 A CUDA tensor on a card of compute capability >= 9.0 goes to the kernel, a
 CPU tensor to the kernel's plain PyTorch version in `kernels/ref.py`, and
 anything else raises. There is no fallback: a build or launch failure on
-the card raises.
+the card raises. The reference's TPU tiling and backend arguments
+(`block_s`, `block_k`, `backend`) have no counterpart here.
 """
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from repro_torch.device import kernel_capable
 from repro_torch.kernels import ref
+from repro_torch.kernels.approx_score import approx_score as _approx_kernel
+from repro_torch.kernels.fused_decode import fused_decode as _fused_kernel
+from repro_torch.kernels.gather_attention import (
+    gather_attention as _gather_kernel)
 from repro_torch.kernels.ragged_decode import ragged_decode
+
+
+def _on_card(x: torch.Tensor, kernel: str) -> bool:
+    """False for a CPU tensor (the plain version); True on an sm_90 card;
+    raises on any other device."""
+    if x.device.type == "cpu":
+        return False
+    if not kernel_capable(x.device):
+        raise RuntimeError(f"no {kernel} kernel for {x.device}: the port's "
+                           "kernels need compute capability >= 9.0")
+    return True
+
+
+def _pad_slots(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Right-pad axis 1 (the slot axis) with `pad` zeros."""
+    widths = [0, 0] * (x.dim() - 2) + [0, pad]
+    return F.pad(x, widths)
+
+
+def approx_score(qq, qscale, kq, kscale, valid):
+    """CAM-mode scoring → [BH, G, S] f32. Shapes as in
+    `kernels/approx_score.py`."""
+    valid = valid.to(torch.int8)
+    if not _on_card(qq, "approx_score"):
+        return ref.approx_score_ref(qq, qscale, kq, kscale, valid)
+    return _approx_kernel(qq, qscale.float(), kq, kscale.float(), valid)
+
+
+def gather_attention(q, k, v, valid):
+    """Current-domain exact attention over gathered slots → [BH, G, dv]
+    f32. Held to the reference's oracle, including a row with no valid slot
+    (the mean of its K value rows); the reference's op pads K to its TPU
+    block and so averages over the padding there."""
+    valid = valid.to(torch.int8)
+    if not _on_card(q, "gather_attention"):
+        return ref.gather_attention_ref(q, k, v, valid)
+    return _gather_kernel(q, k, v, valid)
 
 
 def fused_decode(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
@@ -18,21 +63,27 @@ def fused_decode(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
     → (out [BH, G, dv] f32, probs [BH, S] f32).
 
     With global selection (`num_blocks == 1`) and per-row live counts
-    `fills` ([BH] int32) a card runs the ragged kernel, which skips the dead
-    slot blocks of each row. Hierarchical selection (`num_blocks > 1`) has
-    no port yet."""
-    if num_blocks != 1:
-        raise NotImplementedError(
-            "fused decode with select_blocks > 1 (the reference's "
-            "fused_decode kernel) is not ported yet")
-    if q.device.type == "cpu":
-        return ref.fused_decode_ref(q, qq, qscale, mirror, mscale, kscale,
-                                    vscale, valid, prot, k, v,
-                                    select_k=select_k)
-    if not kernel_capable(q.device):
-        raise RuntimeError(f"no ragged_decode kernel for {q.device}: the "
-                           "port's kernels need compute capability >= 9.0")
-    if fills is None:
-        raise ValueError("the ragged kernel needs per-row fills")
-    return ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale,
-                         vscale, valid, prot, k, v, select_k=select_k)
+    `fills` ([BH] int32) a card runs the ragged kernel, which skips the
+    dead slot blocks of each row. Otherwise it runs the fused kernel, whose
+    `num_blocks` selection blocks race for select_k / num_blocks winners
+    each. A ragged tail (S % num_blocks) is padded with invalid slots, which
+    never win, and probs are cut back to S."""
+    if fills is not None and num_blocks == 1 and _on_card(q, "ragged_decode"):
+        return ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale,
+                             vscale, valid, prot, k, v, select_k=select_k)
+    s = mirror.shape[1]
+    pad = (-s) % num_blocks
+    if pad:
+        mirror, mscale, kscale, vscale, valid, prot, k, v = (
+            _pad_slots(x, pad) for x in (mirror, mscale, kscale, vscale,
+                                         valid, prot, k, v))
+    if _on_card(q, "fused_decode"):
+        out, probs = _fused_kernel(q, qq, qscale, mirror, mscale, kscale,
+                                   vscale, valid, prot, k, v,
+                                   select_k=select_k, num_blocks=num_blocks)
+    else:
+        out, probs = ref.fused_decode_ref(q, qq, qscale, mirror, mscale,
+                                          kscale, vscale, valid, prot, k, v,
+                                          select_k=select_k,
+                                          num_blocks=num_blocks)
+    return out, probs[:, :s]

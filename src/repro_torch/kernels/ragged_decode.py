@@ -33,7 +33,10 @@ from repro_torch.kernels import build
 
 LAUNCHES = {"ragged_decode": 0}
 BLOCK_S = 64                 # slots per live block (the skip granularity)
-_KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+MAX_GROUPS = 8               # query rows per kv-head (kMaxG in the source)
+SMEM_WHAT = ("S={s} slots x G={g} (large-slot decode needs a global score "
+             "scratch, not ported yet)")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -46,14 +49,41 @@ def _bind(lib):
         fn.restype = _I
         lib.ragged_decode_smem_bytes.argtypes = [_I] * 4
         lib.ragged_decode_smem_bytes.restype = ctypes.c_size_t
-        lib.ragged_decode_max_groups.argtypes = []
-        lib.ragged_decode_max_groups.restype = _I
     return lib
 
 
-def smem_limit(device: torch.device) -> int:
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin", 232448))
+def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
+                k, v, select_k: int, kernel: str):
+    """Check the eleven decode inputs shared by `ragged_decode` and
+    `fused_decode` → (q as f32, the inputs in launch order, (BH, S, G, d,
+    dv)). Raises on a tensor that is not contiguous on the CUDA card, on a
+    shape or dtype the kernels do not take, on select_k outside [1, S], on
+    int8 rows that are not 4-byte aligned and on G above the kernels'
+    limit."""
+    bh, g, d = q.shape
+    s = mirror.shape[1]
+    dv = v.shape[-1]
+    dev = q.device
+    q = q.to(torch.float32).contiguous()       # [BH, G, d]: small
+    i8, f32 = torch.int8, torch.float32
+    spec = {"q": (q, (bh, g, d), f32),
+            "qq": (qq, (bh, g, d), i8), "qscale": (qscale, (bh, g), f32),
+            "mirror": (mirror, (bh, s, d), i8), "mscale": (mscale, (bh, s), f32),
+            "kscale": (kscale, (bh, s), f32), "vscale": (vscale, (bh, s), f32),
+            "valid": (valid, (bh, s), i8), "prot": (prot, (bh, s), i8),
+            "k": (k, (bh, s, d), k.dtype), "v": (v, (bh, s, dv), k.dtype)}
+    build.check_tensors(kernel, spec, dev)
+    if k.dtype not in KV_KIND:
+        raise TypeError(f"K/V dtype {k.dtype} not in {list(KV_KIND)}")
+    if not 1 <= select_k <= s:
+        raise ValueError(f"select_k={select_k} outside [1, S={s}]")
+    if d % 4:
+        raise ValueError(f"{kernel}: head_dim {d} is not a multiple of 4")
+    build.check_aligned(kernel, qq, mirror)
+    if g > MAX_GROUPS:
+        raise ValueError(f"G={g} query rows per kv-head exceeds the "
+                         f"kernels' {MAX_GROUPS}")
+    return q, [t for t, _, _ in spec.values()], (bh, s, g, d, dv)
 
 
 def ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale, vscale,
@@ -62,53 +92,25 @@ def ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale, vscale,
     tensor that is not on the CUDA card or not contiguous, on a shape or
     dtype the kernel does not take, and when the launch fails; only q is
     converted (to f32)."""
-    bh, g, d = q.shape
-    s = mirror.shape[1]
-    dv = v.shape[-1]
+    q, ins, (bh, s, g, d, dv) = decode_spec(
+        q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot, k, v,
+        select_k, "ragged_decode")
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"ragged_decode runs on a CUDA tensor, got {dev}")
-    q = q.to(torch.float32).contiguous()       # [BH, G, d]: small
-    i8, f32 = torch.int8, torch.float32
-    spec = {"fills": (fills, (bh,), torch.int32), "q": (q, (bh, g, d), f32),
-            "qq": (qq, (bh, g, d), i8), "qscale": (qscale, (bh, g), f32),
-            "mirror": (mirror, (bh, s, d), i8), "mscale": (mscale, (bh, s), f32),
-            "kscale": (kscale, (bh, s), f32), "vscale": (vscale, (bh, s), f32),
-            "valid": (valid, (bh, s), i8), "prot": (prot, (bh, s), i8),
-            "k": (k, (bh, s, d), k.dtype), "v": (v, (bh, s, dv), k.dtype)}
-    for name, (t, shp, dt) in spec.items():
-        if tuple(t.shape) != shp or t.dtype != dt:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{shp} {dt}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dev}")
-    if k.dtype not in _KV_KIND:
-        raise TypeError(f"K/V dtype {k.dtype} not in {list(_KV_KIND)}")
-    if not 1 <= select_k <= s:
-        raise ValueError(f"select_k={select_k} outside [1, S={s}]")
-    if d % 4 or qq.data_ptr() % 4 or mirror.data_ptr() % 4:
-        raise ValueError("int8 rows must be 4-byte aligned (head_dim % 4 == 0)"
-                         " for dp4a")
+    build.check_tensors("ragged_decode",
+                        {"fills": (fills, (bh,), torch.int32)}, dev)
     lib = _bind(build.load("ragged_decode"))
-    if g > lib.ragged_decode_max_groups():
-        raise ValueError(f"G={g} query rows per kv-head exceeds the "
-                         f"kernel's {lib.ragged_decode_max_groups()}")
-    smem = lib.ragged_decode_smem_bytes(s, g, d, select_k)
-    if smem > smem_limit(dev):
-        raise ValueError(
-            f"ragged_decode: S={s} slots x G={g} need {smem} bytes of shared "
-            f"memory per CTA, above the card's {smem_limit(dev)}; large-slot "
-            "decode needs a global score scratch (not ported yet)")
-    ins = [t for t, _, _ in spec.values()]
+    build.check_smem("ragged_decode",
+                     lib.ragged_decode_smem_bytes(s, g, d, select_k), dev,
+                     SMEM_WHAT.format(s=s, g=g))
     out = torch.empty((bh, g, dv), dtype=torch.float32, device=dev)
     probs = torch.empty((bh, s), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ragged_decode_launch(
-            _KV_KIND[k.dtype], *(t.data_ptr() for t in ins), out.data_ptr(),
+            KV_KIND[k.dtype], fills.data_ptr(),
+            *(t.data_ptr() for t in ins), out.data_ptr(),
             probs.data_ptr(), bh, s, g, d, dv, select_k, BLOCK_S,
-            ctypes.c_float(1.0 / math.sqrt(d)), stream)
-    if rc != 0:
-        raise RuntimeError(f"ragged_decode launch failed: CUDA error {rc}")
+            ctypes.c_float(1.0 / math.sqrt(d)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("ragged_decode", rc)
     LAUNCHES["ragged_decode"] += 1
     return out, probs
