@@ -10,22 +10,30 @@ Phases, in order (no failure is caught: any one exits non-zero):
                checkout (nvcc, one process per source);
   3. kernels — each kernel against its plain PyTorch version on the card,
                at longchat-7b and granite-like (GQA) decode shapes, bf16
-               and int8 K/V, with CUDA-event times beside the reckoned
-               bound (and, for gather_attention, beside the one PyTorch
-               call that computes its function);
+               and int8 K/V, and flash_prefill at the served prompt shape
+               (4 x 2048, both contracts, lengths, obs_window, a row0
+               chunk, chunked-vs-whole column sums bit for bit), with
+               CUDA-event times beside the reckoned bound (and beside the
+               one PyTorch call that computes the function, where there is
+               one);
   4. serve   — full-width longchat-7b (random bf16 weights from a seed)
                serving 8 requests on 4 lanes through `ServeLoop`, bf16 and
                int8 KV, first with global selection (the ragged_decode
                kernel), then with select_blocks = 4 (the fused_decode
-               kernel); each path's kernel must launch 32 x its decode
-               steps and the other decode kernel never;
+               kernel); each path's decode kernel must launch 32 x its
+               decode steps and the other decode kernel never, and the
+               prompt pass flash_prefill 32 x its prefill dispatches with
+               no plain prompt attention on the card; then the same
+               requests with chunked admission (chunk_prefill = 512), held
+               to the whole-admission run;
   5. paths   — one decode step from one prefilled state, fused kernel vs
                the composed plain path, layer-0 attention outputs and
                accumulated scores compared; with global selection also the
                three-pass step through the ops kernels (approx_score, int4
                approx_score_packed, top-k, gather_attention); then a few
                decode steps under torch.profiler: host wall per step
-               against the device time of its kernels.
+               against the device time of its kernels; and one 4 x 2048
+               prompt pass under torch.profiler.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,26 +63,38 @@ from repro_torch.core.attention import decode_attention  # noqa: E402
 from repro_torch.core.cache import (protected_mask,  # noqa: E402
                                     write_token)
 from repro_torch.kernels import approx_score as approx_mod  # noqa: E402
+from repro_torch.kernels import flash_prefill as flash_mod  # noqa: E402
 from repro_torch.kernels import fused_decode as fused_mod  # noqa: E402
 from repro_torch.kernels import gather_attention as gather_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_decode as ragged_mod  # noqa: E402
-from repro_torch.launch.serve import Request, ServeLoop  # noqa: E402
+from repro_torch.launch.serve import (Request, ServeLoop,  # noqa: E402
+                                      bucket_length)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
 from repro_torch.models.transformer import Model, layer_params  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM datasheet peak rates
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 OUT_ATOL, PROBS_ATOL = 1e-3, 1e-5  # f32 on both sides, other sum order
 GATHER_ATOL = 1e-4                 # f32 on both sides, other sum order
 PATH_ATOL = 1e-2                   # bf16 activations
+# flash_prefill: f32 probabilities, other sum order
+FLASH_OUT_ATOL, FLASH_ACC_RTOL = 1e-3, 1e-4
+# probabilities rounded to bf16 on both sides (the model's contract): one
+# that lies within sum-order noise of a bf16 rounding boundary rounds the
+# other way, by one bf16 ulp (at most 2^-7 of it), and so does its share of
+# a column sum; the count of sums past FLASH_ACC_RTOL is printed
+FLIP_ACC_RTOL = 2.0 ** -7
+KEPT_MIN = 0.99                    # chunked vs whole: kept slots agreeing
 COUNTERS = (ragged_mod.LAUNCHES, fused_mod.LAUNCHES, approx_mod.LAUNCHES,
-            gather_mod.LAUNCHES)
+            gather_mod.LAUNCHES, flash_mod.LAUNCHES)
 SEED = 0
 # the CLI's --prompt-len 2048 --new-tokens 32 --serve workload
 PROMPT_LEN, NEW_TOKENS, LANES = 2048, 32, 4
+CHUNK = 512                        # chunked admission's slice
 LENS = (PROMPT_LEN, PROMPT_LEN // 2, PROMPT_LEN - 7, PROMPT_LEN // 3)
 
 
@@ -94,11 +115,12 @@ def launch_counts():
     return {name: n for c in COUNTERS for name, n in c.items()}
 
 
-def bound(nbytes, int8_ops=0.0, f32_flops=0.0):
+def bound(nbytes, int8_ops=0.0, f32_flops=0.0, bf16_flops=0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the operations over their peak rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int8_ops / INT8_OPS_PER_S + f32_flops / F32_FLOPS_PER_S
+    t_ops = (int8_ops / INT8_OPS_PER_S + f32_flops / F32_FLOPS_PER_S
+             + bf16_flops / BF16_FLOPS_PER_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -429,6 +451,171 @@ def phase_gather():
     return worst, {"gather_attention": (ms, plain, t, by, lib)}
 
 
+# the served prompt pass: 4 lanes x 32 heads, N = 2048, d = 128, bf16, the
+# served prompts' lengths
+def prompt_inputs(b, hq, hk, n, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype)
+            for h in (hq, hk, hk)]
+
+
+def pad_cols_zero(acc, lengths):
+    """acc [B, H, N] is exactly 0 at every column at or past its length."""
+    cols = torch.arange(acc.shape[-1], device=acc.device)
+    pad = (cols[None, :] >= lengths[:, None].long())[:, None, :]
+    return not acc.masked_select(pad.expand_as(acc)).any()
+
+
+def acc_errors(acc, want):
+    """(max relative error where want != 0, whether acc is 0 exactly where
+    want is)."""
+    nz = want != 0
+    d = (acc - want).abs()
+    return (float((d[nz] / want[nz].abs()).max()),
+            bool(torch.equal(acc[~nz], want[~nz])))
+
+
+def check_model_contract(name, b, hq, hk, n, d, dtype, lengths, obs=0,
+                         row0=0, c=None, seed=0):
+    """ops.prefill_attention (the model's contract) against its plain
+    version → (max abs error of out, max relative error of acc)."""
+    c = n - row0 if c is None else c
+    q, k, v = prompt_inputs(b, hq, hk, n, d, dtype, seed)
+    q_c = q[:, :, row0:row0 + c]
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    acc = torch.zeros((b, hk, n), device="cuda")
+    out, acc = ops.prefill_attention(q_c, k, v, acc, row0=row0, length=ln,
+                                     obs_window=obs)
+    want, want_acc = ref.prefill_attention_ref(q_c, k, v, row0=row0,
+                                               length=ln, obs_window=obs)
+    torch.cuda.synchronize()
+    acc_tol = FLIP_ACC_RTOL if v.dtype == torch.bfloat16 else FLASH_ACC_RTOL
+    e_out = float((out - want).abs().max())
+    e_rel, zeros = acc_errors(acc, want_acc)
+    over = int(((acc - want_acc).abs() > FLASH_ACC_RTOL * want_acc.abs()
+                ).sum())
+    pads = pad_cols_zero(acc, ln)
+    print(f"  model contract {name} B={b} Hq={hq} Hk={hk} N={n} d={d} "
+          f"rows [{row0}, {row0 + c}) obs={obs} {str(dtype)[6:]}: "
+          f"max|dout|={e_out:.3g} (atol {FLASH_OUT_ATOL}), acc max rel "
+          f"{e_rel:.3g} (rtol {acc_tol:.3g}; {over} of {acc.numel()} "
+          f"entries past rtol {FLASH_ACC_RTOL}), pad columns exactly 0 "
+          f"{pads}")
+    assert torch.isfinite(out).all() and torch.isfinite(acc).all(), name
+    assert e_out <= FLASH_OUT_ATOL and e_rel <= acc_tol, (name, e_out, e_rel)
+    assert zeros and pads, name
+    return e_out, e_rel
+
+
+def check_tpu_contract(name, bh, g, n, d, dtype, lengths, seed):
+    """ops.flash_prefill (the TPU contract: f32 probabilities, per-q-head
+    acc, out in q's dtype) against its plain version; asserts, and reports
+    nothing to the kernels line, which carries the main path's contract."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((rows, n, d), generator=gen, device="cuda").to(
+        dtype) for rows in (bh, bh // g, bh // g))
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    out, acc = ops.flash_prefill(q, k, v, group=g, lengths=ln)
+    want, want_acc = ref.flash_prefill_ref(q, k, v, group=g, lengths=ln)
+    torch.cuda.synchronize()
+    # a bf16 out is rounded on both sides: one bf16 ulp (2^-7 relative)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    d_out = (out.float() - want.float()).abs()
+    ok_out = bool((d_out <= FLASH_OUT_ATOL + rtol * want.float().abs()).all())
+    e_rel, zeros = acc_errors(acc, want_acc)
+    pads = pad_cols_zero(acc[:, None, :], ln)
+    print(f"  TPU contract {name} BH={bh} G={g} N={n} d={d} {str(dtype)[6:]}:"
+          f" max|dout|={float(d_out.max()):.3g} (atol {FLASH_OUT_ATOL} + "
+          f"rtol {rtol:.3g}) ok {ok_out}, acc max rel {e_rel:.3g} (rtol "
+          f"{FLASH_ACC_RTOL}), pad columns exactly 0 {pads}")
+    assert ok_out and e_rel <= FLASH_ACC_RTOL and zeros and pads, name
+
+
+def flash_bound(lengths, heads, d, kv_bytes):
+    """(bound_ms, bound_by, flops, bytes) of one model-contract call over a
+    whole prompt, counting only what its output needs: the rows below each
+    lane's length (rows past it are outputs the contract discards), and
+    two causal products over each q-head's L (L + 1) / 2 live (row, column)
+    pairs (q.k and p.v: out and the column sums both come from them) at the
+    bf16 tensor-core peak; those rows of q, k, v read once and of the f32
+    out written, acc's L columns read and written, one length per lane."""
+    ln = np.asarray(lengths, dtype=np.float64)
+    flops = heads * float((2 * 2 * d * ln * (ln + 1) / 2).sum())
+    nbytes = (heads * int(ln.sum()) * (d * (3 * kv_bytes + 4) + 2 * 4)
+              + 4 * len(ln))
+    t, by = bound(nbytes, bf16_flops=flops)
+    return t, by, flops, nbytes
+
+
+def phase_flash():
+    out_err, acc_rel = 0.0, 0.0
+    served = [n for n in LENS]
+    gqa = [1000, 517, 999, 64]
+    for args, kw in (
+            (("served", 4, 32, 32, 2048, 128, torch.bfloat16, served, 0), {}),
+            (("served", 4, 32, 32, 2048, 128, torch.bfloat16, served, 32), {}),
+            (("granite-like GQA ragged N", 4, 32, 8, 1000, 64,
+              torch.bfloat16, gqa, 0), {}),
+            (("f32 GQA", 2, 8, 2, 1000, 128, torch.float32, [1000, 600], 16),
+             {}),
+            (("served chunk", 4, 32, 32, 2048, 128, torch.bfloat16, served),
+             {"row0": 1024, "c": 512, "seed": 5})):
+        e_out, e_rel = check_model_contract(
+            *args, **{"seed": len(args[0]), **kw})
+        out_err, acc_rel = max(out_err, e_out), max(acc_rel, e_rel)
+    check_tpu_contract("served", 128, 1, 2048, 128, torch.bfloat16,
+                       [n for n in served for _ in range(32)], 6)
+    check_tpu_contract("granite-like GQA ragged N", 128, 4, 1000, 64,
+                       torch.float32, [n for n in gqa for _ in range(32)], 7)
+
+    # chunked (4 x 512 rows, acc added in place) vs whole prompt, bit for bit
+    q, k, v = prompt_inputs(4, 32, 32, 2048, 128, torch.bfloat16, 8)
+    ln = torch.as_tensor(served, dtype=torch.int32, device="cuda")
+    acc_w = torch.zeros((4, 32, 2048), device="cuda")
+    out_w, _ = ops.prefill_attention(q, k, v, acc_w, row0=0, length=ln)
+    acc_c = torch.zeros_like(acc_w)
+    outs = [ops.prefill_attention(q[:, :, r0:r0 + 512], k, v, acc_c, row0=r0,
+                                  length=ln)[0]
+            for r0 in range(0, 2048, 512)]
+    torch.cuda.synchronize()
+    same_acc = torch.equal(acc_c, acc_w)
+    same_out = torch.equal(torch.cat(outs, dim=2), out_w)
+    print(f"  chunked (4 x 512 rows into one acc) vs whole prompt on the "
+          f"card: column sums bit-equal {same_acc}, outputs bit-equal "
+          f"{same_out}")
+    assert same_acc and same_out
+
+    # times at the served shape, the main path's contract
+    qf, kf, vf = (x.reshape(128, 2048, 128) for x in (q, k, v))
+    lens = torch.repeat_interleave(ln, 32)
+    acc = torch.zeros((128, 2048), device="cuda")
+    ms = cuda_ms(lambda: flash_mod.flash_prefill(qf, kf, vf, lens, acc,
+                                                 group=1, acc_group=1))
+    plain = cuda_ms(lambda: ref.prefill_attention_ref(q, k, v, length=ln))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+    t, by, flops, nbytes = flash_bound(served, 32, 128, 2)
+    # this design's own work: three causal products (q.k in both passes,
+    # p.v) over all N rows of every lane
+    design = 3.0 * 2 * 128 * 128 * 2048 * 2049 / 2
+    print(f"  time served shape (B=4 Hq=Hk=32 N=2048 d=128 bf16, lengths "
+          f"{served}, model contract): kernel pair {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {t:.4f} ms ({by}: {flops:.4g} flop, two "
+          f"causal products over the rows below each length, at the 989 "
+          f"TF/s bf16 tensor-core peak; {nbytes} B, "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), kernel / "
+          f"bound {ms / t:.1f}x; library call F.scaled_dot_product_attention("
+          f"is_causal=True), out only, no column sums: {lib:.4f} ms")
+    print(f"  this design's work, three causal products over all N rows: "
+          f"{design:.4g} flop, {design / BF16_FLOPS_PER_S * 1e3:.4f} ms at "
+          f"the bf16 tensor-core peak, {design / F32_FLOPS_PER_S * 1e3:.4f} "
+          f"ms at the 67 TF/s f32 CUDA-core peak it runs on")
+    return out_err, {"bfloat16": (ms, plain, t, by, lib),
+                     "extra": {"out_atol": FLASH_OUT_ATOL,
+                               "acc_max_rel_err": acc_rel,
+                               "acc_rtol": FLIP_ACC_RTOL}}
+
+
 # ---------------------------------------------------------------------------
 # phase 4 + 5: full-width longchat-7b
 # ---------------------------------------------------------------------------
@@ -440,46 +627,121 @@ def served_prompts(vocab):
              NEW_TOKENS // (1 + i % 2)) for i in range(2 * LANES)]
 
 
-def phase_serve(cfg, params, kv, smi, blocks):
+# the plain prompt-attention versions, watched: a call on a CUDA tensor
+# during a serve run would mean the prompt pass left the kernel
+PLAIN_ON_CARD = {"prefill_attention_ref": 0, "flash_prefill_ref": 0}
+
+
+def watch_plain_prompt_attention():
+    for name in PLAIN_ON_CARD:
+        fn = getattr(ref, name)
+
+        def watched(q, *args, _fn=fn, _name=name, **kw):
+            if q.is_cuda:
+                PLAIN_ON_CARD[_name] += 1
+            return _fn(q, *args, **kw)
+        setattr(ref, name, watched)
+
+
+def phase_serve(cfg, params, kv, smi, blocks, chunk=0):
     """Serve the 8 requests; every decode step must run one kernel per
     layer: ragged_decode with global selection, fused_decode with
-    `blocks` > 1, and no other kernel of the port."""
+    `blocks` > 1, and no other decode kernel; every prompt pass (a whole
+    bucket, or one chunk with `chunk` > 0) one flash_prefill per layer,
+    and no plain prompt attention on the card. Returns (decode kernel, its
+    launches, flash_prefill launches, model, handles, loop)."""
     prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
                               select_k=PROMPT_LEN // 16, select_blocks=blocks,
                               fused=True, kv_dtype=kv)
     kernel = "fused_decode" if blocks > 1 else "ragged_decode"
     model = Model(cfg, prune, device="cuda")
     loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS, block=8,
-                     device="cuda")
+                     chunk_prefill=chunk, device="cuda")
     handles = [(loop.submit(Request(prompt=p, max_new=m)), m)
                for p, m in served_prompts(cfg.vocab_size)]
     torch.cuda.synchronize()
     reset_launches()
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
     t0 = time.monotonic()
     stats = loop.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = launch_counts()
     launches = counts.pop(kernel)
-    steps = loop.counters["decode_steps"]
+    flash = counts.pop("flash_prefill")
+    c = loop.counters
+    prompt_passes = c["chunk_dispatches"] if chunk else c["prefill_dispatches"]
+    steps = c["decode_steps"]
     toks = sum(len(s.tokens) for s in stats)
     for s in stats:
         print(f"    req {s.rid}: lane={s.lane} prompt={s.prompt_len} "
-              f"bucket={s.bucket} new={len(s.tokens)} "
-              f"latency={s.latency:.3f}s ttft={s.ttft:.3f}s")
-    print(f"  serve longchat-7b kv={kv} fused select_blocks={blocks}: "
-          f"{len(stats)} requests on {LANES} lanes, {toks} tokens in "
-          f"{wall:.3f}s = {toks / wall:.1f} tok/s; {steps} decode steps, "
-          f"{loop.counters['prefill_dispatches']} prefills, "
-          f"{loop.counters['grouped_requests']} requests group-admitted; "
-          f"{kernel} launches {launches} = {cfg.num_layers} x {steps}: "
-          f"{launches == cfg.num_layers * steps}; other kernels {counts}  "
-          f"[{smi}]")
+              f"bucket={s.bucket} chunks={s.prefill_chunks} "
+              f"new={len(s.tokens)} latency={s.latency:.3f}s "
+              f"ttft={s.ttft:.3f}s")
+    agg = loop.aggregate()
+    print(f"  serve longchat-7b kv={kv} fused select_blocks={blocks} "
+          f"chunk_prefill={chunk}: {len(stats)} requests on {LANES} lanes, "
+          f"{toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, p50 TTFT "
+          f"{agg['p50_ttft_s']:.3f}s; {steps} decode steps, "
+          f"{c['prefill_dispatches']} prefills, {c['chunk_dispatches']} "
+          f"chunk dispatches, {c['grouped_requests']} requests "
+          f"group-admitted; {kernel} launches {launches} = {cfg.num_layers} "
+          f"x {steps}: {launches == cfg.num_layers * steps}; flash_prefill "
+          f"launches {flash} = {cfg.num_layers} x {prompt_passes}: "
+          f"{flash == cfg.num_layers * prompt_passes}; plain prompt attention "
+          f"on the card {PLAIN_ON_CARD}; other kernels {counts}  [{smi}]")
     assert all(h.done and len(h.tokens) == m for h, m in handles)
-    assert loop.counters["nonfinite_lanes"] == 0
+    assert c["nonfinite_lanes"] == 0
     assert launches == cfg.num_layers * steps and launches > 0
+    assert flash == cfg.num_layers * prompt_passes and flash > 0
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
     assert not any(counts.values()), counts
-    return kernel, launches, model
+    if chunk:
+        want = sum(math.ceil(len(p) / chunk)
+                   for p, _ in served_prompts(cfg.vocab_size))
+        assert c["chunk_dispatches"] == want, (c["chunk_dispatches"], want)
+    return kernel, launches, flash, model, [h for h, _ in handles], agg
+
+
+def phase_chunked(cfg, params, model, whole, chunked, chunk):
+    """Chunked vs whole admission of the same requests: equal streams are
+    counted (cuBLAS may pick other GEMM kernels for 512-row and longer
+    products, so they are not asserted); per request, a whole-bucket
+    prefill and a chunked one of its prompt must keep the same layer-0
+    positions on at least KEPT_MIN of the slots and give first-token
+    logits within PATH_ATOL."""
+    same = sum(a.tokens == b.tokens for a, b in zip(whole, chunked))
+    worst_kept, worst_logit = 1.0, 0.0
+    for p, _ in served_prompts(cfg.vocab_size):
+        t = len(p)
+        bucket = bucket_length(t)
+        padded = np.zeros(bucket, np.int64)
+        padded[:t] = p
+        length = torch.as_tensor([t], device="cuda")
+        lw, sw = model.prefill_one(params, torch.as_tensor(padded), t)
+        ps = model.init_prefill_chunk_state(1, bucket)
+        n = math.ceil(t / chunk)
+        for ci in range(n):
+            x, ps = model.prefill_chunk(
+                params, ps, torch.as_tensor(padded[None, ci * chunk:
+                                                   (ci + 1) * chunk],
+                                            device="cuda"),
+                ci * chunk, length)
+        lc, sc = model.prefill_finalize(params, ps, x, (n - 1) * chunk,
+                                        length)
+        pw, pc = sw.kv.pos[0, 0], sc.kv.pos[0, 0]          # [Hk, S]
+        hits = sum(int(torch.isin(pw[h][pw[h] >= 0], pc[h][pc[h] >= 0]).sum())
+                   for h in range(pw.shape[0]))
+        agree = hits / int((pw >= 0).sum())
+        worst_kept = min(worst_kept, agree)
+        worst_logit = max(worst_logit, float((lc - lw[None]).abs().max()))
+    print(f"  chunked (chunk_prefill={chunk}) vs whole admission: "
+          f"{same} of {len(whole)} streams equal; per request, layer-0 kept "
+          f"positions agree on >= {worst_kept:.4%} of slots (need "
+          f"{KEPT_MIN:.0%}), first-token logits max|d| {worst_logit:.3g} "
+          f"(atol {PATH_ATOL})")
+    assert worst_kept >= KEPT_MIN and worst_logit <= PATH_ATOL
 
 
 def three_pass_attend(cache, q, prune):
@@ -610,6 +872,54 @@ def phase_profile(params, model, st, tok, steps=4):
               f"x{e.count // steps:<5d} {e.key[:80]}")
 
 
+def phase_prefill_profile(cfg, params, model):
+    """Where one whole-prompt prefill dispatch (4 x 2048, the served
+    prompts) spends its time: host wall (no profiler), then the device time
+    of its kernels under torch.profiler and the flash_prefill pair's
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = served_prompts(cfg.vocab_size)[:LANES]
+    padded = np.zeros((LANES, PROMPT_LEN), np.int64)
+    for i, (p, _) in enumerate(prompts):
+        padded[i, :len(p)] = p
+    batch = {"tokens": torch.as_tensor(padded, device="cuda"),
+             "length": torch.as_tensor([len(p) for p, _ in prompts],
+                                       device="cuda")}
+
+    def run():
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+
+    run()                                                # warm
+    t0 = time.monotonic()
+    run()
+    wall = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    flash = sum(dev_us(e) for e in kernels
+                if "flash_prefill" in e.key or "fold_columns" in e.key) / 1e3
+    launches = sum(e.count for e in kernels)
+    share = ("not measured" if busy == 0 else
+             f"{busy / wall:.1%} busy, flash_prefill pair {flash:.2f} ms = "
+             f"{flash / busy:.1%} of the kernel time")
+    print(f"  profile prompt pass kv={model.prune.kv_dtype} B={LANES} "
+          f"N={PROMPT_LEN}: {wall:.2f} ms host wall, {busy:.2f} ms of kernel "
+          f"time ({share}), {launches} kernel launches")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        print(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
+
+
 def main():
     t_all = time.monotonic()
     # 1. device
@@ -636,11 +946,14 @@ def main():
     for name, phase in (("ragged_decode", phase_ragged),
                         ("fused_decode", phase_fused),
                         ("approx_score", phase_approx),
-                        ("gather_attention", phase_gather)):
+                        ("gather_attention", phase_gather),
+                        ("flash_prefill", phase_flash)):
         t = time.monotonic()
         print(f"[kernels] {name} vs plain (out atol {OUT_ATOL}, probs atol "
               f"{PROBS_ATOL}; gather_attention atol {GATHER_ATOL}; "
-              "approx_score bit for bit)")
+              "approx_score bit for bit; flash_prefill out atol "
+              f"{FLASH_OUT_ATOL}, acc rtol {FLASH_ACC_RTOL} with f32 "
+              f"probabilities, {FLIP_ACC_RTOL:.4g} with bf16-rounded ones)")
         worst[name], timings[name] = phase()
         print(f"[kernels] {name} done in {time.monotonic() - t:.1f}s")
 
@@ -654,14 +967,31 @@ def main():
     n_params = sum(x.numel() for x in _leaves(params))
     print(f"[serve] longchat-7b random bf16 weights: {n_params} params, "
           f"made on the card in {time.monotonic() - t:.1f}s")
+    watch_plain_prompt_attention()
     launches = dict.fromkeys(launch_counts(), 0)
     for blocks in (1, 4):
         for kv in ("bf16", "int8"):
             tag = f"kv={kv} select_blocks={blocks}"
             t = time.monotonic()
-            kernel, n, model = phase_serve(cfg, params, kv, smi, blocks)
+            kernel, n, flash, model, whole, _ = phase_serve(cfg, params, kv,
+                                                            smi, blocks)
             launches[kernel] += n
+            launches["flash_prefill"] += flash
             print(f"[serve] {tag} phase {time.monotonic() - t:.1f}s")
+            if blocks == 1 and kv == "bf16":
+                t = time.monotonic()
+                _, n, flash, cmodel, sliced, _ = phase_serve(
+                    cfg, params, kv, smi, blocks, chunk=CHUNK)
+                launches["ragged_decode"] += n
+                launches["flash_prefill"] += flash
+                phase_chunked(cfg, params, cmodel, whole, sliced, CHUNK)
+                del cmodel
+                print(f"[serve] {tag} chunk_prefill={CHUNK} phase "
+                      f"{time.monotonic() - t:.1f}s")
+                t = time.monotonic()
+                phase_prefill_profile(cfg, params, model)
+                print(f"[profile] prompt pass phase "
+                      f"{time.monotonic() - t:.1f}s")
             t = time.monotonic()
             st, tok, small = phase_paths(cfg, params, model)
             for name, n in small.items():
@@ -684,6 +1014,8 @@ def main():
          "approx_score_packed", "approx_score"),
         ("gather_attention", "gather_attention.cu", "gather_attention.py:59",
          "gather_attention", "gather_attention"),
+        ("flash_prefill", "flash_prefill.cu", "flash_prefill.py:105",
+         "bfloat16", "flash_prefill"),
     ]
     table = []
     for name, src, tpu, key, err in rows:
@@ -695,7 +1027,7 @@ def main():
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": launches[name], "max_abs_err": worst[err], "ms": ms,
             "plain_ms": plain, "bound_ms": t_bound, "bound_by": by,
-            "library_ms": lib})
+            "library_ms": lib, **timings[phase].get("extra", {})})
     print(json.dumps({"kernels": table}))
     print(f"[done] {time.monotonic() - t_all:.1f}s total")
     print(smi)

@@ -5,8 +5,9 @@ the quantized mirror → top-k selection → exact attention over the winners
 → charge-domain accumulation. The fused engine does the four stages in one
 kernel (`kernels/ops.fused_decode`); the composed path is the oracle.
 
-Prefill: chunked causal attention that also returns the per-token
-accumulated attention column sums, then the one-shot static pruning.
+Prefill: causal attention that also returns the per-token accumulated
+attention column sums (the `flash_prefill` kernel on the card), over the
+whole prompt or one chunk of it, then the one-shot static pruning.
 
 The cache is updated IN PLACE: `decode_attention` takes a cache whose
 tensors may be views into the layer-stacked buffers.
@@ -266,7 +267,8 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              scale: Optional[float] = None,
                              length: Optional[torch.Tensor] = None,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal attention over the prompt, one query chunk at a time.
+    """Causal attention over the prompt, with the column sums the static
+    pruning ranks by.
 
     q: [B, Hq, N, d], k/v: [B, Hk, N, d] → (out [B, Hq, N, dv] f32,
     acc [B, Hk, N] f32 column sums of the attention probabilities).
@@ -276,43 +278,33 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     right-padded prompts: rows at or past it add no column mass and the
     observation window anchors there; their outputs are not meaningful.
 
-    Logits are f32 products of the storage-dtype values, and the
-    probabilities are rounded to V's dtype before the value product and the
-    column sums, as the reference's bf16 matmuls with f32 accumulation do.
-    """
-    b, hq, n, d = q.shape
-    hk = k.shape[1]
-    g = hq // hk
-    chunk = min(chunk, n)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    dev = q.device
-    if length is None:
-        length = torch.full((b,), n, dtype=torch.int32, device=dev)
-    length = torch.clamp(length.to(torch.int32), max=n)
-    kt = k.float().transpose(-1, -2)                             # [B,Hk,d,N]
-    vf = v.float()
-    qs = q.to(k.dtype).float()
-    col = torch.arange(n, device=dev)
-    acc = torch.zeros((b, hk, n), dtype=torch.float32, device=dev)
-    outs = []
-    for r0 in range(0, n, chunk):
-        t = min(chunk, n - r0)
-        row = torch.arange(r0, r0 + t, device=dev)
-        q_g = qs[:, :, r0:r0 + t].reshape(b, hk, g * t, d)
-        logits = torch.matmul(q_g, kt).reshape(b, hk, g, t, n)
-        causal = row[:, None] >= col[None, :]                    # [T,N]
-        logits = torch.where(causal, logits * scale,
-                             torch.full_like(logits, NEG_INF))
-        m = logits.amax(dim=-1, keepdim=True)
-        e = torch.exp(logits - m)
-        probs = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
-        p_g = probs.to(v.dtype).float()                          # [B,Hk,g,T,N]
-        out_c = torch.matmul(p_g.reshape(b, hk, g * t, n), vf)
-        outs.append(out_c.reshape(b, hq, t, -1))
-        live = row[None, :] < length[:, None]                    # [B,T]
-        if obs_window > 0:
-            live = live & (row[None, :] >= (length[:, None] - obs_window))
-        w = live.float()[:, None, None, :, None]
-        acc += (p_g * w).sum(dim=(2, 3))
-    return torch.cat(outs, dim=2), acc
+    On the card this is one launch of the `flash_prefill` kernel; on the
+    CPU the plain version, one block of `chunk` query rows at a time
+    (`kernels/ref.prefill_attention_ref`)."""
+    return ops.prefill_attention(q, k, v, row0=0, length=length,
+                                 obs_window=obs_window, chunk=chunk,
+                                 scale=scale)
+
+
+def prefill_chunk_attend(q_c: torch.Tensor, k_buf: torch.Tensor,
+                         v_buf: torch.Tensor, row0: int,
+                         length: torch.Tensor,
+                         scale: Optional[float] = None,
+                         obs_window: int = 0,
+                         acc: Optional[torch.Tensor] = None,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One prompt chunk attending into the streamed prefill K/V buffer.
+
+    q_c: [B, Hq, C, d] queries of absolute rows [row0, row0+C); k_buf /
+    v_buf: [B, Hk, N, ·] whose first row0+C rows are written (unwritten
+    rows lie in every chunk row's causal future); length: [B] true prompt
+    lengths. Returns (out [B, Hq, C, dv] f32, col_acc [B, Hk, N]: this
+    chunk's column sums). Given `acc`, the column sums are added into it
+    in place and it is returned as col_acc.
+
+    On the card the kernel's column fold adds the q-blocks of the chunk in
+    the order the whole-prompt call adds them, so a chunk size that is a
+    multiple of its 64-row block accumulates bit-equal column sums."""
+    return ops.prefill_attention(q_c, k_buf, v_buf, acc, row0=row0,
+                                 length=length, obs_window=obs_window,
+                                 chunk=q_c.shape[2], scale=scale)

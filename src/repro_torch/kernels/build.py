@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {name: CSRC / f"{name}.cu" for name in (
-    "ragged_decode", "fused_decode", "approx_score", "gather_attention")}
+    "ragged_decode", "fused_decode", "approx_score", "gather_attention",
+    "flash_prefill")}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 

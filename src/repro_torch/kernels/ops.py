@@ -4,7 +4,7 @@ A CUDA tensor on a card of compute capability >= 9.0 goes to the kernel, a
 CPU tensor to the kernel's plain PyTorch version in `kernels/ref.py`, and
 anything else raises. There is no fallback: a build or launch failure on
 the card raises. The reference's TPU tiling and backend arguments
-(`block_s`, `block_k`, `backend`) have no counterpart here.
+(`block_s`, `block_q`, `block_k`, `backend`) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from repro_torch.device import kernel_capable
 from repro_torch.kernels import ref
 from repro_torch.kernels.approx_score import approx_score as _approx_kernel
+from repro_torch.kernels.flash_prefill import flash_prefill as _flash_kernel
 from repro_torch.kernels.fused_decode import fused_decode as _fused_kernel
 from repro_torch.kernels.gather_attention import (
     gather_attention as _gather_kernel)
@@ -87,3 +88,57 @@ def fused_decode(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
                                           select_k=select_k,
                                           num_blocks=num_blocks)
     return out, probs[:, :s]
+
+
+def flash_prefill(q, k, v, group: int = 1, lengths=None):
+    """Causal attention with per-q-head column sums, the TPU contract:
+    q [BH,N,d], k/v [BH/group,N,d] (q's dtype) → (out [BH,N,d] in q's
+    dtype, acc [BH,N] f32). `lengths` ([BH] int32, optional): rows at or
+    past them add no column mass. N need not divide any block."""
+    if not _on_card(q, "flash_prefill"):
+        return ref.flash_prefill_ref(q, k, v, group, lengths=lengths)
+    bh, n, _ = q.shape
+    if lengths is None:
+        lengths = torch.full((bh,), n, dtype=torch.int32, device=q.device)
+    acc = torch.zeros((bh, n), dtype=torch.float32, device=q.device)
+    out = _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                        lengths.to(torch.int32).contiguous(), acc,
+                        group=group, acc_group=1, model=False)
+    return out, acc
+
+
+def prefill_attention(q, k, v, acc=None, *, row0: int = 0, length=None,
+                      obs_window: int = 0, chunk: int = 512, scale=None):
+    """Causal prompt attention with kv-head column sums, the model's
+    contract (`ref.prefill_attention_ref`): q [B,Hq,C,d] for absolute rows
+    [row0, row0+C) of the K/V buffers k/v [B,Hk,N,d] → (out [B,Hq,C,dv]
+    f32, acc [B,Hk,N] f32). Given `acc`, the column sums are added into it
+    IN PLACE and it is returned; otherwise a fresh one is. `chunk` only
+    shapes the plain version's loop over query rows.
+
+    On the card q is cast to K's dtype, and q, k and v are made contiguous
+    (the model's q is a transposed view of its projection): a copy where
+    they are not."""
+    if not _on_card(q, "flash_prefill"):
+        out, col = ref.prefill_attention_ref(
+            q, k, v, row0=row0, length=length, obs_window=obs_window,
+            chunk=chunk, scale=scale)
+        if acc is None:
+            return out, col
+        acc += col
+        return out, acc
+    b, hq, c, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    if acc is None:
+        acc = torch.zeros((b, hk, n), dtype=torch.float32, device=q.device)
+    if length is None:
+        length = torch.full((b,), n, dtype=torch.int32, device=q.device)
+    lengths = torch.repeat_interleave(
+        torch.clamp(length.to(torch.int32), max=n), hq)
+    out = _flash_kernel(
+        q.to(k.dtype).contiguous().reshape(b * hq, c, d),
+        k.contiguous().reshape(b * hk, n, d),
+        v.contiguous().reshape(b * hk, n, v.shape[-1]), lengths,
+        acc.view(b * hk, n), group=hq // hk, acc_group=hq // hk,
+        row0=row0, obs_window=obs_window, model=True, scale=scale)
+    return out.reshape(b, hq, c, -1), acc

@@ -107,3 +107,84 @@ def fused_decode_ref(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
     zg = torch.clamp(eg.sum(dim=-1, keepdim=True), min=1e-30)
     probs = (eg / zg).sum(dim=1)                                # [BH,S]
     return out, probs
+
+
+def flash_prefill_ref(q, k, v, group: int = 1, lengths=None):
+    """Causal attention with per-q-head column sums, the plain version of
+    `kernels/flash_prefill.py` (the TPU contract): q [BH,N,d], k/v
+    [BH/group,N,d] → (out [BH,N,d] in q's dtype, acc [BH,N] f32).
+
+    The probabilities stay in f32. `lengths` ([BH] int32, optional) are
+    the true row counts of right-padded prompts: rows at or past them add
+    no column mass (their output rows are not meaningful)."""
+    bh, n, d = q.shape
+    kx = torch.repeat_interleave(k, group, dim=0).float()
+    vx = torch.repeat_interleave(v, group, dim=0).float()
+    s = torch.matmul(q.float(), kx.transpose(1, 2)) / math.sqrt(d)
+    mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device=q.device))
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p, vx)
+    if lengths is not None:
+        live = (torch.arange(n, device=q.device)[None, :]
+                < lengths.to(torch.int32)[:, None])
+        p = p * live[:, :, None]
+    return out.to(q.dtype), p.sum(dim=1)
+
+
+def prefill_attention_ref(q, k, v, *, row0: int = 0, length=None,
+                          obs_window: int = 0, chunk: int = 512,
+                          scale=None):
+    """Causal prompt attention with kv-head column sums (the model's
+    contract, `core/attention.py::chunked_causal_attention` and
+    `prefill_chunk_attend` of the reference), one block of `chunk` query
+    rows at a time.
+
+    q [B,Hq,C,d] holds the queries of absolute rows [row0, row0+C); k/v
+    [B,Hk,N,d] with N >= row0+C (columns past a row are causally masked,
+    so unwritten buffer rows take no part). Returns (out [B,Hq,C,dv] f32,
+    col_acc [B,Hk,N] f32: the column sums over the G q-heads of each
+    kv-head and over the rows that count). A row counts when it lies below
+    `length` ([B] int32, default N) and, with obs_window > 0, at or above
+    length - obs_window.
+
+    Logits are f32 products of the storage-dtype values (q is cast to K's
+    dtype first), and the probabilities are rounded to V's dtype before
+    the value product and the column sums, as the reference's bf16
+    matmuls with f32 accumulation do."""
+    b, hq, c, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    g = hq // hk
+    chunk = min(chunk, c)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    if length is None:
+        length = torch.full((b,), n, dtype=torch.int32, device=dev)
+    length = torch.clamp(length.to(torch.int32), max=n)
+    kt = k.float().transpose(-1, -2)                             # [B,Hk,d,N]
+    vf = v.float()
+    qs = q.to(k.dtype).float()
+    col = torch.arange(n, device=dev)
+    acc = torch.zeros((b, hk, n), dtype=torch.float32, device=dev)
+    outs = []
+    for r0 in range(0, c, chunk):
+        t = min(chunk, c - r0)
+        row = torch.arange(row0 + r0, row0 + r0 + t, device=dev)
+        q_g = qs[:, :, r0:r0 + t].reshape(b, hk, g * t, d)
+        logits = torch.matmul(q_g, kt).reshape(b, hk, g, t, n)
+        causal = row[:, None] >= col[None, :]                    # [T,N]
+        logits = torch.where(causal, logits * scale,
+                             torch.full_like(logits, NEG_INF))
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+        probs = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        p_g = probs.to(v.dtype).float()                          # [B,Hk,g,T,N]
+        out_c = torch.matmul(p_g.reshape(b, hk, g * t, n), vf)
+        outs.append(out_c.reshape(b, hq, t, -1))
+        live = row[None, :] < length[:, None]                    # [B,T]
+        if obs_window > 0:
+            live = live & (row[None, :] >= (length[:, None] - obs_window))
+        w = live.float()[:, None, None, :, None]
+        acc += (p_g * w).sum(dim=(2, 3))
+    return torch.cat(outs, dim=2), acc

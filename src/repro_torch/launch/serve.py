@@ -1,4 +1,5 @@
-"""Serving driver — the port of `repro/launch/serve.py` (the greedy core).
+"""Serving engine — the port of `repro/launch/serve.py` (the greedy core
+and chunked admission).
 
 `ServeLoop` keeps a fixed number of decode lanes and a request queue.
 Admission is grouped: every arrived request that pads to the same bucket
@@ -8,9 +9,11 @@ shortest bucket first under load (with aging, so a long prompt cannot
 starve). Decode runs in blocks of `block` steps over all lanes; a lane that
 hits EOS or its budget stops writing its cache at once (an in-device
 `active` mask) and is refilled from the queue at the next block boundary.
+With `chunk_prefill=C` a prompt whose bucket exceeds C is prefilled in
+C-token slices on a reserved lane, one slice between decode blocks.
 
-Not ported yet: sampling knobs, chunked prefill, the prefix cache,
-preemption, fault tolerance, the degrade ladder and meshes.
+Not ported yet: sampling knobs, the prefix cache, preemption, fault
+tolerance, the degrade ladder and meshes.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import baselines
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import Model, lanes_insert
+from repro_torch.models.transformer import (Model, PrefillChunkState,
+                                            lanes_insert)
 
 # ---------------------------------------------------------------------------
 # Prompt-length buckets: prompts are right-padded to a small doubling grid
@@ -154,6 +158,7 @@ class RequestStats:
     t_done: float = 0.0
     occupancy: float = 0.0     # mean cache fill fraction at completion
     bucket: int = 0            # padded prefill width
+    prefill_chunks: int = 1    # dispatches the prefill was sliced into
 
     @property
     def latency(self) -> float:
@@ -162,6 +167,19 @@ class RequestStats:
     @property
     def ttft(self) -> float:
         return self.t_first - self.t_arrival
+
+
+@dataclasses.dataclass
+class _ChunkedPrefill:
+    """Host-side progress of the one in-flight time-sliced prefill."""
+    req: Request
+    lane: int                  # reserved for it until the splice
+    bucket: int                # workspace rows (a multiple of the chunk)
+    padded: np.ndarray
+    pstate: PrefillChunkState
+    n_chunks: int              # chunks holding real tokens
+    next_chunk: int = 0
+    x_last: Optional[torch.Tensor] = None   # hidden of the latest chunk
 
 
 class ServeLoop:
@@ -179,15 +197,28 @@ class ServeLoop:
     A group is prefilled at exactly its size (eager PyTorch compiles
     nothing, so the reference's power-of-two row padding has no use here).
     `counters` tracks `prefill_dispatches`, `admit_dispatches`,
-    `grouped_requests`, `decode_blocks`, `decode_steps` and
-    `nonfinite_lanes` (admissions or active lanes whose logits were not
-    finite).
+    `grouped_requests`, `chunk_dispatches`, `decode_blocks`,
+    `decode_steps` and `nonfinite_lanes` (admissions or active lanes whose
+    logits were not finite).
+
+    Chunked admission (`chunk_prefill=C`): a prompt whose bucket exceeds C
+    reserves a free lane and is prefilled in C-token slices
+    (`Model.prefill_chunk`, then `prefill_finalize`) over a workspace of
+    the bucket rounded up to a multiple of C; only the chunks that hold
+    real tokens run. Each round of `run()` schedules, runs one slice, then
+    one decode block, so live lanes keep decoding while a long prompt
+    prefills. At most one sliced prefill is in flight; while one is, a
+    round whose target needs slicing admits the shortest bucket that does
+    not instead. `RequestStats.prefill_chunks` counts a request's slices.
+    A model without `supports_chunked_prefill()` falls back to whole-bucket
+    admission.
     """
 
     def __init__(self, model: Model, params, lanes: int, max_new: int = 64,
                  eos: int = -1, block: int = 1,
                  buckets: Union[str, Sequence[int], None] = "auto",
-                 group_admit: bool = True, device="cuda"):
+                 chunk_prefill: int = 0, group_admit: bool = True,
+                 device="cuda"):
         _check_device(model, device)
         self.model = model
         self.params = params
@@ -197,6 +228,10 @@ class ServeLoop:
         self.block = max(1, block)
         self.buckets = (tuple(buckets)
                         if isinstance(buckets, (list, tuple)) else buckets)
+        self.chunk_prefill = max(0, chunk_prefill)
+        if self.chunk_prefill and not model.supports_chunked_prefill():
+            self.chunk_prefill = 0            # whole-bucket admission
+        self._pending: Optional[_ChunkedPrefill] = None
         self.group_admit = bool(group_admit)
         self._head_skips = 0
         self.device = model.device
@@ -215,7 +250,7 @@ class ServeLoop:
         self._finished: set = set()
         self.counters: Dict[str, int] = {
             "prefill_dispatches": 0, "admit_dispatches": 0,
-            "grouped_requests": 0,
+            "grouped_requests": 0, "chunk_dispatches": 0,
             "decode_blocks": 0, "decode_steps": 0, "nonfinite_lanes": 0,
         }
 
@@ -267,11 +302,19 @@ class ServeLoop:
             self._waiting.append(self._arrivals.popleft())
 
     def _free_lanes(self) -> List[int]:
-        return [i for i in range(self.lanes) if self._lane_rid[i] is None]
+        """Lanes without a request; a sliced prefill's reserved lane is not
+        free."""
+        reserved = None if self._pending is None else self._pending.lane
+        return [i for i in range(self.lanes)
+                if self._lane_rid[i] is None and i != reserved]
+
+    def _needs_chunking(self, bucket: int) -> bool:
+        return 0 < self.chunk_prefill < bucket
 
     def schedule(self) -> int:
         """Admit arrived requests into free lanes, one bucket group per
-        round, until no lane or no arrived request is left → admitted."""
+        round, until no lane or no arrived request is left → admitted (a
+        sliced prefill counts once it has been opened)."""
         n = 0
         while True:
             self._drain_arrivals(self._now())
@@ -288,6 +331,24 @@ class ServeLoop:
                     if (shortest != head.bucket
                             and self._head_skips < MAX_HEAD_SKIPS):
                         target = shortest
+            if (self.group_admit and self._pending is not None
+                    and self._needs_chunking(target)):
+                # one sliced prefill at a time: admit the shortest bucket
+                # that needs no slicing instead of idling the free lanes
+                alts = [r.bucket for r in self._waiting
+                        if not self._needs_chunking(r.bucket)]
+                if not alts:
+                    return n
+                target = min(alts)
+            if self._needs_chunking(target):
+                if self._pending is not None:
+                    return n
+                req = next(r for r in self._waiting if r.bucket == target)
+                self._waiting.remove(req)
+                self._head_skips = 0 if req is head else self._head_skips + 1
+                self._start_chunked(free[0], req)
+                n += 1
+                continue
             group = [r for r in self._waiting if r.bucket == target][:take]
             for r in group:
                 self._waiting.remove(r)
@@ -295,19 +356,29 @@ class ServeLoop:
             self._admit_group(free[:len(group)], group)
             n += len(group)
 
-    def _admit_group(self, lanes: List[int], group: List[Request]) -> None:
-        """One batched prefill of `group` and one splice into `lanes`; each
-        lane's first token is the argmax of its prefill logits."""
+    def _ensure_state(self) -> None:
         if self.state is None:
             self.state = self.model.init_decode_state(self.lanes)
             self.tok = torch.zeros(self.lanes, dtype=torch.long,
                                    device=self.device)
+
+    def _admit_group(self, lanes: List[int], group: List[Request]) -> None:
+        """One batched prefill of `group` and one splice into `lanes`."""
+        self._ensure_state()
         rows = np.stack([self._padded_prompt(r) for r in group])
         lengths = np.array([len(r.prompt) for r in group], np.int32)
         logits, fresh = self.model.prefill_group(
             self.params, torch.as_tensor(rows, device=self.device),
             torch.as_tensor(lengths, device=self.device))
         self.counters["prefill_dispatches"] += 1
+        if len(group) > 1:
+            self.counters["grouped_requests"] += len(group)
+        self._splice(lanes, group, logits, fresh, bucket=len(rows[0]))
+
+    def _splice(self, lanes: List[int], group: List[Request], logits, fresh,
+                bucket: int, prefill_chunks: int = 1) -> None:
+        """Insert the prefilled batch-G state into `lanes` (row i into
+        lanes[i]); each lane's first token is the argmax of its logits."""
         self.counters["nonfinite_lanes"] += int(
             (~torch.isfinite(logits).all(dim=-1)).sum())
         src = np.full(self.lanes, -1, np.int64)
@@ -316,8 +387,6 @@ class ServeLoop:
         lane_t = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
         self.tok[lane_t] = torch.argmax(logits, -1)
         self.counters["admit_dispatches"] += 1
-        if len(group) > 1:
-            self.counters["grouped_requests"] += len(group)
         now = self._now()
         for lane, req in zip(lanes, group):
             self.active[lane] = req.max_new > 0
@@ -325,10 +394,52 @@ class ServeLoop:
             self.outputs[lane] = []
             self._lane_rid[lane] = req.rid
             st = self.stats[req.rid]
-            st.lane, st.t_admit, st.bucket = lane, now, len(rows[0])
+            st.lane, st.t_admit, st.bucket = lane, now, bucket
+            st.prefill_chunks = prefill_chunks
             if req.max_new <= 0:               # prefill-only request
                 st.t_first = now
                 self._finish_lane(lane, now)
+
+    # -- chunked (time-sliced) admission ---------------------------------------
+
+    def _start_chunked(self, lane: int, req: Request) -> None:
+        """Reserve `lane` and open a sliced prefill of `req`. The workspace
+        is the bucket rounded up to a multiple of the chunk, so every slice
+        is full width; only the chunks holding real tokens are run."""
+        self._ensure_state()
+        c = self.chunk_prefill
+        ws = math.ceil(req.bucket / c) * c
+        padded = np.zeros(ws, req.prompt.dtype)
+        padded[:len(req.prompt)] = req.prompt
+        self._pending = _ChunkedPrefill(
+            req=req, lane=lane, bucket=ws, padded=padded,
+            pstate=self.model.init_prefill_chunk_state(1, ws),
+            n_chunks=math.ceil(len(req.prompt) / c))
+
+    def _advance_chunked(self) -> bool:
+        """Run ONE slice of the in-flight sliced prefill, and after its last
+        slice the finalize and the splice → whether a slice ran."""
+        p = self._pending
+        if p is None:
+            return False
+        c = self.chunk_prefill
+        row0 = p.next_chunk * c
+        tok_c = torch.as_tensor(p.padded[None, row0:row0 + c],
+                                device=self.device)
+        length = torch.as_tensor([len(p.req.prompt)], dtype=torch.int32,
+                                 device=self.device)
+        p.x_last, p.pstate = self.model.prefill_chunk(
+            self.params, p.pstate, tok_c, row0, length)
+        self.counters["chunk_dispatches"] += 1
+        p.next_chunk += 1
+        if p.next_chunk >= p.n_chunks:
+            logits, fresh = self.model.prefill_finalize(
+                self.params, p.pstate, p.x_last, row0, length)
+            self.counters["prefill_dispatches"] += 1
+            self._pending = None
+            self._splice([p.lane], [p.req], logits, fresh, bucket=p.bucket,
+                         prefill_chunks=p.n_chunks)
+        return True
 
     # -- decode --------------------------------------------------------------
 
@@ -388,14 +499,18 @@ class ServeLoop:
     # -- driver ----------------------------------------------------------------
 
     def run(self) -> List[RequestStats]:
-        """Drive until the queue is drained and every lane is idle."""
+        """Drive until the queue is drained and every lane is idle. Each
+        round schedules, runs at most one prefill slice, then one decode
+        block."""
         if self._t0 is None:
             self._t0 = time.monotonic()
-        while self._arrivals or self._waiting or self.active.any():
+        while (self._arrivals or self._waiting or self.active.any()
+               or self._pending is not None):
             admitted = self.schedule()
+            sliced = self._advance_chunked()
             if self.active.any():
                 self._step_block()
-            elif not admitted and self._arrivals:
+            elif not (admitted or sliced) and self._arrivals:
                 time.sleep(min(max(self._arrivals[0].arrival - self._now(),
                                    0.0), 0.05))
         return self.completed
@@ -423,8 +538,7 @@ class ServeLoop:
 # CLI — the reference's flags, plus --device
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = ("chunk_prefill", "prefix_cache", "temperature", "top_k",
-               "top_p")
+_NOT_PORTED = ("prefix_cache", "temperature", "top_k", "top_p")
 
 
 def main(argv=None):
@@ -445,7 +559,9 @@ def main(argv=None):
                     help="continuous-batching demo: 2x batch staggered "
                          "variable-length requests through ServeLoop")
     ap.add_argument("--chunk-prefill", type=int, default=0,
-                    help="not ported yet (must stay 0)")
+                    help="chunked admission (--serve only): prompts whose "
+                         "bucket exceeds N tokens prefill in N-token slices "
+                         "between decode blocks (0 = whole-bucket)")
     ap.add_argument("--prefix-cache", type=int, default=0, metavar="BYTES",
                     help="not ported yet (must stay 0)")
     ap.add_argument("--no-buckets", action="store_true",
@@ -496,6 +612,7 @@ def main(argv=None):
         loop = ServeLoop(model, params, lanes=args.batch,
                          max_new=args.new_tokens, block=8,
                          buckets=None if args.no_buckets else "auto",
+                         chunk_prefill=args.chunk_prefill,
                          group_admit=not args.sequential_admit,
                          device=args.device)
         lens = (args.prompt_len, max(8, args.prompt_len // 2),
@@ -511,15 +628,16 @@ def main(argv=None):
         agg = loop.aggregate()
         for s in stats:
             print(f"  req {s.rid}: lane={s.lane} prompt={s.prompt_len} "
-                  f"bucket={s.bucket} new={len(s.tokens)} "
-                  f"latency={s.latency:.2f}s ttft={s.ttft:.2f}s "
-                  f"occ={s.occupancy:.2f}")
+                  f"bucket={s.bucket} chunks={s.prefill_chunks} "
+                  f"new={len(s.tokens)} latency={s.latency:.2f}s "
+                  f"ttft={s.ttft:.2f}s occ={s.occupancy:.2f}")
         print(f"arch={cfg.name} policy={args.policy} fused={args.fused} "
               f"device={model.device} served {len(stats)} reqs on "
               f"{args.batch} lanes in {dt:.2f}s "
               f"({agg['tokens_per_s']:.1f} tok/s, "
               f"p99_ttft={agg['p99_ttft_s']:.2f}s, "
               f"{loop.counters['prefill_dispatches']} prefill + "
+              f"{loop.counters['chunk_dispatches']} chunk + "
               f"{loop.counters['admit_dispatches']} admit dispatches, "
               f"{loop.counters['grouped_requests']} reqs group-admitted)")
         return

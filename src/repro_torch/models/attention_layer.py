@@ -1,5 +1,6 @@
 """GQA attention block wired to the UniCAIM cache — the port of
-`repro/models/attention_layer.py` (prefill and decode)."""
+`repro/models/attention_layer.py` (prefill, chunked prefill and
+decode)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -7,7 +8,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, PruneConfig
-from repro_torch.core.attention import decode_attention
+from repro_torch.core.attention import decode_attention, prefill_chunk_attend
 from repro_torch.core.cache import KVCache
 from repro_torch.core.pruning import prefill_and_prune
 from repro_torch.models.layers import rope
@@ -39,6 +40,29 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions,
                                    chunk=min(chunk, t), length=length)
     out = out.transpose(1, 2).reshape(b, t, cfg.q_dim).to(x.dtype)
     return out @ p["wo"], cache
+
+
+def attention_prefill_chunk(p, x: torch.Tensor, cfg: ModelConfig, positions,
+                            prune: PruneConfig, k_buf: torch.Tensor,
+                            v_buf: torch.Tensor, acc: torch.Tensor, row0: int,
+                            length: torch.Tensor):
+    """One chunk of a time-sliced (chunked) prefill.
+
+    x: [B,C,d] hidden for absolute rows [row0, row0+C); k_buf/v_buf:
+    [B,Hk,N,dh] streamed prompt K/V (rows < row0 already written); acc:
+    [B,Hk,N] running column sums. Projects the chunk, writes its K/V into
+    the buffers at row0 and adds its column sums into acc, all IN PLACE,
+    and attends causally over the buffer. Returns (y [B,C,d], k_buf,
+    v_buf, acc)."""
+    b, c, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    k_buf[:, :, row0:row0 + c] = k.to(k_buf.dtype)
+    v_buf[:, :, row0:row0 + c] = v.to(v_buf.dtype)
+    out, acc = prefill_chunk_attend(q, k_buf, v_buf, row0, length,
+                                    obs_window=prune.prefill_obs_window,
+                                    acc=acc)
+    out = out.transpose(1, 2).reshape(b, c, cfg.q_dim).to(x.dtype)
+    return out @ p["wo"], k_buf, v_buf, acc
 
 
 def decode_qkv(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache):

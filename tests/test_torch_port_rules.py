@@ -13,6 +13,7 @@ from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import baselines
 from repro_torch.core import quant
 from repro_torch.kernels import approx_score as approx_mod
+from repro_torch.kernels import flash_prefill as flash_mod
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import gather_attention as gather_mod
 from repro_torch.kernels import ops, ref
@@ -98,7 +99,7 @@ def test_cpu_tensor_takes_plain_path_without_a_launch():
 
 def _all_launches():
     return {**LAUNCHES, **fused_mod.LAUNCHES, **approx_mod.LAUNCHES,
-            **gather_mod.LAUNCHES}
+            **gather_mod.LAUNCHES, **flash_mod.LAUNCHES}
 
 
 def _score_args(bh, g, d, s, device, seed=0):
@@ -131,6 +132,13 @@ def _gather_args(bh, g, d, kk, kv_dtype, device, seed=0):
     return [a.to(device) for a in (q, k, v, valid)]
 
 
+def _prefill_args(b, hq, hk, n, d, device, seed=0):
+    """q [B,Hq,N,d], k/v [B,Hk,N,d] in bf16 (the model's prompt pass)."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
+            for shape in ((b, hq, n, d), (b, hk, n, d), (b, hk, n, d))]
+
+
 def test_cpu_tensors_take_every_plain_version_without_a_launch():
     """Every entry point of `ops` on CPU tensors runs the plain version and
     launches no kernel; each kernel wrapper refuses a CPU tensor."""
@@ -150,6 +158,16 @@ def test_cpu_tensors_take_every_plain_version_without_a_launch():
     torch.testing.assert_close(ops.gather_attention(*gargs),
                                ref.gather_attention_ref(*gargs), rtol=0,
                                atol=0)
+    fargs = _prefill_args(2, 4, 2, 40, 16, "cpu")
+    ln = torch.as_tensor([40, 23], dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.prefill_attention(*fargs, length=ln, obs_window=8),
+        ref.prefill_attention_ref(*fargs, length=ln, obs_window=8), rtol=0,
+        atol=0)
+    flat = [x.reshape(-1, 40, 16) for x in fargs]
+    torch.testing.assert_close(ops.flash_prefill(*flat, group=2),
+                               ref.flash_prefill_ref(*flat, group=2), rtol=0,
+                               atol=0)
     assert _all_launches() == before
     packed = list(sargs)
     packed[2] = quant.pack_int4(sargs[2])
@@ -157,7 +175,10 @@ def test_cpu_tensors_take_every_plain_version_without_a_launch():
                                                 num_blocks=2),
                  lambda: approx_mod.approx_score(*sargs),
                  lambda: approx_mod.approx_score_packed(*packed),
-                 lambda: gather_mod.gather_attention(*gargs)):
+                 lambda: gather_mod.gather_attention(*gargs),
+                 lambda: flash_mod.flash_prefill(
+                     *flat, torch.full((8,), 40, dtype=torch.int32),
+                     torch.zeros(4, 40), group=2, acc_group=2)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert _all_launches() == before
