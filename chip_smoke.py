@@ -7,15 +7,21 @@ Phases, in order (no failure is caught: any one exits non-zero):
   1. device  — a CUDA card of compute capability >= 9.0, its name and
                power limit (nvidia-smi);
   2. build   — every kernel of the port, built from the sources in this
-               checkout (nvcc, one process per source);
+               checkout (nvcc, one process per source) unless the build
+               cache holds them; the registers, stack and local memory
+               (spills) of the prompt kernel's routes and the HMMA
+               (tensor-core) instructions in their SASS (cuobjdump);
   3. kernels — each kernel against its plain PyTorch version on the card,
                at longchat-7b and granite-like (GQA) decode shapes, bf16
                and int8 K/V, and flash_prefill at the served prompt shape
                (4 x 2048, both contracts, lengths, obs_window, a row0
-               chunk, chunked-vs-whole column sums bit for bit), with
-               CUDA-event times beside the reckoned bound (and beside the
-               one PyTorch call that computes the function, where there is
-               one);
+               chunk, chunked-vs-whole column sums bit for bit; bf16 on
+               the tensor cores, its division checked bit for bit against
+               the operator, its out error over 12 seeds with and without
+               its exact rows beside the f32 route's; f32 on the CUDA
+               cores), with CUDA-event
+               times beside the reckoned bound (and beside the one PyTorch
+               call that computes the function, where there is one);
   4. serve   — full-width longchat-7b (random bf16 weights from a seed)
                serving 8 requests on 4 lanes through `ServeLoop`, bf16 and
                int8 KV, first with global selection (the ragged_decode
@@ -41,9 +47,11 @@ the last is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +104,7 @@ SEED = 0
 PROMPT_LEN, NEW_TOKENS, LANES = 2048, 32, 4
 CHUNK = 512                        # chunked admission's slice
 LENS = (PROMPT_LEN, PROMPT_LEN // 2, PROMPT_LEN - 7, PROMPT_LEN // 3)
+SERVED_SEED = len("served")        # the served prompt check's inputs
 
 
 def smi_line() -> str:
@@ -138,6 +147,77 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the compiler made of the prompt kernel
+# ---------------------------------------------------------------------------
+
+# the served instantiations: head dim 128, bf16-rounded (model contract)
+# and f32 (TPU contract) probabilities
+SERVED_TC = ("flash_prefill_tc_kernel<128, true>",
+             "flash_prefill_tc_kernel<128, false>")
+
+
+def prompt_kernel_name(text):
+    """The demangled name of a prompt kernel in a mangled one, or None."""
+    m = re.search(r"flash_prefill_tc_kernelILi(\d+)ELb([01])E", text)
+    if m:
+        return (f"flash_prefill_tc_kernel<{m.group(1)}, "
+                f"{'true' if m.group(2) == '1' else 'false'}>")
+    return "flash_prefill_f32_kernel" if "flash_prefill_f32_kernel" in text \
+        else None
+
+
+def prompt_kernel_report():
+    """Registers, stack and local memory (spills) of the prompt kernel's
+    routes and the HMMA instructions in their SASS, read by cuobjdump from
+    the built library, printed for the served instantiations and the f32
+    route. Fails when a tensor-core kernel holds no HMMA or spills, or the
+    served ones are missing. Returns the served ones' numbers."""
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        print(f"[build] {tool} not found: registers, spills and HMMA count "
+              "not measured")
+        return {"compiled": "not measured"}
+    lib = str(build.library_path("flash_prefill"))
+    report, name = {}, None
+    usage = subprocess.run([str(tool), "-res-usage", lib], capture_output=True,
+                           text=True, check=True).stdout
+    for line in usage.splitlines():
+        if "Function " in line:
+            name = prompt_kernel_name(line)
+        elif name and "REG:" in line:
+            num = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+            report[name] = {"registers": num["REG"], "stack_bytes":
+                            num["STACK"], "local_bytes": num["LOCAL"],
+                            "hmma": 0}
+            name = None
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = prompt_kernel_name(line)
+        elif name and "HMMA" in line:
+            report[name]["hmma"] += 1
+    for name in (*SERVED_TC, "flash_prefill_f32_kernel"):
+        r = report.get(name, {})
+        print(f"[build] {name}: {r.get('registers')} registers, "
+              f"{r.get('stack_bytes')} B stack, {r.get('local_bytes')} B "
+              f"local (spills), {r.get('hmma')} HMMA instructions in its "
+              "SASS (cuobjdump)")
+    tc = {n: r for n, r in report.items() if n.startswith("flash_prefill_tc")}
+    spilled = {r["stack_bytes"] + r["local_bytes"] for r in tc.values()}
+    print(f"[build] the {len(tc)} tensor-core instantiations (head dims 16 "
+          f"to 128, both contracts): HMMA counts "
+          f"{sorted({r['hmma'] for r in tc.values()})}, registers "
+          f"{sorted({r['registers'] for r in tc.values()})}, stack + local "
+          f"bytes {sorted(spilled)}")
+    assert all(n in report for n in SERVED_TC), sorted(report)
+    for name, r in tc.items():
+        assert r["hmma"] > 0, (name, "no tensor-core instruction")
+        assert r["stack_bytes"] == r["local_bytes"] == 0, (name, "spills")
+    return {"compiled": {n: report[n] for n in SERVED_TC}}
 
 
 # ---------------------------------------------------------------------------
@@ -490,17 +570,19 @@ def check_model_contract(name, b, hq, hk, n, d, dtype, lengths, obs=0,
                                                length=ln, obs_window=obs)
     torch.cuda.synchronize()
     acc_tol = FLIP_ACC_RTOL if v.dtype == torch.bfloat16 else FLASH_ACC_RTOL
-    e_out = float((out - want).abs().max())
+    d_out = (out - want).abs()
+    e_out = float(d_out.max())
     e_rel, zeros = acc_errors(acc, want_acc)
     over = int(((acc - want_acc).abs() > FLASH_ACC_RTOL * want_acc.abs()
                 ).sum())
     pads = pad_cols_zero(acc, ln)
     print(f"  model contract {name} B={b} Hq={hq} Hk={hk} N={n} d={d} "
           f"rows [{row0}, {row0 + c}) obs={obs} {str(dtype)[6:]}: "
-          f"max|dout|={e_out:.3g} (atol {FLASH_OUT_ATOL}), acc max rel "
-          f"{e_rel:.3g} (rtol {acc_tol:.3g}; {over} of {acc.numel()} "
-          f"entries past rtol {FLASH_ACC_RTOL}), pad columns exactly 0 "
-          f"{pads}")
+          f"max|dout|={e_out:.3g} (atol {FLASH_OUT_ATOL}; "
+          f"{int((d_out > FLASH_OUT_ATOL).sum())} of {out.numel()} outputs "
+          f"past it), acc max rel {e_rel:.3g} (rtol {acc_tol:.3g}; {over} of "
+          f"{acc.numel()} entries past rtol {FLASH_ACC_RTOL}), pad columns "
+          f"exactly 0 {pads}")
     assert torch.isfinite(out).all() and torch.isfinite(acc).all(), name
     assert e_out <= FLASH_OUT_ATOL and e_rel <= acc_tol, (name, e_out, e_rel)
     assert zeros and pads, name
@@ -537,17 +619,110 @@ def flash_bound(lengths, heads, d, kv_bytes):
     lane's length (rows past it are outputs the contract discards), and
     two causal products over each q-head's L (L + 1) / 2 live (row, column)
     pairs (q.k and p.v: out and the column sums both come from them) at the
-    bf16 tensor-core peak; those rows of q, k, v read once and of the f32
-    out written, acc's L columns read and written, one length per lane."""
+    peak of the inputs' type (bf16: the tensor cores; f32: the CUDA cores,
+    since the tensor cores would round f32 to TF32); those rows of q, k, v
+    read once and of the f32 out written, acc's L columns read and
+    written, one length per lane."""
     ln = np.asarray(lengths, dtype=np.float64)
     flops = heads * float((2 * 2 * d * ln * (ln + 1) / 2).sum())
     nbytes = (heads * int(ln.sum()) * (d * (3 * kv_bytes + 4) + 2 * 4)
               + 4 * len(ln))
-    t, by = bound(nbytes, bf16_flops=flops)
+    if kv_bytes == 4:
+        t, by = bound(nbytes, f32_flops=flops)
+    else:
+        t, by = bound(nbytes, bf16_flops=flops)
     return t, by, flops, nbytes
 
 
+def check_division(blocks=65536, per_thread=64, seed=1):
+    """The bf16 route divides without the operator's per-element branch
+    (div_fast); check it equals the operator bit for bit on 2^30 operand
+    pairs drawn over the range the kernel gives it."""
+    lib = build.load("flash_prefill")
+    fn = lib.flash_prefill_div_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    build.check_launch("flash_prefill_div_check", fn(
+        bad.data_ptr(), blocks, per_thread, seed,
+        torch.cuda.current_stream().cuda_stream))
+    n, n_bad = blocks * 256 * per_thread, int(bad)
+    print(f"  division without its branch (div_fast) vs the operator: "
+          f"{n_bad} of {n} quotients differ (a in [2^-64, 1], b in [1, 2^32))")
+    assert n_bad == 0
+
+
+def f32_route_rounded(q, k, v, ln):
+    """The f32 route (CUDA cores, the design PR 13 served bf16 prompts with:
+    each logit an f32 FMA chain over d) on f32 copies of bf16 q, k, v, with
+    the model contract's bf16-rounded probabilities → out [B, Hq, N, d].
+    A direct launch: the wrapper rounds p only for bf16 V."""
+    b, hq, n, d = q.shape
+    bh = b * hq
+    qf, kf, vf = (x.float().reshape(bh, n, d) for x in (q, k, v))
+    lens = torch.repeat_interleave(ln, hq)
+    out = torch.empty((bh, n, d), device="cuda")
+    part = torch.empty((bh, -(-n // 64), n), device="cuda")
+    acc = torch.zeros((bh, n), device="cuda")
+    lib = flash_mod._bind(build.load("flash_prefill"))
+    build.check_launch("flash_prefill", lib.flash_prefill_launch(
+        0, 0, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), part.data_ptr(), acc.data_ptr(), bh, n, n, d, 1, 1,
+        0, 0, 1, ctypes.c_float(1.0 / math.sqrt(d)), ctypes.c_float(0.0),
+        torch.cuda.current_stream().cuda_stream))
+    return out.reshape(b, hq, n, d)
+
+
+def exact_rows_survey(seeds=range(12)):
+    """The model contract's out error at the served prompt shape over
+    `seeds`: the bf16 route as served (exact rows below EXACT_BELOW), the
+    same with no exact rows (tensor-core logits alone), and the f32 route
+    with rounded probabilities. Printed, not asserted (the check above
+    holds the served route at its seed); also the share of exact rows."""
+    ln = torch.as_tensor(LENS, dtype=torch.int32, device="cuda")
+    past = {"served": 0, "tensor-core logits only": 0, "f32 route": 0}
+    for seed in seeds:
+        q, k, v = prompt_inputs(4, 32, 32, 2048, 128, torch.bfloat16, seed)
+        want, _ = ref.prefill_attention_ref(q, k, v, length=ln)
+        outs = {"served": ops.prefill_attention(q, k, v, length=ln)[0]}
+        below = flash_mod.EXACT_BELOW
+        flash_mod.EXACT_BELOW = 0.0
+        try:
+            outs["tensor-core logits only"] = ops.prefill_attention(
+                q, k, v, length=ln)[0]
+        finally:
+            flash_mod.EXACT_BELOW = below
+        outs["f32 route"] = f32_route_rounded(q, k, v, ln)
+        line = []
+        for key, out in outs.items():
+            d_out = (out - want).abs()
+            n_past = int((d_out > FLASH_OUT_ATOL).sum())
+            past[key] += n_past > 0
+            line.append(f"{key} {float(d_out.max()):.3g} ({n_past} past)")
+        print(f"  seed {seed}, model contract max|dout|: " + ", ".join(line))
+        if seed == SERVED_SEED:
+            # rows with l < EXACT_BELOW: largest probability above 1/32
+            n_exact = 0
+            causal = torch.ones((2048, 2048), dtype=torch.bool,
+                                device="cuda").tril()
+            for bi in range(4):
+                s_ = torch.matmul(q[bi].float(), k[bi].float().transpose(
+                    -1, -2)) / math.sqrt(128)
+                p_max = torch.softmax(s_.masked_fill(~causal, ref.NEG_INF),
+                                      -1).amax(-1)
+                n_exact += int((p_max > 1.0 / flash_mod.EXACT_BELOW).sum())
+                del s_, p_max
+    print(f"  seeds with an output past {FLASH_OUT_ATOL}, of {len(seeds)}: "
+          + ", ".join(f"{k} {v}" for k, v in past.items()) + f"; exact rows "
+          f"at seed {SERVED_SEED}: {n_exact} of {4 * 32 * 2048}")
+    return {"survey_seeds": len(seeds),
+            "survey_seeds_past_atol": past,
+            "exact_rows": n_exact}
+
+
 def phase_flash():
+    check_division()
     out_err, acc_rel = 0.0, 0.0
     served = [n for n in LENS]
     gqa = [1000, 517, 999, 64]
@@ -567,6 +742,7 @@ def phase_flash():
                        [n for n in served for _ in range(32)], 6)
     check_tpu_contract("granite-like GQA ragged N", 128, 4, 1000, 64,
                        torch.float32, [n for n in gqa for _ in range(32)], 7)
+    survey = exact_rows_survey()
 
     # chunked (4 x 512 rows, acc added in place) vs whole prompt, bit for bit
     q, k, v = prompt_inputs(4, 32, 32, 2048, 128, torch.bfloat16, 8)
@@ -595,25 +771,65 @@ def phase_flash():
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                          is_causal=True))
     t, by, flops, nbytes = flash_bound(served, 32, 128, 2)
-    # this design's own work: three causal products (q.k in both passes,
+    # this design's own work: three causal products (q.k in both sweeps,
     # p.v) over all N rows of every lane
     design = 3.0 * 2 * 128 * 128 * 2048 * 2049 / 2
     print(f"  time served shape (B=4 Hq=Hk=32 N=2048 d=128 bf16, lengths "
-          f"{served}, model contract): kernel pair {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {t:.4f} ms ({by}: {flops:.4g} flop, two "
-          f"causal products over the rows below each length, at the 989 "
-          f"TF/s bf16 tensor-core peak; {nbytes} B, "
+          f"{served}, model contract, tensor cores): kernel pair {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: {flops:.4g} "
+          f"flop, two causal products over the rows below each length, at "
+          f"the 989 TF/s bf16 tensor-core peak; {nbytes} B, "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), kernel / "
           f"bound {ms / t:.1f}x; library call F.scaled_dot_product_attention("
           f"is_causal=True), out only, no column sums: {lib:.4f} ms")
+    # the same without exact rows: the tensor-core logits alone
+    below = flash_mod.EXACT_BELOW
+    flash_mod.EXACT_BELOW = 0.0
+    try:
+        ms_tc = cuda_ms(lambda: flash_mod.flash_prefill(
+            qf, kf, vf, lens, acc, group=1, acc_group=1))
+    finally:
+        flash_mod.EXACT_BELOW = below
+    print(f"  time served shape, model contract, no exact rows (every logit "
+          f"on the tensor cores): kernel pair {ms_tc:.4f} ms; the exact rows "
+          f"(l < {flash_mod.EXACT_BELOW:g}) add {ms - ms_tc:.4f} ms")
     print(f"  this design's work, three causal products over all N rows: "
           f"{design:.4g} flop, {design / BF16_FLOPS_PER_S * 1e3:.4f} ms at "
-          f"the bf16 tensor-core peak, {design / F32_FLOPS_PER_S * 1e3:.4f} "
-          f"ms at the 67 TF/s f32 CUDA-core peak it runs on")
+          f"the bf16 tensor-core peak; the kernel pair does it at "
+          f"{design / ms / 1e9:.1f} TF/s")
+    # the TPU contract on the same route: f32 p as hi + lo, two p.v products
+    ms_tpu = cuda_ms(lambda: flash_mod.flash_prefill(
+        qf, kf, vf, lens, acc, group=1, acc_group=1, model=False))
+    print(f"  time served shape, TPU contract (f32 probabilities, bf16 out), "
+          f"tensor cores: kernel pair {ms_tpu:.4f} ms")
+    # the f32 route (CUDA cores) at the same shape, model contract
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    qf32, kf32, vf32 = (x.reshape(128, 2048, 128) for x in (q32, k32, v32))
+    ms32 = cuda_ms(lambda: flash_mod.flash_prefill(qf32, kf32, vf32, lens,
+                                                   acc, group=1, acc_group=1))
+    plain32 = cuda_ms(lambda: ref.prefill_attention_ref(q32, k32, v32,
+                                                        length=ln))
+    lib32 = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True))
+    t32, by32, _, nbytes32 = flash_bound(served, 32, 128, 4)
+    print(f"  time served shape in f32, model contract, CUDA cores: kernel "
+          f"pair {ms32:.4f} ms, plain {plain32:.4f} ms, bound {t32:.4f} ms "
+          f"({by32}: at the 67 TF/s f32 peak; {nbytes32} B), kernel / bound "
+          f"{ms32 / t32:.1f}x; F.scaled_dot_product_attention(is_causal="
+          f"True) in f32, out only: {lib32:.4f} ms")
+    del q32, k32, v32, qf32, kf32, vf32
     return out_err, {"bfloat16": (ms, plain, t, by, lib),
                      "extra": {"out_atol": FLASH_OUT_ATOL,
                                "acc_max_rel_err": acc_rel,
-                               "acc_rtol": FLIP_ACC_RTOL}}
+                               "acc_rtol": FLIP_ACC_RTOL,
+                               "design": "bf16: tensor cores (mma.sync "
+                                         "m16n8k16); f32: CUDA cores",
+                               "tpu_contract_ms": ms_tpu,
+                               "no_exact_rows_ms": ms_tc, **survey,
+                               "f32_route_ms": ms32,
+                               "f32_route_plain_ms": plain32,
+                               "f32_route_bound_ms": t32,
+                               "f32_route_library_ms": lib32}}
 
 
 # ---------------------------------------------------------------------------
@@ -940,6 +1156,7 @@ def main():
     t = time.monotonic()
     secs = build.build_all(verbose=True)
     print(f"[build] {secs} ({time.monotonic() - t:.1f}s wall)")
+    compiled = prompt_kernel_report()
 
     # 3. kernels
     worst, timings = {}, {}
@@ -956,6 +1173,7 @@ def main():
               f"probabilities, {FLIP_ACC_RTOL:.4g} with bf16-rounded ones)")
         worst[name], timings[name] = phase()
         print(f"[kernels] {name} done in {time.monotonic() - t:.1f}s")
+    timings["flash_prefill"]["extra"].update(compiled)
 
     # 4 + 5. full-width longchat-7b, global then block-local selection
     t = time.monotonic()
