@@ -123,6 +123,15 @@ def check_aligned(kernel: str, *tensors) -> None:
                          "dp4a")
 
 
+def check_copy_aligned(kernel: str, **needs) -> None:
+    """Raise unless each tensor of `needs` ({name: (tensor, bytes)}) starts
+    aligned to the width of the copies the kernel makes of it."""
+    for name, (t, width) in needs.items():
+        if t.data_ptr() % width:
+            raise ValueError(f"{kernel}: {name} must start {width}-byte "
+                             f"aligned for the kernel's {width}-byte copies")
+
+
 def check_smem(kernel: str, smem: int, dev: torch.device, what: str) -> None:
     """Raise when one CTA needs more dynamic shared memory (`smem` bytes,
     for `what`) than `dev` lets a block opt into."""

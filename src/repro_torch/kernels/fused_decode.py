@@ -32,7 +32,7 @@ def _bind(lib):
     if fn.argtypes is None:
         fn.argtypes = [_I] + [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P]
         fn.restype = _I
-        lib.fused_decode_smem_bytes.argtypes = [_I] * 4
+        lib.fused_decode_smem_bytes.argtypes = [_I] * 7
         lib.fused_decode_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -55,7 +55,8 @@ def fused_decode(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
     dev = q.device
     lib = _bind(build.load("fused_decode"))
     build.check_smem("fused_decode",
-                     lib.fused_decode_smem_bytes(s, g, d, select_k), dev,
+                     lib.fused_decode_smem_bytes(s, g, d, dv, select_k, nb,
+                                                 KV_KIND[k.dtype]), dev,
                      SMEM_WHAT.format(s=s, g=g))
     out = torch.empty((bh, g, dv), dtype=torch.float32, device=dev)
     probs = torch.empty((bh, s), dtype=torch.float32, device=dev)

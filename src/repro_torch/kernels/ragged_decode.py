@@ -47,9 +47,15 @@ def _bind(lib):
         fn.argtypes = ([_I] + [_P] * 14 + [_I] * 7
                        + [ctypes.c_float, _P])
         fn.restype = _I
-        lib.ragged_decode_smem_bytes.argtypes = [_I] * 4
+        lib.ragged_decode_smem_bytes.argtypes = [_I] * 6
         lib.ragged_decode_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def granule(nbytes: int) -> int:
+    """The widest copy (16, 8 or 4 bytes; 1 = bytewise) that tiles rows of
+    `nbytes`: the width at which the kernels copy K and V rows."""
+    return next((w for w in (16, 8, 4) if nbytes % w == 0), 1)
 
 
 def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
@@ -58,8 +64,9 @@ def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
     `fused_decode` → (q as f32, the inputs in launch order, (BH, S, G, d,
     dv)). Raises on a tensor that is not contiguous on the CUDA card, on a
     shape or dtype the kernels do not take, on select_k outside [1, S], on
-    int8 rows that are not 4-byte aligned and on G above the kernels'
-    limit."""
+    G above the kernels' limit, and on qq, the mirror, K or V not starting
+    aligned to the kernels' copies of it (4 bytes for qq; 16 for the mirror
+    when d % 16 == 0, else 4; `granule` of a row's bytes for K and V)."""
     bh, g, d = q.shape
     s = mirror.shape[1]
     dv = v.shape[-1]
@@ -79,7 +86,10 @@ def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
         raise ValueError(f"select_k={select_k} outside [1, S={s}]")
     if d % 4:
         raise ValueError(f"{kernel}: head_dim {d} is not a multiple of 4")
-    build.check_aligned(kernel, qq, mirror)
+    build.check_copy_aligned(
+        kernel, qq=(qq, 4), mirror=(mirror, 16 if d % 16 == 0 else 4),
+        k=(k, granule(d * k.element_size())),
+        v=(v, granule(dv * v.element_size())))
     if g > MAX_GROUPS:
         raise ValueError(f"G={g} query rows per kv-head exceeds the "
                          f"kernels' {MAX_GROUPS}")
@@ -100,7 +110,8 @@ def ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale, vscale,
                         {"fills": (fills, (bh,), torch.int32)}, dev)
     lib = _bind(build.load("ragged_decode"))
     build.check_smem("ragged_decode",
-                     lib.ragged_decode_smem_bytes(s, g, d, select_k), dev,
+                     lib.ragged_decode_smem_bytes(s, g, d, dv, select_k,
+                                                  KV_KIND[k.dtype]), dev,
                      SMEM_WHAT.format(s=s, g=g))
     out = torch.empty((bh, g, dv), dtype=torch.float32, device=dev)
     probs = torch.empty((bh, s), dtype=torch.float32, device=dev)
