@@ -43,7 +43,18 @@ Phases, in order (no failure is caught: any one exits non-zero):
                approx_score_packed, top-k, gather_attention); then a few
                decode steps under torch.profiler: host wall per step
                against the device time of its kernels; and one 4 x 2048
-               prompt pass under torch.profiler.
+               prompt pass under torch.profiler;
+  6. prefix  — the prefix cache: 8 requests sharing a 1,536-token system
+               prompt (two exact repeats, one sharing 1,024 tokens, one
+               unrelated) through one ServeLoop configuration
+               (chunk_prefill = 512, global selection), bf16 and int8 KV,
+               cold (no cache) and warm (a budget that holds every entry):
+               warm streams equal cold ones exactly, the hit, exact-hit and
+               chunk counts are the trace's, flash_prefill launches 32 x
+               the chunk dispatches and ragged_decode 32 x the decode steps
+               in both loops, and the trie's counted bytes lie in (0,
+               budget]; printed: wall, tok/s, TTFT, and the host time of
+               the snapshot copies and of an exact-hit splice.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -53,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -1175,6 +1187,125 @@ def phase_chunked(cfg, params, model, whole, chunked, chunk):
     assert worst_kept >= KEPT_MIN and worst_logit <= PATH_ATOL
 
 
+# phase 6: a shared system prompt P; A-D = P + 512 new tokens, E = A and
+# F = B (exact repeats), G = P[:1024] + 500 new tokens, H unrelated
+PREFIX_SHARED, PREFIX_G_HEAD, PREFIX_G_NEW, PREFIX_H = 1536, 1024, 500, 682
+PREFIX_BUDGET = 16 << 30           # holds every entry of the trace (~11 GB)
+
+
+def prefix_trace(vocab):
+    """(prompt, max_new, prompt tokens a warm loop should reuse, exact)."""
+    rng = np.random.default_rng(SEED)
+    p = rng.integers(0, vocab, PREFIX_SHARED)
+    a, b, c, d = (np.concatenate([p, rng.integers(
+        0, vocab, PROMPT_LEN - PREFIX_SHARED)]) for _ in range(4))
+    g = np.concatenate([p[:PREFIX_G_HEAD],
+                        rng.integers(0, vocab, PREFIX_G_NEW)])
+    h = rng.integers(0, vocab, PREFIX_H)
+    # H (the shortest bucket) is admitted first, then A; B-D resume from
+    # A's rows at the deepest chunk boundary inside both prompts, G at
+    # 1,024; E and F splice A's and B's finalized states
+    reuse = [(0, False), (PREFIX_SHARED, False), (PREFIX_SHARED, False),
+             (PREFIX_SHARED, False), (PROMPT_LEN, True), (PROMPT_LEN, True),
+             (PREFIX_G_HEAD, False), (0, False)]
+    return [(x, NEW_TOKENS // (1 + i % 2), *reuse[i])
+            for i, x in enumerate((a, b, c, d, a, b, g, h))]
+
+
+def run_prefix_loop(model, params, trace, budget):
+    loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS,
+                     block=8, chunk_prefill=CHUNK, prefix_cache_bytes=budget,
+                     device="cuda")
+    handles = [loop.submit(Request(prompt=p, max_new=m))
+               for p, m, _, _ in trace]
+    torch.cuda.synchronize()
+    reset_launches()
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
+    t0 = time.monotonic()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    c = loop.counters
+    assert all(h.done and len(h.tokens) == m
+               for h, (_, m, _, _) in zip(handles, trace))
+    assert c["nonfinite_lanes"] == 0
+    main_path = {"ragged_decode": counts.pop("ragged_decode"),
+                 "flash_prefill": counts.pop("flash_prefill")}
+    layers = model.cfg.num_layers
+    assert main_path["ragged_decode"] == layers * c["decode_steps"] > 0, c
+    assert main_path["flash_prefill"] == layers * c["chunk_dispatches"] > 0
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    assert not any(counts.values()), counts
+    return loop, handles, wall, main_path
+
+
+def phase_prefix(cfg, params, kv, smi):
+    """The prefix cache at full width: cold and warm loops of one
+    configuration over the shared-prefix trace. Returns the warm and cold
+    loops' ragged_decode and flash_prefill launches."""
+    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
+                              select_k=PROMPT_LEN // 16, fused=True,
+                              kv_dtype=kv)
+    model = Model(cfg, prune, device="cuda")
+    trace = prefix_trace(cfg.vocab_size)
+    launches = {"ragged_decode": 0, "flash_prefill": 0}
+    runs = {}
+    for name, budget in (("cold", 0), ("warm", PREFIX_BUDGET)):
+        loop, handles, wall, counted = run_prefix_loop(model, params, trace,
+                                                       budget)
+        c, agg = loop.counters, loop.aggregate()
+        for kernel, n in counted.items():
+            launches[kernel] += n
+        toks = sum(len(h.tokens) for h in handles)
+        print(f"  prefix {name} kv={kv}: {len(handles)} requests, {toks} "
+              f"tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, p50 TTFT "
+              f"{agg['p50_ttft_s']:.3f}s; {c['decode_steps']} decode steps, "
+              f"{c['chunk_dispatches']} chunk + {c['prefill_dispatches']} "
+              f"finalize dispatches; lookups {c['prefix_lookups']}, hits "
+              f"{c['prefix_hits']} ({c['prefix_exact_hits']} exact), "
+              f"{c['prefix_tokens_reused']} prompt tokens reused  [{smi}]")
+        runs[name] = (loop, handles, wall)
+        if name == "warm":
+            pc = loop.prefix_cache
+            host = loop.prefix_host_s
+            print(f"  prefix warm kv={kv}: trie {pc.bytes} bytes counted in "
+                  f"{pc.entries} entries (budget {PREFIX_BUDGET}), "
+                  f"{pc.evictions} evictions; host time of the snapshot "
+                  f"copies {host['insert_s']:.3f}s, of the "
+                  f"{c['prefix_exact_hits']} exact-hit splices "
+                  f"{host['splice_s']:.4f}s")
+    (cold, hc, _), (warm, hw, _) = runs["cold"], runs["warm"]
+    cc, wc = cold.counters, warm.counters
+    print("  TTFT cold -> warm: " + ", ".join(
+        f"req {a.rid} ({'exact' if exact else n}) {a.stats.ttft:.3f} -> "
+        f"{b.stats.ttft:.3f}s"
+        for a, b, (_, _, n, exact) in zip(hc, hw, trace) if n))
+    same = [a.tokens == b.tokens for a, b in zip(hc, hw)]
+    print(f"  warm vs cold streams equal: {sum(same)} of {len(same)}")
+    assert all(same), same
+    assert [(h.stats.prefix_tokens, h.stats.prefix_exact) for h in hw] == [
+        (n, exact) for _, _, n, exact in trace]
+    hits = [t for t in trace if t[2]]
+    assert wc["prefix_lookups"] == len(trace)
+    assert wc["prefix_hits"] == len(hits)
+    assert wc["prefix_exact_hits"] == sum(t[3] for t in trace)
+    assert wc["prefix_tokens_reused"] == sum(t[2] for t in trace)
+    skipped = sum(math.ceil(len(p) / CHUNK) if exact else n // CHUNK
+                  for p, _, n, exact in trace)
+    assert wc["chunk_dispatches"] == cc["chunk_dispatches"] - skipped, (
+        wc["chunk_dispatches"], cc["chunk_dispatches"], skipped)
+    assert cc["chunk_dispatches"] == sum(math.ceil(len(p) / CHUNK)
+                                         for p, _, _, _ in trace)
+    assert wc["prefill_dispatches"] == (cc["prefill_dispatches"]
+                                        - sum(t[3] for t in trace))
+    assert cold.prefix_cache is None and cc["prefix_lookups"] == 0
+    pc = warm.prefix_cache
+    assert 0 < pc.bytes <= PREFIX_BUDGET and pc.evictions == 0, pc.stats()
+    return launches
+
+
 def three_pass_attend(cache, q, prune):
     """The composed decode step through the ops kernels, after the token
     write: approx_score over the mirror → group sum, selection bias and
@@ -1447,6 +1578,14 @@ def main():
             phase_profile(params, model, st, tok)
             del st, model
             print(f"[profile] {tag} phase {time.monotonic() - t:.1f}s")
+
+    # 6. the prefix cache, cold and warm
+    for kv in ("bf16", "int8"):
+        t = time.monotonic()
+        for name, n in phase_prefix(cfg, params, kv, smi).items():
+            launches[name] += n
+        gc.collect()    # trie nodes point at their parents: free ~10 GB
+        print(f"[prefix] kv={kv} phase {time.monotonic() - t:.1f}s")
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key

@@ -249,8 +249,10 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
     if prune.accumulate == "approx":
         probs_acc = scoring.score_probs(s_approx, head_dim)
     else:  # 'exact' — full-precision probabilities (ablation)
+        # the reference scores `cache.k` as stored: in int8 mode the codes,
+        # without their scales (ROADMAP, quirks of the reference)
         probs_acc = scoring.score_probs(
-            scoring.exact_scores(q, cache.k_values(), cache.valid), head_dim)
+            scoring.exact_scores(q, cache.k, cache.valid), head_dim)
     _set_acc(cache, scoring.accumulate(cache.acc, probs_acc, hk,
                                        prune.acc_decay), active)
     return out

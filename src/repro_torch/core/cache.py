@@ -120,6 +120,16 @@ def lane_slice(cache: KVCache, lane: int, batch_axis: int = 0) -> KVCache:
     return cache.map(lambda a: a.narrow(batch_axis, lane, 1).clone())
 
 
+def lane_insert(cache: KVCache, lane: int, fresh: KVCache,
+                batch_axis: int = 0) -> KVCache:
+    """In place: lane `lane` takes the batch-1 `fresh` cache (a copy)."""
+    for f in FIELDS:
+        a = getattr(cache, f)
+        if a is not None:
+            a.narrow(batch_axis, lane, 1).copy_(getattr(fresh, f))
+    return cache
+
+
 def lanes_insert(cache: KVCache, src, fresh: KVCache,
                  batch_axis: int = 0) -> KVCache:
     """In place: lane b takes `fresh` row `src[b]` where `src[b] >= 0` and
@@ -147,6 +157,62 @@ def lane_reset(cache: KVCache, lane: int, batch_axis: int = 0) -> KVCache:
         if a is not None:
             a.narrow(batch_axis, lane, 1).fill_(-1 if f == "pos" else 0)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Prefix snapshots. When static pruning keeps every prompt token (prompt
+# length <= heavy budget), `prefill_fill` writes them in order into slots
+# [0, length): the layout is the identity, `acc` holds the raw column sums,
+# and rows [0, length) ARE the pre-pruning workspace a chunked prefill
+# would stream — a valid resume donor (`Model.resume_prefill_chunk_state`).
+# The serving engine's prefix cache turns such completed whole-bucket
+# prefills into radix-trie donors (`launch/prefix_cache.py`). int8 caches
+# never qualify: quantization at finalize is lossy, so their donors come
+# from pre-quantization workspace snapshots instead.
+# ---------------------------------------------------------------------------
+
+
+def prefix_slot_aligned(kv: KVCache, length: int) -> bool:
+    """True when rows [0, length) of a finalized batch-1 cache
+    (single-layer [1, Hk, S, ·] or layer-stacked [L, 1, Hk, S, ·]) are the
+    raw prompt K/V in token order: every lane/layer has fill == step ==
+    length, positions 0..length-1 in order, a fully valid prefix, and
+    full-precision storage. Checked on the host from the light fields
+    only; k/v/acc are not read."""
+    if kv.quantized_kv or kv.v is None:
+        return False
+    if length <= 0 or length > kv.slots:
+        return False
+    if not (bool((kv.fill == length).all())
+            and bool((kv.step == length).all())):
+        return False
+    pos = kv.pos[..., :length].cpu()
+    if not torch.equal(pos, torch.arange(length, dtype=pos.dtype)
+                       .expand_as(pos)):
+        return False
+    return bool(kv.valid[..., :length].all())
+
+
+def cache_prefix_rows(kv: KVCache, length: int
+                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]]:
+    """(k, v, acc) rows [0, length) of a slot-aligned finalized batch-1
+    layer-stacked cache as CPU tensors that own their storage
+    ([L, Hk, length, ·] / [L, Hk, length]), or None when the prefix is not
+    slot-aligned (static pruning rewrote it, or the cache is quantized).
+    k/v/acc are copied only after the light fields passed the gate.
+
+    The rows equal the pre-pruning chunked-prefill workspace for the same
+    tokens: K/V bit for bit always, the f32 `acc` sums bit for bit when
+    the donor prefill's query-chunk grid equals the resume chunk size (the
+    engine requires `chunk_prefill == cfg.attn_chunk` for that)."""
+    if not prefix_slot_aligned(kv, length):
+        return None
+
+    def rows(a):
+        return a[:, 0, :, :length].to("cpu", copy=True)
+
+    return rows(kv.k), rows(kv.v), rows(kv.acc)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Serving engine — the port of `repro/launch/serve.py` (the greedy core
-and chunked admission).
+"""Serving engine — the port of `repro/launch/serve.py` (the greedy core,
+chunked admission and the prefix cache).
 
 `ServeLoop` keeps a fixed number of decode lanes and a request queue.
 Admission is grouped: every arrived request that pads to the same bucket
@@ -10,10 +10,13 @@ starve). Decode runs in blocks of `block` steps over all lanes; a lane that
 hits EOS or its budget stops writing its cache at once (an in-device
 `active` mask) and is refilled from the queue at the next block boundary.
 With `chunk_prefill=C` a prompt whose bucket exceeds C is prefilled in
-C-token slices on a reserved lane, one slice between decode blocks.
+C-token slices on a reserved lane, one slice between decode blocks. With
+`prefix_cache_bytes=N` a radix trie of host snapshots (`prefix_cache.py`)
+lets a repeated prompt splice its cached state with no prefill, and a
+prompt that shares a cached prefix resume its sliced prefill past it.
 
-Not ported yet: sampling knobs, the prefix cache, preemption, fault
-tolerance, the degrade ladder and meshes.
+Not ported yet: sampling knobs, preemption, fault tolerance, the degrade
+ladder and meshes.
 """
 from __future__ import annotations
 
@@ -30,8 +33,11 @@ import torch
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import baselines
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (Model, PrefillChunkState,
-                                            lanes_insert)
+from repro_torch.launch.prefix_cache import PrefixCache, RowsEntry, StateEntry
+from repro_torch.models.transformer import (DecodeState, Model,
+                                            PrefillChunkState)
+from repro_torch.surgery import (cache_prefix_rows, state_lane_insert,
+                                 state_lanes_insert)
 
 # ---------------------------------------------------------------------------
 # Prompt-length buckets: prompts are right-padded to a small doubling grid
@@ -115,6 +121,7 @@ class Request:
     prompt: np.ndarray
     max_new: Optional[int] = None        # None → the loop's default
     arrival: float = 0.0
+    reuse_prefix: bool = True            # consult + feed the prefix cache
     # engine-assigned fields — never pass these to the constructor
     rid: int = -1
     bucket: int = 0            # memoized pad width under the loop's grid
@@ -159,6 +166,8 @@ class RequestStats:
     occupancy: float = 0.0     # mean cache fill fraction at completion
     bucket: int = 0            # padded prefill width
     prefill_chunks: int = 1    # dispatches the prefill was sliced into
+    prefix_tokens: int = 0     # prompt tokens served from the prefix cache
+    prefix_exact: bool = False  # whole prompt hit (state splice, no prefill)
 
     @property
     def latency(self) -> float:
@@ -180,6 +189,14 @@ class _ChunkedPrefill:
     n_chunks: int              # chunks holding real tokens
     next_chunk: int = 0
     x_last: Optional[torch.Tensor] = None   # hidden of the latest chunk
+    base: int = 0              # rows [0, base) came from a prefix-cache donor
+    collect: bool = False      # snapshot chunk boundaries for the trie
+    # (boundary q, host copy of acc[:, 0, :, :q]): acc columns keep
+    # absorbing mass from later query rows, so each boundary keeps its own
+    # copy, taken right after the chunk that ends at q; the K/V rows are
+    # write-once and are copied once, after the splice
+    snap_acc: List[Tuple[int, torch.Tensor]] = dataclasses.field(
+        default_factory=list)
 
 
 class ServeLoop:
@@ -212,13 +229,31 @@ class ServeLoop:
     not instead. `RequestStats.prefill_chunks` counts a request's slices.
     A model without `supports_chunked_prefill()` falls back to whole-bucket
     admission.
+
+    Prefix cache (`prefix_cache_bytes=N > 0`): a host-side radix trie under
+    an N-byte LRU budget. A solo whole-bucket admission and every sliced
+    one look the prompt up first: an exact hit splices the cached
+    finalized state into the lane (no prefill dispatch); a sliced prefill
+    may instead resume from the deepest cached chunk boundary of its
+    prompt and run only the chunks past it (`resume_prefill_chunk_state`),
+    equal to the run from row 0 bit for bit. Completed prefills insert
+    their finalized state and, for sliced ones, the workspace rows at each
+    chunk boundary inside the prompt; a whole-bucket prefill whose pruning
+    kept every token donates rows too when `chunk_prefill` equals
+    `cfg.attn_chunk` (the same column-sum order). Grouped admissions of
+    two or more neither look up nor insert. `Request(reuse_prefix=False)`
+    opts out. Counters: `prefix_lookups`, `prefix_hits`,
+    `prefix_exact_hits`, `prefix_copies`, `prefix_tokens_reused`,
+    `prefix_inserts`, `prefix_evictions`; `prefix_host_s` holds the host
+    seconds of the trie's snapshot copies (`insert_s`) and of exact-hit
+    splices (`splice_s`).
     """
 
     def __init__(self, model: Model, params, lanes: int, max_new: int = 64,
                  eos: int = -1, block: int = 1,
                  buckets: Union[str, Sequence[int], None] = "auto",
                  chunk_prefill: int = 0, group_admit: bool = True,
-                 device="cuda"):
+                 prefix_cache_bytes: int = 0, device="cuda"):
         _check_device(model, device)
         self.model = model
         self.params = params
@@ -232,6 +267,14 @@ class ServeLoop:
         if self.chunk_prefill and not model.supports_chunked_prefill():
             self.chunk_prefill = 0            # whole-bucket admission
         self._pending: Optional[_ChunkedPrefill] = None
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(prefix_cache_bytes) if prefix_cache_bytes > 0
+            else None)
+        # rows donors ride the sliced path: a resume repeats the donor's
+        # column-sum order only on the donor's own chunk grid
+        self._rows_reuse = (self.prefix_cache is not None
+                            and self.chunk_prefill > 0)
+        self.prefix_host_s = {"insert_s": 0.0, "splice_s": 0.0}
         self.group_admit = bool(group_admit)
         self._head_skips = 0
         self.device = model.device
@@ -252,6 +295,9 @@ class ServeLoop:
             "prefill_dispatches": 0, "admit_dispatches": 0,
             "grouped_requests": 0, "chunk_dispatches": 0,
             "decode_blocks": 0, "decode_steps": 0, "nonfinite_lanes": 0,
+            "prefix_lookups": 0, "prefix_hits": 0, "prefix_exact_hits": 0,
+            "prefix_copies": 0, "prefix_tokens_reused": 0,
+            "prefix_inserts": 0, "prefix_evictions": 0,
         }
 
     def _now(self) -> float:
@@ -353,7 +399,10 @@ class ServeLoop:
             for r in group:
                 self._waiting.remove(r)
             self._head_skips = 0 if head in group else self._head_skips + 1
-            self._admit_group(free[:len(group)], group)
+            if len(group) == 1:
+                self._admit_lane(free[0], group[0])
+            else:
+                self._admit_group(free[:len(group)], group)
             n += len(group)
 
     def _ensure_state(self) -> None:
@@ -362,8 +411,22 @@ class ServeLoop:
             self.tok = torch.zeros(self.lanes, dtype=torch.long,
                                    device=self.device)
 
-    def _admit_group(self, lanes: List[int], group: List[Request]) -> None:
-        """One batched prefill of `group` and one splice into `lanes`."""
+    def _admit_lane(self, lane: int, req: Request) -> None:
+        """Solo whole-bucket admission: an exact-prompt hit in the prefix
+        cache splices the cached state; otherwise one prefill, spliced,
+        then inserted into the trie as a donor."""
+        self._ensure_state()
+        hit, _ = self._cache_match(req, rows_cap=None)
+        if hit is not None:
+            self._splice_cached(lane, req, hit)
+            return
+        logits, fresh, bucket = self._admit_group([lane], [req])
+        self._cache_insert_finalized(req, logits[0], fresh, bucket)
+
+    def _admit_group(self, lanes: List[int], group: List[Request]
+                     ) -> Tuple[torch.Tensor, DecodeState, int]:
+        """One batched prefill of `group` and one splice into `lanes` →
+        (logits, prefilled state, bucket)."""
         self._ensure_state()
         rows = np.stack([self._padded_prompt(r) for r in group])
         lengths = np.array([len(r.prompt) for r in group], np.int32)
@@ -374,47 +437,176 @@ class ServeLoop:
         if len(group) > 1:
             self.counters["grouped_requests"] += len(group)
         self._splice(lanes, group, logits, fresh, bucket=len(rows[0]))
+        return logits, fresh, len(rows[0])
 
     def _splice(self, lanes: List[int], group: List[Request], logits, fresh,
-                bucket: int, prefill_chunks: int = 1) -> None:
+                bucket: int, prefill_chunks: int = 1,
+                prefix_tokens: int = 0) -> None:
         """Insert the prefilled batch-G state into `lanes` (row i into
         lanes[i]); each lane's first token is the argmax of its logits."""
         self.counters["nonfinite_lanes"] += int(
             (~torch.isfinite(logits).all(dim=-1)).sum())
         src = np.full(self.lanes, -1, np.int64)
         src[lanes] = np.arange(len(group))
-        lanes_insert(self.state, src, fresh)
+        state_lanes_insert(self.state, src, fresh)
         lane_t = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
         self.tok[lane_t] = torch.argmax(logits, -1)
         self.counters["admit_dispatches"] += 1
         now = self._now()
         for lane, req in zip(lanes, group):
-            self.active[lane] = req.max_new > 0
-            self.remaining[lane] = max(req.max_new, 0)
-            self.outputs[lane] = []
-            self._lane_rid[lane] = req.rid
-            st = self.stats[req.rid]
-            st.lane, st.t_admit, st.bucket = lane, now, bucket
-            st.prefill_chunks = prefill_chunks
-            if req.max_new <= 0:               # prefill-only request
-                st.t_first = now
-                self._finish_lane(lane, now)
+            self._register_admit(lane, req, now, bucket, prefill_chunks,
+                                 prefix_tokens)
+
+    def _register_admit(self, lane: int, req: Request, now: float,
+                        bucket: int, prefill_chunks: int,
+                        prefix_tokens: int, prefix_exact: bool = False
+                        ) -> None:
+        """Host-side bookkeeping for a request just spliced into `lane`."""
+        self.active[lane] = req.max_new > 0
+        self.remaining[lane] = max(req.max_new, 0)
+        self.outputs[lane] = []
+        self._lane_rid[lane] = req.rid
+        st = self.stats[req.rid]
+        st.lane, st.t_admit, st.bucket = lane, now, bucket
+        st.prefill_chunks = prefill_chunks
+        st.prefix_tokens, st.prefix_exact = prefix_tokens, prefix_exact
+        if req.max_new <= 0:                   # prefill-only request
+            st.t_first = now
+            self._finish_lane(lane, now)
+
+    # -- prefix cache ----------------------------------------------------------
+
+    def _cache_match(self, req: Request, rows_cap: Optional[int]
+                     ) -> Tuple[Optional[StateEntry], Optional[RowsEntry]]:
+        """One admission-time lookup → (exact-state hit, rows donor), at
+        most one not None. `rows_cap` bounds the donor depth (the deepest
+        chunk boundary strictly inside the prompt); None skips the rows
+        search (whole-bucket admission)."""
+        pc = self.prefix_cache
+        if pc is None or not req.reuse_prefix:
+            return None, None
+        self.counters["prefix_lookups"] += 1
+        st = pc.match_state(req.prompt)
+        if st is not None:
+            self.counters["prefix_hits"] += 1
+            self.counters["prefix_exact_hits"] += 1
+            return st, None
+        if rows_cap is not None and rows_cap >= self.chunk_prefill:
+            rows = pc.match_rows(req.prompt, rows_cap)
+            if rows is not None:
+                self.counters["prefix_hits"] += 1
+                return None, rows
+        return None, None
+
+    def _splice_cached(self, lane: int, req: Request,
+                       entry: StateEntry) -> None:
+        """Admit from an exact-prompt hit: copy the cached finalized state
+        into `lane` (no prefill dispatch); its first token is the argmax of
+        the cached logits, so a greedy repeat reproduces the original
+        stream."""
+        t0 = time.perf_counter()
+        state_lane_insert(self.state, lane, entry.state)
+        self.tok[lane] = torch.argmax(entry.logits.to(self.device), -1)
+        self.prefix_host_s["splice_s"] += time.perf_counter() - t0
+        self.counters["admit_dispatches"] += 1
+        self.counters["prefix_copies"] += 1
+        self.counters["prefix_tokens_reused"] += entry.length
+        self._register_admit(lane, req, self._now(), entry.bucket,
+                             prefill_chunks=0, prefix_tokens=entry.length,
+                             prefix_exact=True)
+
+    def _sync_cache_counters(self) -> None:
+        pc = self.prefix_cache
+        self.counters["prefix_inserts"] = pc.inserts
+        self.counters["prefix_evictions"] = pc.evictions
+
+    def _state_entry(self, req: Request, bucket: int, logits,
+                     fresh: DecodeState) -> StateEntry:
+        """A trie entry holding host copies of a finalized batch-1 state
+        and its logits."""
+        return StateEntry(
+            length=len(req.prompt), bucket=bucket,
+            logits=logits.to("cpu", copy=True),
+            state=DecodeState(kv=fresh.kv.map(
+                lambda a: a.to("cpu", copy=True))))
+
+    def _cache_insert_finalized(self, req: Request, logits,
+                                fresh: DecodeState, bucket: int) -> None:
+        """Insert a completed whole-bucket prefill into the trie: the
+        finalized state always; also a rows donor when the static pruning
+        left the prefix slot-aligned, the prompt length sits on the resume
+        chunk grid, and that grid is the donor's column-sum grid
+        (cfg.attn_chunk)."""
+        pc = self.prefix_cache
+        if pc is None or not req.reuse_prefix:
+            return
+        t0 = time.perf_counter()
+        entry = self._state_entry(req, bucket, logits, fresh)
+        pc.insert_state(req.prompt, entry)
+        c = self.chunk_prefill
+        n = len(req.prompt)
+        if (self._rows_reuse and n % c == 0
+                and c == self.model.cfg.attn_chunk):
+            rows = cache_prefix_rows(entry.state.kv, n)
+            if rows is not None:
+                pc.insert_rows(req.prompt, RowsEntry(n, *rows))
+        self.prefix_host_s["insert_s"] += time.perf_counter() - t0
+        self._sync_cache_counters()
+
+    def _cache_insert_chunked(self, p: _ChunkedPrefill, logits,
+                              fresh: DecodeState) -> None:
+        """Insert a finished sliced prefill: the finalized state at the
+        full prompt, and one rows donor per collected chunk boundary (the
+        K/V rows [0, q) of the workspace, which nothing writes after
+        their chunk, beside that boundary's own acc copy)."""
+        pc = self.prefix_cache
+        if pc is None or not p.req.reuse_prefix:
+            return
+        t0 = time.perf_counter()
+        tokens = p.req.prompt
+        pc.insert_state(tokens, self._state_entry(p.req, p.bucket, logits,
+                                                  fresh))
+        for q, acc_q in p.snap_acc:
+            pc.insert_rows(tokens[:q], RowsEntry(
+                q, p.pstate.k[:, 0, :, :q].to("cpu", copy=True),
+                p.pstate.v[:, 0, :, :q].to("cpu", copy=True), acc_q))
+        self.prefix_host_s["insert_s"] += time.perf_counter() - t0
+        self._sync_cache_counters()
 
     # -- chunked (time-sliced) admission ---------------------------------------
 
     def _start_chunked(self, lane: int, req: Request) -> None:
         """Reserve `lane` and open a sliced prefill of `req`. The workspace
         is the bucket rounded up to a multiple of the chunk, so every slice
-        is full width; only the chunks holding real tokens are run."""
+        is full width; only the chunks holding real tokens are run.
+
+        Prefix cache: an exact-prompt hit splices the cached state instead
+        (no slices, no reserved lane); a rows hit at depth p copies the
+        cached rows into the workspace and resumes at chunk p / C."""
         self._ensure_state()
         c = self.chunk_prefill
+        # the final chunk (its hidden feeds the logits) always runs
+        cap = ((len(req.prompt) - 1) // c) * c
+        hit, rows = self._cache_match(req, rows_cap=cap)
+        if hit is not None:
+            self._splice_cached(lane, req, hit)
+            return
         ws = math.ceil(req.bucket / c) * c
         padded = np.zeros(ws, req.prompt.dtype)
         padded[:len(req.prompt)] = req.prompt
+        if rows is not None:
+            pstate = self.model.resume_prefill_chunk_state(
+                rows.k, rows.v, rows.acc, ws)
+            base = rows.depth
+            self.counters["prefix_copies"] += 1
+            self.counters["prefix_tokens_reused"] += base
+        else:
+            pstate = self.model.init_prefill_chunk_state(1, ws)
+            base = 0
         self._pending = _ChunkedPrefill(
-            req=req, lane=lane, bucket=ws, padded=padded,
-            pstate=self.model.init_prefill_chunk_state(1, ws),
-            n_chunks=math.ceil(len(req.prompt) / c))
+            req=req, lane=lane, bucket=ws, padded=padded, pstate=pstate,
+            n_chunks=math.ceil(len(req.prompt) / c), next_chunk=base // c,
+            base=base, collect=self._rows_reuse and req.reuse_prefix)
 
     def _advance_chunked(self) -> bool:
         """Run ONE slice of the in-flight sliced prefill, and after its last
@@ -432,13 +624,27 @@ class ServeLoop:
             self.params, p.pstate, tok_c, row0, length)
         self.counters["chunk_dispatches"] += 1
         p.next_chunk += 1
+        q = p.next_chunk * c
+        if p.collect and p.base < q <= (len(p.req.prompt) // c) * c:
+            # acc columns [0, q) depend only on tokens [0, q) (columns past
+            # a chunk's causal reach take exactly zero mass): with the K/V
+            # rows, a bit-exact resume donor for any continuation. A
+            # boundary whose chunk holds pads (q > prompt length) is not
+            # taken.
+            t0 = time.perf_counter()
+            p.snap_acc.append((q, p.pstate.acc[:, 0, :, :q].to(
+                "cpu", copy=True)))
+            self.prefix_host_s["insert_s"] += time.perf_counter() - t0
         if p.next_chunk >= p.n_chunks:
             logits, fresh = self.model.prefill_finalize(
                 self.params, p.pstate, p.x_last, row0, length)
             self.counters["prefill_dispatches"] += 1
             self._pending = None
             self._splice([p.lane], [p.req], logits, fresh, bucket=p.bucket,
-                         prefill_chunks=p.n_chunks)
+                         prefill_chunks=p.n_chunks, prefix_tokens=p.base)
+            # into the trie after the splice: the admission does not wait
+            # for the host copies
+            self._cache_insert_chunked(p, logits[0], fresh)
         return True
 
     # -- decode --------------------------------------------------------------
@@ -516,8 +722,24 @@ class ServeLoop:
         return self.completed
 
     def aggregate(self) -> Dict[str, float]:
-        """Serving metrics over completed requests, plus the counters."""
+        """Serving metrics over completed requests, plus the counters.
+
+        With a prefix cache, also `prefix_hit_rate` (hits / lookups),
+        `prefix_dedup_ratio` (prompt tokens served from the cache / prompt
+        tokens of completed requests) and the trie's live bytes, entries,
+        inserts and evictions."""
         out: Dict[str, float] = {k: float(v) for k, v in self.counters.items()}
+        if self.prefix_cache is not None:
+            self._sync_cache_counters()
+            out.update({k: float(v) for k, v in
+                        self.prefix_cache.stats().items()})
+            lookups = self.counters["prefix_lookups"]
+            out["prefix_hit_rate"] = (
+                self.counters["prefix_hits"] / lookups if lookups else 0.0)
+            prompt_toks = sum(s.prompt_len for s in self.completed)
+            out["prefix_dedup_ratio"] = (
+                sum(s.prefix_tokens for s in self.completed) / prompt_toks
+                if prompt_toks else 0.0)
         if not self.completed:
             return {**out, "requests": 0.0, "tokens": 0.0,
                     "tokens_per_s": 0.0}
@@ -538,7 +760,7 @@ class ServeLoop:
 # CLI — the reference's flags, plus --device
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = ("prefix_cache", "temperature", "top_k", "top_p")
+_NOT_PORTED = ("temperature", "top_k", "top_p")
 
 
 def main(argv=None):
@@ -563,7 +785,8 @@ def main(argv=None):
                          "bucket exceeds N tokens prefill in N-token slices "
                          "between decode blocks (0 = whole-bucket)")
     ap.add_argument("--prefix-cache", type=int, default=0, metavar="BYTES",
-                    help="not ported yet (must stay 0)")
+                    help="radix-trie prefix cache byte budget (0 = off; "
+                         "--serve only)")
     ap.add_argument("--no-buckets", action="store_true",
                     help="exact-length prefills instead of bucketed ones")
     ap.add_argument("--sequential-admit", action="store_true",
@@ -614,6 +837,7 @@ def main(argv=None):
                          buckets=None if args.no_buckets else "auto",
                          chunk_prefill=args.chunk_prefill,
                          group_admit=not args.sequential_admit,
+                         prefix_cache_bytes=args.prefix_cache,
                          device=args.device)
         lens = (args.prompt_len, max(8, args.prompt_len // 2),
                 max(8, args.prompt_len - 7), max(8, args.prompt_len // 3))
@@ -640,6 +864,12 @@ def main(argv=None):
               f"{loop.counters['chunk_dispatches']} chunk + "
               f"{loop.counters['admit_dispatches']} admit dispatches, "
               f"{loop.counters['grouped_requests']} reqs group-admitted)")
+        if loop.prefix_cache is not None:
+            print(f"prefix cache: hit_rate={agg['prefix_hit_rate']:.2f} "
+                  f"dedup={agg['prefix_dedup_ratio']:.2f} "
+                  f"{int(agg['prefix_cache_bytes'])} bytes, "
+                  f"{int(agg['prefix_cache_entries'])} entries, "
+                  f"{loop.counters['prefix_evictions']} evictions")
         return
 
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))

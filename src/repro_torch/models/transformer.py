@@ -55,6 +55,32 @@ class PrefillChunkState:
     acc: torch.Tensor                # [L, B, Hk, N_bucket] f32
 
 
+def lane_slice(state: DecodeState, lane: int) -> DecodeState:
+    """One lane of a batched state as a batch-1 state (a copy)."""
+    return DecodeState(kv=kvcache.lane_slice(state.kv, lane, batch_axis=1))
+
+
+def lane_insert(state: DecodeState, lane: int,
+                fresh: DecodeState) -> DecodeState:
+    """In place: lane `lane` of `state` takes the batch-1 `fresh` state
+    (e.g. from `prefill_one`, or a prefix-cache snapshot)."""
+    kvcache.lane_insert(state.kv, lane, fresh.kv, batch_axis=1)
+    return state
+
+
+def lane_select(active: torch.Tensor, new: DecodeState,
+                old: DecodeState) -> DecodeState:
+    """Per-lane merge: lanes where `active` ([B] bool) take `new`, the rest
+    keep `old` (a new state)."""
+    def sel(n, o):
+        m = active.reshape((1, -1) + (1,) * (n.dim() - 2))
+        return torch.where(m, n, o)
+    return DecodeState(kv=KVCache(*(
+        None if getattr(new.kv, f) is None
+        else sel(getattr(new.kv, f), getattr(old.kv, f))
+        for f in kvcache.FIELDS)))
+
+
 def lanes_insert(state: DecodeState, src, fresh: DecodeState) -> DecodeState:
     """In place: lane b of `state` takes row `src[b]` of the batch-G
     `fresh` state where `src[b] >= 0` (grouped admission)."""

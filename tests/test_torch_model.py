@@ -3,8 +3,11 @@
 Reduced longchat-7b (MHA) and granite-3-2b (GQA, tied embeddings), f32,
 bf16 and int8 KV, fused and composed decode, the same weights on both sides
 (`repro_torch.params`): prefill logits and teacher-forced decode logits to
-1e-4, greedy token streams exactly. Also `chunked_causal_attention` with
-`length` and `obs_window`, to 1e-5.
+1e-4, greedy token streams exactly; the same under the unicaim knobs that
+the served configuration leaves at their defaults (`init_new_score`,
+`acc_decay`, `score_bits`/`query_bits`, `accumulate`,
+`prefill_obs_window`). Also `chunked_causal_attention` with `length` and
+`obs_window`, to 1e-5.
 """
 import functools
 
@@ -43,10 +46,12 @@ def _batch(vocab, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _runs(arch, kv, fused):
+def _runs(arch, kv, fused, knobs=()):
     """Both sides' prefill logits, 8 teacher-forced decode logits, and 16
-    greedy tokens, computed once per case."""
-    jm, jp, tm, tp = model_pair(arch, kv_dtype=kv, fused=fused, **UNICAIM)
+    greedy tokens, computed once per case. `knobs`: more PruneConfig
+    fields, as (name, value) pairs."""
+    jm, jp, tm, tp = model_pair(arch, kv_dtype=kv, fused=fused,
+                                **UNICAIM, **dict(knobs))
     tokens, length = _batch(tm.cfg.vocab_size)
     jbatch = {"tokens": jnp.asarray(tokens), "length": jnp.asarray(length)}
     tbatch = {"tokens": torch.as_tensor(tokens),
@@ -90,6 +95,33 @@ def test_teacher_forced_decode_logits_match_reference(arch, kv, fused):
 @pytest.mark.parametrize("arch,kv,fused", CASES)
 def test_greedy_tokens_equal_reference(arch, kv, fused):
     j, t = _runs(arch, kv, fused)["greedy"]
+    np.testing.assert_array_equal(t, j)
+
+
+# (kv, fused, knobs)
+KNOBS = {
+    "init_new_score-zero": ("bf16", False, (("init_new_score", "zero"),)),
+    "acc_decay-0.9": ("bf16", False, (("acc_decay", 0.9),)),
+    "acc_decay-0.5-fused": ("bf16", True, (("acc_decay", 0.5),)),
+    "score_bits-1": ("bf16", False, (("score_bits", 1),)),
+    "score_bits-8-query_bits-8": ("bf16", False, (("score_bits", 8),
+                                                  ("query_bits", 8))),
+    "accumulate-exact-bf16": ("bf16", False, (("accumulate", "exact"),)),
+    "accumulate-exact-int8": ("int8", False, (("accumulate", "exact"),)),
+    "prefill_obs_window-8": ("bf16", False, (("prefill_obs_window", 8),)),
+}
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_unicaim_knobs_match_reference(knob):
+    """Teacher-forced logits to 1e-4 and greedy tokens exactly, longchat-7b,
+    under each knob the served configuration leaves at its default."""
+    kv, fused, knobs = KNOBS[knob]
+    runs = _runs("longchat-7b", kv, fused, knobs)
+    for name in ("prefill", "teacher"):
+        j, t = runs[name]
+        np.testing.assert_allclose(t, j, atol=1e-4, rtol=0, err_msg=name)
+    j, t = runs["greedy"]
     np.testing.assert_array_equal(t, j)
 
 

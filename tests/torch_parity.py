@@ -23,13 +23,16 @@ def prune_pair(policy: str = "unicaim", **kw):
             getattr(baselines, policy)(**kw))
 
 
-def model_pair(arch: str, policy: str = "unicaim", seed: int = 0, **kw):
+def model_pair(arch: str, policy: str = "unicaim", seed: int = 0,
+               cfg_kw=None, **kw):
     """(jax model, jax params, port model, port params) for the reduced
-    `arch` (f32), the port's weights converted from the reference's."""
+    `arch` (f32; `cfg_kw` overrides config fields on both sides), the
+    port's weights converted from the reference's."""
     jprune, tprune = prune_pair(policy, **kw)
-    jm = JaxModel(jax_reduced(jax_get_config(arch)), jprune)
+    cfg_kw = cfg_kw or {}
+    jm = JaxModel(jax_reduced(jax_get_config(arch), **cfg_kw), jprune)
     jp = jm.init(jax.random.PRNGKey(seed))
-    tm = Model(reduced(get_config(arch)), tprune, device="cpu")
+    tm = Model(reduced(get_config(arch), **cfg_kw), tprune, device="cpu")
     tp = from_reference(jax.tree.map(np.asarray, jp), "float32", "cpu")
     return jm, jp, tm, tp
 
