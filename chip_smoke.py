@@ -54,7 +54,28 @@ Phases, in order (no failure is caught: any one exits non-zero):
                the chunk dispatches and ragged_decode 32 x the decode steps
                in both loops, and the trie's counted bytes lie in (0,
                budget]; printed: wall, tok/s, TTFT, and the host time of
-               the snapshot copies and of an exact-hit splice.
+               the snapshot copies and of an exact-hit splice;
+  7. perlane — per-lane sampling knobs, a preemption and reservation: 6
+               requests of about 1,024 tokens on 4 lanes (global
+               selection, block 8), bf16 and int8 KV: two greedy, a top-k
+               and a top-p request with pinned seeds, one greedy with its
+               own stop token, and after one block a priority-1 arrival
+               that must preempt. Held: the greedy streams equal an
+               all-greedy twin loop's, the stop token stops its lane (its
+               stream is a probe run's up to the token's first
+               occurrence), each sampled stream equals the one from the
+               trace submitted in reverse order (another lane, no
+               preemption) — the preempted victim's too — and
+               ragged_decode launches 32 x the decode steps; an all-greedy
+               block dispatches exactly the ops (so the launches) of the
+               block with one stop token that the engine ran before
+               per-lane knobs, a sampled block synchronises the host nowhere
+               an all-greedy one does not, and 512 sampler draws at [4,
+               32000] stay inside their truncated support; printed: the
+               sampler's device time per step, device events and card
+               time a step, host wall per step with and without sampled
+               lanes, and the bytes and seconds of a preemption's capture
+               and resume.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -85,20 +106,24 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import baselines, quant, topk  # noqa: E402
 from repro_torch.core.attention import decode_attention  # noqa: E402
-from repro_torch.core.cache import (protected_mask,  # noqa: E402
-                                    write_token)
+from repro_torch.core.cache import (FIELDS,  # noqa: E402
+                                    protected_mask, write_token)
 from repro_torch.kernels import approx_score as approx_mod  # noqa: E402
 from repro_torch.kernels import flash_prefill as flash_mod  # noqa: E402
 from repro_torch.kernels import fused_decode as fused_mod  # noqa: E402
 from repro_torch.kernels import gather_attention as gather_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_decode as ragged_mod  # noqa: E402
-from repro_torch.launch.serve import (Request, ServeLoop,  # noqa: E402
-                                      bucket_length)
+from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
+                                      ServeLoop, _next_token_lanes,
+                                      bucket_length, decode_block_lanes,
+                                      gumbel_noise)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
 from repro_torch.models.transformer import (DecodeState,  # noqa: E402
                                             Model, layer_params)
+from repro_torch.surgery import (state_lane_insert,  # noqa: E402
+                                 state_lane_slice)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM datasheet peak rates
 INT8_OPS_PER_S = 1979e12
@@ -1306,6 +1331,363 @@ def phase_prefix(cfg, params, kv, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: per-lane sampling knobs, a preemption and reservation
+# ---------------------------------------------------------------------------
+
+# six requests of about 1,024 tokens (one bucket) R0-R5, then, after one
+# block, a priority-1 arrival: R2 has the most work left then and is the
+# victim. R0, R1 and R5 are greedy, R2 and R3 sample with pinned seeds, R4
+# is greedy with its own stop token.
+PERLANE_LENS = (1024, 1000, 1017, 990, 1024, 1008)
+PERLANE_NEW = (16, 12, 24, 16, 16, 12)
+PERLANE_ARRIVAL = (1011, 8)        # the priority-1 request: length, budget
+PERLANE_KNOBS = {2: SamplingParams(temperature=0.8, top_k=50),
+                 3: SamplingParams(temperature=1.0, top_p=0.9)}
+PERLANE_SEEDS = {2: 7, 3: 11}
+VICTIM, STOPPED = 2, 4
+SAMPLER_DRAWS = 512
+COST_STEPS = 2                     # decode steps a block measured alone
+# a token whose mass before it lies this close to top_p may fall on either
+# side of the nucleus cut (f32 on the card against f64 here)
+NUCLEUS_EDGE = 1e-6
+
+
+def perlane_prompts(vocab):
+    rng = np.random.default_rng(SEED + 7)
+    return ([rng.integers(0, vocab, n) for n in PERLANE_LENS],
+            rng.integers(0, vocab, PERLANE_ARRIVAL[0]))
+
+
+def perlane_requests(prompts, sampled=True, stop=None):
+    """Request fields of R0-R5. `sampled=False` is the all-greedy twin: R2
+    and R3 keep their seeds and a (greedy) SamplingParams, so they are
+    admitted solo as in the sampled trace and every lane frees at the same
+    block. R4 stops on `stop` (None: the loop's eos, never met)."""
+    reqs = [dict(prompt=p, max_new=m)
+            for p, m in zip(prompts, PERLANE_NEW)]
+    for i, sp in PERLANE_KNOBS.items():
+        reqs[i].update(sampling=sp if sampled else SamplingParams(),
+                       sample_seed=PERLANE_SEEDS[i])
+    reqs[STOPPED]["sampling"] = SamplingParams(eos=stop)
+    return reqs
+
+
+def run_perlane_loop(model, params, reqs, arrival=None, reverse=False):
+    """Submit `reqs` (reversed with `reverse`), schedule, run one block,
+    submit `arrival` (priority 1) if given, and run to the end → (loop,
+    handles in R order, lanes first admitted to, wall, launches)."""
+    loop = ServeLoop(model, params, lanes=LANES, block=8, device="cuda")
+    order = list(range(len(reqs)))[::-1] if reverse else list(
+        range(len(reqs)))
+    handles = {i: loop.submit(Request(**reqs[i])) for i in order}
+    torch.cuda.synchronize()
+    reset_launches()
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
+    t0 = time.monotonic()
+    loop.schedule()
+    first = {i: h.stats.lane for i, h in handles.items()}
+    loop._step_block()
+    if arrival is not None:
+        handles[len(reqs)] = loop.submit(Request(
+            prompt=arrival, max_new=PERLANE_ARRIVAL[1], priority=1))
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    c = loop.counters
+    layers = model.cfg.num_layers
+    main_path = {"ragged_decode": counts.pop("ragged_decode"),
+                 "flash_prefill": counts.pop("flash_prefill")}
+    assert all(h.done for h in handles.values())
+    assert c["nonfinite_lanes"] == 0
+    assert main_path["ragged_decode"] == layers * c["decode_steps"] > 0, c
+    assert main_path["flash_prefill"] == layers * c["prefill_dispatches"] > 0
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    assert not any(counts.values()), counts
+    return loop, [handles[i] for i in sorted(handles)], first, wall, main_path
+
+
+def one_stop_block(model, params, state, tok, active, rem, eos, steps):
+    """The decode block as the engine ran it before per-lane knobs (greedy,
+    one stop token for every lane), kept to count what an all-greedy
+    `decode_block_lanes` block adds to it."""
+    finite = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
+    toks, emits = [], []
+    for _ in range(steps):
+        logits, state = model.decode_step(params, state, tok, active)
+        finite &= torch.isfinite(logits).all(dim=-1) | ~active
+        emit = active & (rem > 0) & (tok != eos)
+        rem = rem - emit.to(rem.dtype)
+        toks.append(tok)
+        emits.append(emit)
+        active = emit & (rem > 0)
+        tok = torch.argmax(logits, -1)
+    return state, tok, active, rem, finite, torch.stack(toks), torch.stack(
+        emits)
+
+
+def device_events(fn):
+    """(device events: kernels, copies and sets; their card ms) that `fn`
+    puts on the card (torch.profiler, CUDA activity). A profile can miss
+    or add a few events at its edges: `aten_ops` is the exact count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in events) / 1e3
+    return sum(e.count for e in events), busy
+
+
+def aten_ops(fn):
+    """The aten ops `fn` dispatches, by name: each launches the same
+    kernels for the same shapes, so equal ops are equal launches."""
+    from collections import Counter
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as mode:
+        fn()
+    return mode.ops
+
+
+def host_syncs(fn):
+    """Where `fn` synchronises the host with the card (torch's sync debug
+    mode) → ["file:line", ...]."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def truncated_support(row, t, k, p):
+    """[V] bool: the tokens the next-token rule may draw from one row of
+    logits (f64, sorted in numpy: a plain version independent of the
+    port's). Greedy: the first argmax alone. A token whose mass before it
+    lies within NUCLEUS_EDGE of top_p counts as inside."""
+    support = np.zeros(len(row), bool)
+    if t <= 0:
+        support[np.argmax(row)] = True
+        return support
+    sl = np.sort(row)[::-1]
+    kth = sl[min(k, len(sl)) - 1] if k > 0 else -np.inf
+    support = row >= kth
+    if 0 < p < 1:
+        q = np.exp((sl - sl[0]) / t) * (sl >= kth)
+        q /= q.sum()
+        keep = (np.cumsum(q) - q) < p + NUCLEUS_EDGE
+        support &= row >= sl[keep].min()
+    return support
+
+
+def phase_perlane(cfg, params, kv, smi):
+    """Per-lane knobs, a preemption and reservation at full width. Returns
+    the launches of ragged_decode and flash_prefill over its four loops."""
+    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
+                              select_k=PROMPT_LEN // 16, fused=True,
+                              kv_dtype=kv)
+    model = Model(cfg, prune, device="cuda")
+    layers = cfg.num_layers
+    prompts, arrival = perlane_prompts(cfg.vocab_size)
+    launches = {"ragged_decode": 0, "flash_prefill": 0}
+
+    def run(name, reqs, arrival=None, reverse=False):
+        loop, hs, first, wall, counted = run_perlane_loop(
+            model, params, reqs, arrival, reverse)
+        for k, n in counted.items():
+            launches[k] += n
+        c = loop.counters
+        toks = sum(len(h.tokens) for h in hs)
+        print(f"  perlane {name} kv={kv}: {len(hs)} requests, {toks} tokens "
+              f"in {wall:.3f}s = {toks / wall:.1f} tok/s; "
+              f"{c['decode_steps']} decode steps, {c['prefill_dispatches']} "
+              f"prefills ({c['grouped_admissions']} grouped), preemptions "
+              f"{c['preemptions']}, reservations {c['reservations']} "
+              f"({c['reserved_admits']} admitted); first lanes "
+              f"{[first[i] for i in sorted(first)]}; ragged_decode "
+              f"{counted['ragged_decode']} = {layers} x "
+              f"{c['decode_steps']}, flash_prefill "
+              f"{counted['flash_prefill']} = {layers} x "
+              f"{c['prefill_dispatches']}  [{smi}]")
+        return loop, hs, first
+
+    _, probe, _ = run("probe (all greedy, R4 with no stop token)",
+                      perlane_requests(prompts, sampled=False), arrival)
+    r4 = probe[STOPPED].tokens
+    # the stop token: the first token whose first occurrence is at index
+    # >= 1, so the stopped stream is not empty (index 0 if none is)
+    cut = next((i for i, t in enumerate(r4) if i >= 1 and r4.index(t) == i),
+               0)
+    stop = r4[cut]
+    _, greedy, _ = run("all-greedy twin",
+                       perlane_requests(prompts, sampled=False, stop=stop),
+                       arrival)
+    loop, mixed, first = run("mixed knobs",
+                             perlane_requests(prompts, stop=stop), arrival)
+    _, rev, rfirst = run("reversed, no preemption",
+                         perlane_requests(prompts, stop=stop), reverse=True)
+    greedy_ids = [i for i in range(len(mixed)) if i not in PERLANE_KNOBS]
+    same_greedy = [mixed[i].tokens == greedy[i].tokens for i in greedy_ids]
+    same_sampled = [mixed[i].tokens == rev[i].tokens for i in PERLANE_KNOBS]
+    print(f"  perlane kv={kv}: R{STOPPED} stops on token {stop} at index "
+          f"{cut} (twin {len(greedy[STOPPED].tokens)}, mixed "
+          f"{len(mixed[STOPPED].tokens)} tokens); greedy streams equal the "
+          f"all-greedy twin's: {sum(same_greedy)} of {len(same_greedy)}; "
+          f"sampled streams equal the reversed trace's: {sum(same_sampled)} "
+          f"of {len(same_sampled)} (first lanes "
+          f"{[first[i] for i in PERLANE_KNOBS]} vs "
+          f"{[rfirst[i] for i in PERLANE_KNOBS]}), the victim R{VICTIM} "
+          f"preempted {mixed[VICTIM].stats.preemptions}x; sampled vs the "
+          f"twin's greedy streams differ: "
+          f"{[mixed[i].tokens != greedy[i].tokens for i in PERLANE_KNOBS]}")
+    assert greedy[STOPPED].tokens == r4[:cut] == mixed[STOPPED].tokens
+    assert all(same_greedy), same_greedy
+    assert all(same_sampled), same_sampled
+    assert all(first[i] != rfirst[i] for i in PERLANE_KNOBS), (first, rfirst)
+    assert loop.counters["preemptions"] == 1
+    assert mixed[VICTIM].stats.preemptions == 1
+    assert rev[VICTIM].stats.preemptions == 0
+    assert any(mixed[i].tokens != greedy[i].tokens for i in PERLANE_KNOBS)
+    perlane_costs(model, params, loop, kv, smi)
+    return launches
+
+
+def perlane_costs(model, params, loop, kv, smi):
+    """On the mixed loop's final 4-lane state, with blocks of COST_STEPS
+    steps: the aten ops of the one-stop block, an all-greedy one and a
+    sampled one; their device events and card time; host syncs and host
+    wall a step with and without sampled lanes; the sampler's card time
+    and its draws' support; a preemption's capture and resume."""
+    dev, state, tok, gens = "cuda", loop.state, loop.tok, loop._lane_gens
+    steps = COST_STEPS
+    active = torch.ones(LANES, dtype=torch.bool, device=dev)
+    rem = torch.full((LANES,), 1 << 20, dtype=torch.int32, device=dev)
+    greedy = (np.zeros(LANES, np.float32), np.zeros(LANES, np.int32),
+              np.zeros(LANES, np.float32))
+    # lane 0 greedy, 1 top-k, 2 top-p, 3 both
+    mixed = (np.array([0.0, 0.8, 1.0, 0.8], np.float32),
+             np.array([0, 50, 0, 50], np.int32),
+             np.array([0.0, 0.0, 0.9, 0.9], np.float32))
+
+    def block(knobs):
+        nonlocal state, tok
+        state, tok = decode_block_lanes(model, params, state, tok, active,
+                                        rem, -1, gens, *knobs, steps)[:2]
+
+    def old():
+        nonlocal state, tok
+        state, tok = one_stop_block(model, params, state, tok, active,
+                                    rem, -1, steps)[:2]
+
+    runs = {"one stop": old, "all greedy": lambda: block(greedy),
+            "sampled": lambda: block(mixed)}
+    for fn in runs.values():                           # warm
+        fn()
+    ops = {name: aten_ops(fn) for name, fn in runs.items()}
+    events = {name: device_events(fn) for name, fn in runs.items()}
+    added = ops["sampled"] - ops["all greedy"]
+    new_kinds = sorted(k for k in added if k not in ops["all greedy"])
+    # host wall in turns; the first turn also records host syncs
+    syncs, wall = {}, {"all greedy": [], "sampled": []}
+    for turn in range(2):
+        for name in wall:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if turn == 0:
+                syncs[name] = host_syncs(runs[name])
+            else:
+                runs[name]()
+            torch.cuda.synchronize()
+            wall[name].append(round((time.monotonic() - t0) / steps * 1e3,
+                                    2))
+    print(f"  perlane kv={kv}: a block of {steps} steps: aten ops "
+          f"{ {k: sum(v.values()) for k, v in ops.items()} } (the one-stop "
+          f"and the all-greedy block's equal: "
+          f"{ops['all greedy'] == ops['one stop']}); device events (kernels, "
+          f"copies, sets) and card ms a step "
+          f"{ {k: (n, round(ms / steps, 3)) for k, (n, ms) in events.items()} }"
+          f"; a sampled block adds {sum(added.values())} aten ops, of new "
+          f"kinds {new_kinds}; host syncs a block {syncs}; host wall ms a "
+          f"step, in turns: {wall}  [{smi}]")
+    assert ops["all greedy"] == ops["one stop"], (
+        ops["all greedy"] - ops["one stop"],
+        ops["one stop"] - ops["all greedy"])
+    assert set(syncs["sampled"]) <= set(syncs["all greedy"]), syncs
+
+    logits, state = model.decode_step(params, state, tok, active)
+    v = logits.shape[-1]
+    t, k, p = (torch.as_tensor(x, device=dev) for x in mixed)
+    noise = gumbel_noise(gens, v, dev)
+    noise_ms = cuda_ms(lambda: gumbel_noise(gens, v, dev))
+    rule_ms = cuda_ms(lambda: _next_token_lanes(logits, noise, t, k, p))
+    step_ms = cuda_ms(lambda: _next_token_lanes(
+        logits, gumbel_noise(gens, v, dev), t, k, p))
+    argmax_ms = cuda_ms(lambda: torch.argmax(logits, -1))
+    step_syncs = host_syncs(lambda: _next_token_lanes(
+        logits, gumbel_noise(gens, v, dev), t, k, p))
+    draws = torch.stack([_next_token_lanes(
+        logits, gumbel_noise(gens, v, dev), t, k, p)
+        for _ in range(SAMPLER_DRAWS)]).cpu().numpy()     # [draws, lanes]
+    rows = logits.double().cpu().numpy()
+    sizes, drawn = [], []
+    for lane in range(LANES):
+        support = truncated_support(rows[lane], *(x[lane] for x in mixed))
+        sizes.append(int(support.sum()))
+        drawn.append(len(set(draws[:, lane].tolist())))
+        assert support[draws[:, lane]].all(), lane
+    assert not step_syncs, step_syncs
+    print(f"  perlane kv={kv} sampler at [{LANES}, {v}] (lane 0 greedy, 1 "
+          f"top-k 50, 2 top-p 0.9, 3 both): a sampled step {step_ms:.4f} ms "
+          f"of card time (noise {noise_ms:.4f}, rule {rule_ms:.4f}; the "
+          f"greedy step's argmax {argmax_ms:.4f}), host syncs a sampled step "
+          f"{step_syncs}; {SAMPLER_DRAWS} draws "
+          f"inside the truncated support on every lane: support sizes "
+          f"{sizes}, distinct tokens drawn {drawn}  [{smi}]")
+
+    fresh = state_lane_slice(state, 0)
+    nbytes = sum(getattr(fresh.kv, f).numel()
+                 * getattr(fresh.kv, f).element_size()
+                 for f in FIELDS if getattr(fresh.kv, f) is not None)
+    capture, resume = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fresh = state_lane_slice(state, 0)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        state_lane_insert(state, 1, fresh)
+        torch.cuda.synchronize()
+        capture.append(t1 - t0)
+        resume.append(time.monotonic() - t1)
+    cap, res = float(np.median(capture)), float(np.median(resume))
+    print(f"  perlane kv={kv} preemption: one lane's state {nbytes / 1e9:.4f}"
+          f" GB; capture (state_lane_slice, read + write) {cap * 1e3:.3f} ms "
+          f"= {2 * nbytes / cap / 1e9:.0f} GB/s, resume (state_lane_insert) "
+          f"{res * 1e3:.3f} ms = {2 * nbytes / res / 1e9:.0f} GB/s; median "
+          f"of 5, host wall with sync  [{smi}]")
+
+
 def three_pass_attend(cache, q, prune):
     """The composed decode step through the ops kernels, after the token
     write: approx_score over the mirror → group sum, selection bias and
@@ -1412,8 +1794,7 @@ def phase_profile(params, model, st, tok, steps=4):
     t0 = time.monotonic()
     run()
     wall = (time.monotonic() - t0) / steps * 1e3         # ms per step
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
 
     def dev_us(e):
@@ -1458,8 +1839,7 @@ def phase_prefill_profile(cfg, params, model):
     t0 = time.monotonic()
     run()
     wall = (time.monotonic() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
 
     def dev_us(e):
@@ -1586,6 +1966,14 @@ def main():
             launches[name] += n
         gc.collect()    # trie nodes point at their parents: free ~10 GB
         print(f"[prefix] kv={kv} phase {time.monotonic() - t:.1f}s")
+
+    # 7. per-lane knobs, a preemption and reservation
+    for kv in ("bf16", "int8"):
+        t = time.monotonic()
+        for name, n in phase_perlane(cfg, params, kv, smi).items():
+            launches[name] += n
+        gc.collect()
+        print(f"[perlane] kv={kv} phase {time.monotonic() - t:.1f}s")
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key

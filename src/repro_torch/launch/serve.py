@@ -1,22 +1,29 @@
-"""Serving engine — the port of `repro/launch/serve.py` (the greedy core,
-chunked admission and the prefix cache).
+"""Serving engine — the port of `repro/launch/serve.py` (the engine's
+core, chunked admission, the prefix cache, per-lane sampling knobs,
+priority preemption and drain-aware reservation).
 
 `ServeLoop` keeps a fixed number of decode lanes and a request queue.
 Admission is grouped: every arrived request that pads to the same bucket
 is prefilled in ONE batched pass (`Model.prefill_group`) and spliced into
 free lanes with one multi-lane insert (`transformer.lanes_insert`),
-shortest bucket first under load (with aging, so a long prompt cannot
-starve). Decode runs in blocks of `block` steps over all lanes; a lane that
-hits EOS or its budget stops writing its cache at once (an in-device
-`active` mask) and is refilled from the queue at the next block boundary.
-With `chunk_prefill=C` a prompt whose bucket exceeds C is prefilled in
-C-token slices on a reserved lane, one slice between decode blocks. With
-`prefix_cache_bytes=N` a radix trie of host snapshots (`prefix_cache.py`)
-lets a repeated prompt splice its cached state with no prefill, and a
-prompt that shares a cached prefix resume its sliced prefill past it.
+highest priority class first, shortest bucket first under load (with
+aging, so a long prompt cannot starve). Decode runs in blocks of `block`
+steps over all lanes (`decode_block_lanes`); a lane that hits its stop
+token or its budget stops writing its cache at once (an in-device `active`
+mask) and is refilled from the queue at the next block boundary. Every
+lane carries its own sampling knobs, stop token and PRNG stream. With
+every lane busy, a request of a strictly higher class preempts the
+lowest-priority lane (its state is captured and it resumes token-identical
+later), and requests predicted to fit within `reserve_blocks` decode blocks
+are popped ahead of time. With `chunk_prefill=C` a prompt whose bucket
+exceeds C is prefilled in C-token slices on a reserved lane, one slice
+between decode blocks. With `prefix_cache_bytes=N` a radix trie of host
+snapshots (`prefix_cache.py`) lets a repeated prompt splice its cached
+state with no prefill, and a prompt that shares a cached prefix resume
+its sliced prefill past it.
 
-Not ported yet: sampling knobs, preemption, fault tolerance, the degrade
-ladder and meshes.
+Not ported yet: fault tolerance (deadlines, cancellation, backpressure,
+the degrade ladder, quarantine and retry, chaos) and meshes.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from repro_torch.launch.prefix_cache import PrefixCache, RowsEntry, StateEntry
 from repro_torch.models.transformer import (DecodeState, Model,
                                             PrefillChunkState)
 from repro_torch.surgery import (cache_prefix_rows, state_lane_insert,
-                                 state_lanes_insert)
+                                 state_lane_slice, state_lanes_insert)
 
 # ---------------------------------------------------------------------------
 # Prompt-length buckets: prompts are right-padded to a small doubling grid
@@ -46,8 +53,6 @@ from repro_torch.surgery import (cache_prefix_rows, state_lane_insert,
 # ---------------------------------------------------------------------------
 
 MIN_BUCKET = 16
-# rounds the FIFO head may be passed over for a shorter bucket under load
-MAX_HEAD_SKIPS = 8
 
 
 def bucket_length(t: int, buckets: Optional[Sequence[int]] = None) -> int:
@@ -82,19 +87,100 @@ def _check_device(model: Model, device) -> None:
         raise ValueError(f"device={dev} but the model lives on {model.device}")
 
 
+# ---------------------------------------------------------------------------
+# The next-token rule. jax.random.categorical(key, x) is
+# argmax(jax.random.gumbel(key, x.shape) + x), so the rule takes its Gumbel
+# noise as an argument: the same noise gives the reference's tokens, and
+# the port draws it from its own torch.Generators.
+# ---------------------------------------------------------------------------
+
+TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel_noise(gens: Sequence[torch.Generator], v: int,
+                 device) -> torch.Tensor:
+    """[len(gens), v] f32 Gumbel noise, row i drawn from gens[i] as
+    jax.random.gumbel draws it: -log(-log(u)), u uniform in [tiny, 1)."""
+    u = torch.stack([torch.rand(v, generator=g, device=device)
+                     for g in gens])
+    return -torch.log(-torch.log(u.clamp_min_(TINY)))
+
+
+def _next_token_lanes(logits: torch.Tensor, noise: torch.Tensor,
+                      temperature: torch.Tensor, top_k: torch.Tensor,
+                      top_p: torch.Tensor) -> torch.Tensor:
+    """Per-lane next-token rule; every knob is a [B] tensor.
+
+    logits [B, V]; noise [B, V] f32 Gumbel noise. Rows with temperature
+    <= 0 take the argmax of the RAW logits (noise unused); sampled rows
+    truncate to the top_k highest logits first (top_k <= 0 disables; the
+    k-th threshold comes from one descending sort), then to the minimal
+    top-p nucleus (top_p outside (0, 1) disables), then take
+    argmax(noise + logits / temperature). No host sync."""
+    v = logits.shape[-1]
+    greedy = temperature <= 0
+    t = torch.where(greedy, 1.0, temperature)[:, None]     # no div-by-0
+    sl = torch.sort(logits, dim=-1, descending=True).values
+    kth = torch.gather(sl, -1, (top_k.long().clamp(1, v) - 1)[:, None])
+    use_k = (top_k > 0)[:, None]
+    lg = torch.where(use_k & (logits < kth), -math.inf, logits)
+    # masking the tail of an already-sorted row keeps it sorted, so the
+    # nucleus scan runs over the top-k-truncated distribution directly
+    sl = torch.where(use_k & (sl < kth), -math.inf, sl)
+    p = torch.softmax(sl / t, dim=-1)
+    # a token stays iff the mass BEFORE it is < top_p (the first always)
+    keep = torch.cumsum(p, dim=-1) - p < top_p[:, None]
+    cut = torch.where(keep, sl, math.inf).amin(dim=-1, keepdim=True)
+    use_p = ((top_p > 0) & (top_p < 1))[:, None]
+    lg = torch.where(use_p & (lg < cut), -math.inf, lg)
+    sampled = torch.argmax(noise + lg / t, dim=-1)
+    return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
+
+
+def _next_token(logits: torch.Tensor, noise: Optional[torch.Tensor],
+                temperature: float, top_k: int,
+                top_p: float = 0.0) -> torch.Tensor:
+    """The rule with scalar knobs: argmax when temperature <= 0 (noise
+    unused), else `_next_token_lanes` with every row on these knobs.
+    logits [..., V], noise like logits → [...] token ids."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    rows = logits.reshape(-1, logits.shape[-1])
+
+    def full(x, dtype):
+        return torch.full((rows.shape[0],), x, dtype=dtype,
+                          device=logits.device)
+
+    tok = _next_token_lanes(rows, noise.reshape(rows.shape),
+                            full(temperature, torch.float32),
+                            full(top_k, torch.long),
+                            full(top_p, torch.float32))
+    return tok.reshape(logits.shape[:-1])
+
+
 def greedy_generate(model: Model, params, batch, steps: int,
-                    device="cuda"):
-    """Prefill + `steps` greedy decode steps, one call per token →
+                    temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    top_k: int = 0, top_p: float = 0.0, device="cuda"):
+    """Prefill + `steps` decode steps, one call per token →
     (tokens [B, steps], final state). tokens[:, 0] is the argmax of the
-    prefill logits."""
+    prefill logits; each later token follows `_next_token`, with noise
+    from `generator` (a generator seeded 0 on the model's device when
+    sampling and none is given)."""
     _check_device(model, device)
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
     logits, state = model.prefill(params, batch)
     toks = []
     tok = torch.argmax(logits, -1)
     for _ in range(steps):
         toks.append(tok)
         logits, state = model.decode_step(params, state, tok)
-        tok = torch.argmax(logits, -1)
+        noise = None
+        if temperature > 0:
+            noise = gumbel_noise([generator] * logits.shape[0],
+                                 logits.shape[-1], model.device)
+        tok = _next_token(logits, noise, temperature, top_k, top_p)
     return torch.stack(toks, dim=1), state
 
 
@@ -109,22 +195,107 @@ def decode_block(model: Model, params, state, tok: torch.Tensor, steps: int):
     return state, tok, torch.stack(toks)
 
 
+def decode_block_lanes(model: Model, params, state, tok: torch.Tensor,
+                       active: torch.Tensor, rem: torch.Tensor,
+                       eos: Union[int, torch.Tensor],
+                       gens: Sequence[torch.Generator],
+                       temperature: np.ndarray, top_k: np.ndarray,
+                       top_p: np.ndarray, steps: int = 1):
+    """`steps` decode steps with per-lane termination and per-lane
+    sampling knobs — the engine's decode block.
+
+    tok [B] long, active [B] bool, rem [B] int: device tensors. Each step
+    emits the carried token of every live lane (active, budget left, and
+    not its stop token), then advances; a lane deactivates on its stop
+    token or its budget, and from then on its cache rows stay frozen. The
+    stop token is a signal, never an output. `eos` is one id for every
+    lane or a [B] tensor (ids are >= 0, so -1 never matches).
+    `temperature`/`top_k`/`top_p` are [B] host arrays with
+    `_next_token_lanes` semantics; `gens` holds the B per-lane PRNG
+    carries.
+
+    When no lane samples (decided once on the host from `temperature`)
+    each step takes the argmax: no knob reaches the card and no generator
+    is drawn from. When any lane samples, every lane's generator is drawn
+    from once per step, so a lane's sampled stream is a function of (its
+    seed, steps resident) alone — independent of its neighbours, its lane
+    index and any preempt/resume boundary. No host sync inside the block.
+
+    Returns (state, tok, active, rem, finite [B], toks [steps, B],
+    emitted [steps, B]); `finite` is False for a lane that was active at
+    a step whose logits were not all finite."""
+    dev = tok.device
+    sampled_any = bool((np.asarray(temperature) > 0).any())
+    if sampled_any:
+        # one copy that does not wait for the card (a pageable source is
+        # staged before the call returns); top_k is exact in f32
+        knobs = torch.as_tensor(np.stack([temperature, top_k, top_p]),
+                                dtype=torch.float32).to(dev, non_blocking=True)
+        t, k, p = knobs[0], knobs[1].long(), knobs[2]
+    finite = torch.ones(tok.shape[0], dtype=torch.bool, device=dev)
+    toks, emits = [], []
+    for _ in range(steps):
+        logits, state = model.decode_step(params, state, tok, active)
+        finite &= torch.isfinite(logits).all(dim=-1) | ~active
+        emit = active & (rem > 0) & (tok != eos)
+        rem = rem - emit.to(rem.dtype)
+        toks.append(tok)
+        emits.append(emit)
+        active = emit & (rem > 0)
+        if sampled_any:
+            tok = _next_token_lanes(
+                logits, gumbel_noise(gens, logits.shape[-1], dev), t, k, p)
+        else:
+            tok = torch.argmax(logits, -1)
+    return (state, tok, active, rem, finite, torch.stack(toks),
+            torch.stack(emits))
+
+
 # ---------------------------------------------------------------------------
 # Requests + per-request serving metrics
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling override (the loop-level `temperature`/
+    `top_k`/`top_p` knobs, plus an optional per-request stop token `eos`).
+    Honoured across the request's whole stream: the admission-seeded first
+    token and every decode step. A request carrying one is admitted solo
+    (its seeding draw is its own), then decodes mixed with everyone
+    else."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    eos: Optional[int] = None        # None → the loop's eos
+
+
 @dataclasses.dataclass(eq=False, kw_only=True)
 class Request:
     """One generation request (keyword-only; `submit()` assigns `rid`).
-    `arrival` is seconds from `run()` start (0 = already waiting)."""
+
+    `arrival` is seconds from `run()` start (0 = already waiting).
+    `sampling` overrides the loop's sampling knobs for this request's
+    whole stream; `sample_seed` pins its PRNG stream (both force a solo
+    admission, but decode runs mixed). `priority` (higher = more urgent,
+    default 0) picks the scheduling class: higher classes are admitted
+    first and may PREEMPT the lowest-priority active lane when no lane is
+    free (the victim's state is captured and it resumes token-identical
+    later). `reuse_prefix=False` opts out of the prefix cache both ways.
+    Identity-compared (eq=False): the scheduler removes requests from its
+    queues by identity."""
     prompt: np.ndarray
     max_new: Optional[int] = None        # None → the loop's default
     arrival: float = 0.0
+    sample_seed: Optional[int] = None
+    sampling: Optional[SamplingParams] = None
+    priority: int = 0
     reuse_prefix: bool = True            # consult + feed the prefix cache
     # engine-assigned fields — never pass these to the constructor
     rid: int = -1
     bucket: int = 0            # memoized pad width under the loop's grid
+    admitted: bool = False     # lazy-prune marker for the arrival deque
+    resume: Optional["_ResumeState"] = None   # set while preempted
 
 
 class RequestHandle:
@@ -166,8 +337,12 @@ class RequestStats:
     occupancy: float = 0.0     # mean cache fill fraction at completion
     bucket: int = 0            # padded prefill width
     prefill_chunks: int = 1    # dispatches the prefill was sliced into
+    admit_seq: int = -1        # admission order (0 = admitted first)
+    group_size: int = 1        # requests sharing this admission dispatch
     prefix_tokens: int = 0     # prompt tokens served from the prefix cache
     prefix_exact: bool = False  # whole prompt hit (state splice, no prefill)
+    priority: int = 0          # scheduling class (higher = more urgent)
+    preemptions: int = 0       # times this request was evicted + requeued
 
     @property
     def latency(self) -> float:
@@ -176,6 +351,27 @@ class RequestStats:
     @property
     def ttft(self) -> float:
         return self.t_first - self.t_arrival
+
+    @property
+    def decode_tps(self) -> float:
+        return len(self.tokens) / max(self.t_done - self.t_admit, 1e-9)
+
+
+@dataclasses.dataclass
+class _ResumeState:
+    """One preempted lane, captured exact to the token: the batch-1
+    DecodeState (`state_lane_slice`, a copy the lane's next occupant
+    cannot overwrite), the carried not-yet-emitted next token, the unspent
+    budget, the lane's PRNG carry (`torch.Generator.get_state()`) and the
+    tokens emitted so far. `_admit_resumed` splices it back with no
+    prefill; because the block draws from a lane's generator once per
+    resident step, the resumed stream equals an uninterrupted one —
+    greedy and seeded-sampled lanes alike."""
+    state: DecodeState         # batch-1, on the model's device
+    tok: int                   # next token to emit (block carry)
+    rem: int                   # unspent budget
+    key: torch.Tensor          # the lane generator's state (host bytes)
+    outputs: List[int]         # tokens emitted before the eviction
 
 
 @dataclasses.dataclass
@@ -204,19 +400,44 @@ class ServeLoop:
 
         loop = ServeLoop(model, params, lanes=4, eos=2, block=8)
         h = loop.submit(Request(prompt=prompt, max_new=64))
+        h2 = loop.submit(Request(prompt=p2, max_new=16, sample_seed=7,
+                                 sampling=SamplingParams(temperature=0.7)))
         stats = loop.run()                    # List[RequestStats]
         h.done, h.tokens
 
-    Scheduling follows the reference: at each admission point the group is
-    every arrived request of one bucket (up to the free lanes) — the FIFO
-    head's bucket off load, the shortest bucket under load, and the head's
-    bucket once it has been passed over MAX_HEAD_SKIPS rounds in a row.
-    A group is prefilled at exactly its size (eager PyTorch compiles
-    nothing, so the reference's power-of-two row padding has no use here).
-    `counters` tracks `prefill_dispatches`, `admit_dispatches`,
-    `grouped_requests`, `chunk_dispatches`, `decode_blocks`,
-    `decode_steps` and `nonfinite_lanes` (admissions or active lanes whose
-    logits were not finite).
+    Scheduling follows the reference. Arrived requests wait in per-class
+    FIFO deques keyed by `(-priority, bucket)`; at each admission point
+    the group is up to the free lanes' count of one class: the FIFO head's
+    off load (unless a higher class waits), the best class's shortest
+    bucket under load, and the head's once it has been passed over
+    `max_head_skips` rounds in a row. A request with its own sampling
+    knobs or seed, or a preempted one resuming, is admitted solo. A group
+    is prefilled at exactly its size (eager PyTorch compiles nothing, so
+    the reference's power-of-two row padding has no use here). With no
+    free lane, a waiting class strictly above the lowest-priority active
+    lane preempts that lane (`_try_preempt`); otherwise `_reserve` pops
+    the requests predicted (`predicted_free_blocks`) to find a lane within
+    `reserve_blocks` decode blocks, and they are admitted first once the
+    lanes free. `counters` tracks `prefill_dispatches`,
+    `admit_dispatches`, `grouped_admissions`, `grouped_requests`,
+    `chunk_dispatches`, `decode_blocks`, `decode_steps`,
+    `nonfinite_lanes` (admissions or active lanes whose logits were not
+    finite), `preemptions`, `reservations`, `reserved_admits` and
+    `preempt_cache_inserts`.
+
+    Sampling (`temperature`, `top_k`, `top_p`; `_next_token_lanes`):
+    the loop's knobs are per-lane defaults; a request's `SamplingParams`
+    rides its lane for the whole stream, the first token included, and
+    its `eos` stops that lane alone. Each lane carries its own
+    `torch.Generator` on the model's device, seeded at a sampled admission
+    from `sample_seed` or from a draw of the loop's CPU generator (seeded
+    with the loop's `sample_seed`; drawn only when the request samples).
+    The first token's noise and every later step's come from that one
+    stream. Streams are per device: the CPU's and the card's differ, and
+    neither is jax's. A block in which no lane samples takes the argmax
+    and draws nothing. The reference's `decode_block_programs` and
+    `decode_windows` counters are left out: eager PyTorch compiles no
+    block program, and the port has no decode window.
 
     Chunked admission (`chunk_prefill=C`): a prompt whose bucket exceeds C
     reserves a free lane and is prefilled in C-token slices
@@ -227,8 +448,6 @@ class ServeLoop:
     prefills. At most one sliced prefill is in flight; while one is, a
     round whose target needs slicing admits the shortest bucket that does
     not instead. `RequestStats.prefill_chunks` counts a request's slices.
-    A model without `supports_chunked_prefill()` falls back to whole-bucket
-    admission.
 
     Prefix cache (`prefix_cache_bytes=N > 0`): a host-side radix trie under
     an N-byte LRU budget. A solo whole-bucket admission and every sliced
@@ -240,19 +459,23 @@ class ServeLoop:
     their finalized state and, for sliced ones, the workspace rows at each
     chunk boundary inside the prompt; a whole-bucket prefill whose pruning
     kept every token donates rows too when `chunk_prefill` equals
-    `cfg.attn_chunk` (the same column-sum order). Grouped admissions of
-    two or more neither look up nor insert. `Request(reuse_prefix=False)`
-    opts out. Counters: `prefix_lookups`, `prefix_hits`,
-    `prefix_exact_hits`, `prefix_copies`, `prefix_tokens_reused`,
-    `prefix_inserts`, `prefix_evictions`; `prefix_host_s` holds the host
-    seconds of the trie's snapshot copies (`insert_s`) and of exact-hit
-    splices (`splice_s`).
+    `cfg.attn_chunk` (the same column-sum order), and so does a preempted
+    lane whose captured prompt prefix is still slot-aligned. Grouped
+    admissions of two or more neither look up nor insert.
+    `Request(reuse_prefix=False)` opts out. Counters: `prefix_lookups`,
+    `prefix_hits`, `prefix_exact_hits`, `prefix_copies`,
+    `prefix_tokens_reused`, `prefix_inserts`, `prefix_evictions`;
+    `prefix_host_s` holds the host seconds of the trie's snapshot copies
+    (`insert_s`) and of exact-hit splices (`splice_s`).
     """
 
     def __init__(self, model: Model, params, lanes: int, max_new: int = 64,
                  eos: int = -1, block: int = 1,
                  buckets: Union[str, Sequence[int], None] = "auto",
                  chunk_prefill: int = 0, group_admit: bool = True,
+                 max_head_skips: int = 8, reserve_blocks: int = 1,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, sample_seed: int = 0,
                  prefix_cache_bytes: int = 0, device="cuda"):
         _check_device(model, device)
         self.model = model
@@ -276,28 +499,67 @@ class ServeLoop:
                             and self.chunk_prefill > 0)
         self.prefix_host_s = {"insert_s": 0.0, "splice_s": 0.0}
         self.group_admit = bool(group_admit)
+        # rounds the FIFO head may be passed over under load
+        self.max_head_skips = max(0, max_head_skips)
         self._head_skips = 0
+        # drain-aware reservation horizon, in decode blocks (0 = off)
+        self.reserve_blocks = max(0, reserve_blocks)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         self.device = model.device
         self.state = None
         self.tok = None
         self.active = np.zeros(lanes, bool)
         self.remaining = np.zeros(lanes, np.int32)
         self.outputs: List[List[int]] = [[] for _ in range(lanes)]
-        self._arrivals: Deque[Request] = deque()       # not yet arrived
-        self._waiting: List[Request] = []              # arrived, FIFO
+        # per-lane knobs: the loop's values are the defaults a request
+        # without overrides inherits; the block reads them every dispatch
+        self.lane_temp = np.full(lanes, self.temperature, np.float32)
+        self.lane_topk = np.full(lanes, self.top_k, np.int32)
+        self.lane_topp = np.full(lanes, self.top_p, np.float32)
+        self.lane_eos = np.full(lanes, self.eos, np.int64)
+        self._lane_prio = np.zeros(lanes, np.int64)
+        # the loop's own stream (host) seeds requests without a pinned
+        # seed; each lane's carry lives on the model's device
+        self._gen = torch.Generator().manual_seed(sample_seed)
+        self._lane_gens = [torch.Generator(device=self.device)
+                           .manual_seed(sample_seed) for _ in range(lanes)]
+        # scheduler state: `_arrivals` holds not-yet-arrived requests in
+        # arrival order; once arrived they move into their class deque
+        # (keyed (-priority, bucket): min() is the highest class, shortest
+        # bucket) and onto `_arrived_fifo` (arrival order, admitted
+        # entries lazily pruned)
+        self._arrivals: Deque[Request] = deque()
+        self._bucket_q: Dict[Tuple[int, int], Deque[Request]] = {}
+        self._arrived_fifo: Deque[Request] = deque()
+        self._arrived_count = 0
+        self._reserved: Deque[Request] = deque()   # drain-aware pre-group
+        self._req_by_rid: Dict[int, Request] = {}
+        self._drained_hwm = float("-inf")     # newest arrival drained
         self.stats: Dict[int, RequestStats] = {}
         self.completed: List[RequestStats] = []
         self._lane_rid: List[Optional[int]] = [None] * lanes
         self._next_rid = 0
         self._t0: Optional[float] = None
         self._finished: set = set()
+        self._admit_seq = 0
+        # drain-prediction inputs: generated lengths of EOS-terminated
+        # requests (globally and per (priority, bucket) class) and the
+        # count of budget-exhausted ones
+        self._eos_lens: List[int] = []
+        self._eos_by_class: Dict[Tuple[int, int], List[int]] = {}
+        self._budget_done = 0
         self.counters: Dict[str, int] = {
             "prefill_dispatches": 0, "admit_dispatches": 0,
-            "grouped_requests": 0, "chunk_dispatches": 0,
-            "decode_blocks": 0, "decode_steps": 0, "nonfinite_lanes": 0,
+            "grouped_admissions": 0, "grouped_requests": 0,
+            "chunk_dispatches": 0, "decode_blocks": 0, "decode_steps": 0,
+            "nonfinite_lanes": 0,
+            "preemptions": 0, "reservations": 0, "reserved_admits": 0,
             "prefix_lookups": 0, "prefix_hits": 0, "prefix_exact_hits": 0,
             "prefix_copies": 0, "prefix_tokens_reused": 0,
             "prefix_inserts": 0, "prefix_evictions": 0,
+            "preempt_cache_inserts": 0,
         }
 
     def _now(self) -> float:
@@ -319,14 +581,23 @@ class ServeLoop:
             req.max_new = self.max_new
         req.rid = self._next_rid
         self._next_rid += 1
+        self._req_by_rid[req.rid] = req
         req.bucket = self._bucket_of(req)
-        # keep arrival order (FIFO among ties)
-        idx = len(self._arrivals)
-        while idx and self._arrivals[idx - 1].arrival > req.arrival:
-            idx -= 1
-        self._arrivals.insert(idx, req)
+        arrival = float(req.arrival)
+        if arrival < self._drained_hwm:
+            # backdated submit among already-drained requests: splice it
+            # into the arrived structures at its arrival rank
+            self._insert_arrived(req)
+        elif self._arrivals and arrival < self._arrivals[-1].arrival:
+            # keep arrival order (FIFO among ties) — the drain pops head
+            idx = next(i for i, r in enumerate(self._arrivals)
+                       if r.arrival > arrival)
+            self._arrivals.insert(idx, req)
+        else:
+            self._arrivals.append(req)
         self.stats[req.rid] = RequestStats(req.rid, len(req.prompt),
-                                           req.max_new, t_arrival=req.arrival)
+                                           req.max_new, t_arrival=arrival,
+                                           priority=req.priority)
         return RequestHandle(self, req.rid)
 
     def _bucket_of(self, req: Request) -> int:
@@ -341,11 +612,88 @@ class ServeLoop:
         grid = None if self.buckets == "auto" else self.buckets
         return pad_to_bucket(req.prompt, grid)[0]
 
-    # -- scheduling ----------------------------------------------------------
+    # -- scheduler queues ------------------------------------------------------
+
+    def _qkey(self, req: Request) -> Tuple[int, int]:
+        """Scheduling-class deque key: sorts as (-priority, bucket)."""
+        return (-req.priority, req.bucket)
+
+    def _insert_arrived(self, req: Request) -> None:
+        """Insert at arrival rank (after ties) into the arrived deques."""
+        def rank(dq):
+            return next((i for i, r in enumerate(dq)
+                         if r.arrival > req.arrival), len(dq))
+        self._arrived_fifo.insert(rank(self._arrived_fifo), req)
+        dq = self._bucket_q.setdefault(self._qkey(req), deque())
+        dq.insert(rank(dq), req)
+        self._arrived_count += 1
+
+    @property
+    def queue(self) -> List[Request]:
+        """Waiting (un-admitted) requests in arrival order — arrived first,
+        then future arrivals (a snapshot)."""
+        waiting = [r for r in self._arrived_fifo if not r.admitted]
+        return waiting + list(self._arrivals)
 
     def _drain_arrivals(self, now: float) -> None:
+        """Move every request whose arrival time has passed into its class
+        deque (each request moves once)."""
         while self._arrivals and self._arrivals[0].arrival <= now:
-            self._waiting.append(self._arrivals.popleft())
+            req = self._arrivals.popleft()
+            self._bucket_q.setdefault(self._qkey(req), deque()).append(req)
+            self._arrived_fifo.append(req)
+            self._arrived_count += 1
+            self._drained_hwm = max(self._drained_hwm, req.arrival)
+
+    def _fifo_head(self) -> Optional[Request]:
+        """Oldest arrived, un-admitted request (lazy-pruned deque head)."""
+        fifo = self._arrived_fifo
+        while fifo and fifo[0].admitted:
+            fifo.popleft()
+        return fifo[0] if fifo else None
+
+    @staticmethod
+    def _needs_solo(req: Request) -> bool:
+        """A request with its own sampling knobs or seed seeds its first
+        token from its own stream, and a preempted one splices its
+        captured state: either is admitted alone (it decodes mixed)."""
+        return (req.sampling is not None or req.sample_seed is not None
+                or req.resume is not None)
+
+    def _take_bucket(self, key: Tuple[int, int], n: int) -> List[Request]:
+        """Pop up to `n` FIFO requests from one class deque; a request
+        that needs a solo admission ends (or alone forms) the group."""
+        dq = self._bucket_q.get(key)
+        group: List[Request] = []
+        while dq and len(group) < n:
+            if group and self._needs_solo(dq[0]):
+                break
+            req = dq.popleft()
+            req.admitted = True
+            group.append(req)
+            if self._needs_solo(req):
+                break
+        if dq is not None and not dq:
+            del self._bucket_q[key]
+        self._arrived_count -= len(group)
+        return group
+
+    def _take_reserved(self, n: int) -> List[Request]:
+        """Pop a same-bucket prefix of the reservation queue (<= n), with
+        the solo boundaries of `_take_bucket`."""
+        rq = self._reserved
+        group: List[Request] = []
+        while rq and len(group) < n:
+            if group and (self._needs_solo(rq[0])
+                          or rq[0].bucket != group[0].bucket):
+                break
+            req = rq.popleft()
+            group.append(req)
+            if self._needs_solo(req):
+                break
+        return group
+
+    # -- scheduling ----------------------------------------------------------
 
     def _free_lanes(self) -> List[int]:
         """Lanes without a request; a sliced prefill's reserved lane is not
@@ -358,52 +706,98 @@ class ServeLoop:
         return 0 < self.chunk_prefill < bucket
 
     def schedule(self) -> int:
-        """Admit arrived requests into free lanes, one bucket group per
+        """Admit arrived requests into free lanes, one class group per
         round, until no lane or no arrived request is left → admitted (a
-        sliced prefill counts once it has been opened)."""
+        sliced prefill counts once it has been opened).
+
+        The target is the FIFO head's class off load (unless a strictly
+        higher class waits), the best (-priority, bucket) class under load
+        (more arrived requests than free lanes), and the head's class once
+        it has been passed over `max_head_skips` rounds. Reserved requests
+        go first. A preempted request resumes by a solo state splice. At
+        most one sliced prefill is in flight; while one is, a target that
+        needs slicing gives way to the shortest class that does not. With
+        no free lane: `_try_preempt`, else `_reserve`."""
         n = 0
         while True:
             self._drain_arrivals(self._now())
-            free = self._free_lanes()
-            if not self._waiting or not free:
+            if self._arrived_count == 0 and not self._reserved:
                 return n
-            head = self._waiting[0]
+            free = self._free_lanes()
+            if not free:
+                if self._try_preempt():
+                    continue
+                self._reserve()
+                return n
+            if self._reserved:
+                group = self._take_reserved(len(free))
+                self.counters["reserved_admits"] += len(group)
+                n += self._admit_chosen(free, group)
+                continue
+            fifo_head = self._fifo_head()      # arrived_count > 0: set
             if not self.group_admit:
-                target, take = head.bucket, 1
+                target, take = self._qkey(fifo_head), 1
             else:
-                target, take = head.bucket, len(free)
-                if len(self._waiting) > len(free):
-                    shortest = min(r.bucket for r in self._waiting)
-                    if (shortest != head.bucket
-                            and self._head_skips < MAX_HEAD_SKIPS):
-                        target = shortest
+                best = min(self._bucket_q)
+                if self._arrived_count > len(free):
+                    target = best
+                    if (-best[0] <= fifo_head.priority
+                            and target != self._qkey(fifo_head)
+                            and self._head_skips >= self.max_head_skips):
+                        target = self._qkey(fifo_head)   # aging
+                else:
+                    target = self._qkey(fifo_head)
+                    if -best[0] > fifo_head.priority:
+                        target = best
+                take = len(free)
+            if self._bucket_q[target][0].resume is not None:
+                req = self._take_bucket(target, 1)[0]
+                self._head_skips = (0 if fifo_head is req
+                                    else self._head_skips + 1)
+                self._admit_resumed(free[0], req)
+                n += 1
+                continue
             if (self.group_admit and self._pending is not None
-                    and self._needs_chunking(target)):
-                # one sliced prefill at a time: admit the shortest bucket
+                    and self._needs_chunking(target[1])):
+                # one sliced prefill at a time: admit the shortest class
                 # that needs no slicing instead of idling the free lanes
-                alts = [r.bucket for r in self._waiting
-                        if not self._needs_chunking(r.bucket)]
+                alts = [k for k in self._bucket_q
+                        if not self._needs_chunking(k[1])
+                        or self._bucket_q[k][0].resume is not None]
                 if not alts:
                     return n
                 target = min(alts)
-            if self._needs_chunking(target):
+                if self._bucket_q[target][0].resume is not None:
+                    self._admit_resumed(free[0],
+                                        self._take_bucket(target, 1)[0])
+                    n += 1
+                    continue
+            if self._needs_chunking(target[1]):
                 if self._pending is not None:
                     return n
-                req = next(r for r in self._waiting if r.bucket == target)
-                self._waiting.remove(req)
-                self._head_skips = 0 if req is head else self._head_skips + 1
-                self._start_chunked(free[0], req)
+                head = self._take_bucket(target, 1)[0]
+                self._head_skips = (0 if fifo_head is head
+                                    else self._head_skips + 1)
+                self._start_chunked(free[0], head)
                 n += 1
                 continue
-            group = [r for r in self._waiting if r.bucket == target][:take]
-            for r in group:
-                self._waiting.remove(r)
-            self._head_skips = 0 if head in group else self._head_skips + 1
-            if len(group) == 1:
-                self._admit_lane(free[0], group[0])
-            else:
-                self._admit_group(free[:len(group)], group)
-            n += len(group)
+            group = self._take_bucket(target, take)
+            self._head_skips = (0 if fifo_head in group
+                                else self._head_skips + 1)
+            n += self._admit_chosen(free, group)
+
+    def _admit_chosen(self, free: List[int], group: List[Request]) -> int:
+        """Dispatch an already-popped group into free lanes (a resuming
+        head splices its captured state)."""
+        if group[0].resume is not None:
+            self._admit_resumed(free[0], group[0])
+        elif len(group) == 1:
+            self._admit_lane(free[0], group[0])
+        else:
+            self._admit_group(free[:len(group)], group)
+        return len(group)
+
+    # -- admission -------------------------------------------------------------
 
     def _ensure_state(self) -> None:
         if self.state is None:
@@ -435,44 +829,299 @@ class ServeLoop:
             torch.as_tensor(lengths, device=self.device))
         self.counters["prefill_dispatches"] += 1
         if len(group) > 1:
+            self.counters["grouped_admissions"] += 1
             self.counters["grouped_requests"] += len(group)
         self._splice(lanes, group, logits, fresh, bucket=len(rows[0]))
         return logits, fresh, len(rows[0])
+
+    def _sample_key(self) -> int:
+        """A fresh seed from the loop's own (host) stream."""
+        return int(torch.randint(0, 2 ** 62, (), generator=self._gen))
+
+    def _req_sampling(self, req: Request) -> Tuple[float, int, float]:
+        """(temperature, top_k, top_p) of this request: its SamplingParams
+        override, else the loop's knobs."""
+        sp = req.sampling
+        if sp is None:
+            return self.temperature, self.top_k, self.top_p
+        return float(sp.temperature), int(sp.top_k), float(sp.top_p)
+
+    def _seed_keys(self, req: Request, lane: int
+                   ) -> Optional[torch.Generator]:
+        """Seed `lane`'s generator with the request's stream → that
+        generator, or None when the request is greedy (then neither the
+        loop's stream nor the lane's carry is touched). A pinned
+        `sample_seed` is the seed; otherwise it is drawn from the loop's
+        stream. The first token's noise and every later step's come from
+        this one stream, so a seeded request's sampled tokens depend only
+        on (seed, tokens generated): solo, grouped, on any lane, or across
+        a preempt/resume boundary alike."""
+        if self._req_sampling(req)[0] <= 0:
+            return None
+        seed = (req.sample_seed if req.sample_seed is not None
+                else self._sample_key())
+        return self._lane_gens[lane].manual_seed(seed)
+
+    def _first_tokens(self, logits: torch.Tensor, group: List[Request],
+                      gens: List[Optional[torch.Generator]]) -> torch.Tensor:
+        """Each admitted row's first token through its request's rule: the
+        argmax when every row is greedy (no knob reaches the card),
+        else `_next_token_lanes` with each sampled row's noise drawn from
+        its own stream (greedy rows take no noise)."""
+        rows = [i for i, g in enumerate(gens) if g is not None]
+        if not rows:
+            return torch.argmax(logits, -1)
+        dev = logits.device
+        noise = torch.zeros(logits.shape, dtype=torch.float32, device=dev)
+        noise[rows] = gumbel_noise([gens[i] for i in rows],
+                                   logits.shape[-1], dev)
+        t, k, p = zip(*(self._req_sampling(r) for r in group))
+        return _next_token_lanes(
+            logits, noise, torch.tensor(t, dtype=torch.float32, device=dev),
+            torch.tensor(k, dtype=torch.long, device=dev),
+            torch.tensor(p, dtype=torch.float32, device=dev))
 
     def _splice(self, lanes: List[int], group: List[Request], logits, fresh,
                 bucket: int, prefill_chunks: int = 1,
                 prefix_tokens: int = 0) -> None:
         """Insert the prefilled batch-G state into `lanes` (row i into
-        lanes[i]); each lane's first token is the argmax of its logits."""
+        lanes[i]); each lane's first token follows its request's rule."""
         self.counters["nonfinite_lanes"] += int(
             (~torch.isfinite(logits).all(dim=-1)).sum())
         src = np.full(self.lanes, -1, np.int64)
         src[lanes] = np.arange(len(group))
         state_lanes_insert(self.state, src, fresh)
+        gens = [self._seed_keys(r, lane) for lane, r in zip(lanes, group)]
         lane_t = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
-        self.tok[lane_t] = torch.argmax(logits, -1)
+        self.tok[lane_t] = self._first_tokens(logits, group, gens)
         self.counters["admit_dispatches"] += 1
         now = self._now()
         for lane, req in zip(lanes, group):
             self._register_admit(lane, req, now, bucket, prefill_chunks,
-                                 prefix_tokens)
+                                 prefix_tokens, group_size=len(group))
+
+    def _set_lane_knobs(self, lane: int, req: Request) -> None:
+        """Load one lane's knobs from the request (its SamplingParams
+        override, else the loop's defaults)."""
+        t, k, p = self._req_sampling(req)
+        self.lane_temp[lane] = t
+        self.lane_topk[lane] = k
+        self.lane_topp[lane] = p
+        sp = req.sampling
+        self.lane_eos[lane] = (self.eos if sp is None or sp.eos is None
+                               else sp.eos)
+        self._lane_prio[lane] = req.priority
+
+    def _reset_lane_knobs(self, lane: int) -> None:
+        """Back to the loop's defaults when a lane frees: a stale sampled
+        temperature would otherwise keep the block off its argmax-only
+        path."""
+        self.lane_temp[lane] = self.temperature
+        self.lane_topk[lane] = self.top_k
+        self.lane_topp[lane] = self.top_p
+        self.lane_eos[lane] = self.eos
+        self._lane_prio[lane] = 0
 
     def _register_admit(self, lane: int, req: Request, now: float,
                         bucket: int, prefill_chunks: int,
-                        prefix_tokens: int, prefix_exact: bool = False
-                        ) -> None:
+                        prefix_tokens: int, prefix_exact: bool = False,
+                        group_size: int = 1) -> None:
         """Host-side bookkeeping for a request just spliced into `lane`."""
         self.active[lane] = req.max_new > 0
         self.remaining[lane] = max(req.max_new, 0)
         self.outputs[lane] = []
         self._lane_rid[lane] = req.rid
+        self._set_lane_knobs(lane, req)
         st = self.stats[req.rid]
         st.lane, st.t_admit, st.bucket = lane, now, bucket
         st.prefill_chunks = prefill_chunks
+        st.admit_seq = self._admit_seq
+        st.group_size = group_size
         st.prefix_tokens, st.prefix_exact = prefix_tokens, prefix_exact
+        self._admit_seq += 1
         if req.max_new <= 0:                   # prefill-only request
             st.t_first = now
             self._finish_lane(lane, now)
+
+    # -- priority preemption + drain-aware reservation -------------------------
+
+    def _admit_resumed(self, lane: int, req: Request) -> None:
+        """Splice a preempted request's captured state back into a free
+        lane with no prefill; outputs, budget, PRNG carry and the carried
+        next token are all restored."""
+        self._ensure_state()
+        rs = req.resume
+        req.resume = None
+        state_lane_insert(self.state, lane, rs.state)
+        self.tok[lane] = rs.tok
+        self.counters["admit_dispatches"] += 1
+        self.active[lane] = rs.rem > 0
+        self.remaining[lane] = rs.rem
+        self.outputs[lane] = list(rs.outputs)
+        self._lane_rid[lane] = req.rid
+        self._set_lane_knobs(lane, req)
+        self._lane_gens[lane].set_state(rs.key)
+        st = self.stats[req.rid]
+        st.lane = lane
+        st.admit_seq = self._admit_seq
+        self._admit_seq += 1
+
+    def _preempt_lane(self, lane: int) -> None:
+        """Evict one active lane for a higher class: capture its exact
+        mid-stream snapshot (state copy, carried next token, budget, PRNG
+        carry, emitted tokens) onto the request and requeue it at its
+        arrival rank."""
+        rid = self._lane_rid[lane]
+        req = self._req_by_rid[rid]
+        fresh = state_lane_slice(self.state, lane)
+        req.resume = _ResumeState(
+            state=fresh, tok=int(self.tok[lane]),
+            rem=int(self.remaining[lane]),
+            key=self._lane_gens[lane].get_state(),
+            outputs=list(self.outputs[lane]))
+        self.active[lane] = False
+        self.remaining[lane] = 0
+        self.outputs[lane] = []
+        self._lane_rid[lane] = None
+        self._reset_lane_knobs(lane)
+        st = self.stats[rid]
+        st.preemptions += 1
+        st.lane = -1
+        self.counters["preemptions"] += 1
+        self._cache_insert_preempted(req, fresh)
+        self._requeue(req)
+
+    def _cache_insert_preempted(self, req: Request,
+                                fresh: DecodeState) -> None:
+        """A preempted lane's capture also feeds the trie as a rows donor
+        while its prompt prefix is still slot-aligned
+        (`cache_prefix_rows`), so a sibling prompt can resume its sliced
+        prefill from the victim's rows. The gate refuses a capture that has
+        decoded (step past the prompt) or a quantized cache; the grid
+        conditions are `_cache_insert_finalized`'s."""
+        pc = self.prefix_cache
+        if pc is None or not req.reuse_prefix:
+            return
+        c = self.chunk_prefill
+        n = len(req.prompt)
+        if not (self._rows_reuse and n % c == 0
+                and c == self.model.cfg.attn_chunk):
+            return
+        t0 = time.perf_counter()
+        # the light fields are checked before k/v/acc are copied out
+        rows = cache_prefix_rows(fresh.kv, n)
+        if rows is not None:
+            pc.insert_rows(req.prompt, RowsEntry(n, *rows))
+            self.counters["preempt_cache_inserts"] += 1
+        self.prefix_host_s["insert_s"] += time.perf_counter() - t0
+        self._sync_cache_counters()
+
+    def _requeue(self, req: Request) -> None:
+        """Re-insert a preempted request at its arrival rank: it resumes as
+        soon as its class is schedulable again, ahead of later arrivals of
+        its class."""
+        req.admitted = False
+        dq = self._bucket_q.setdefault(self._qkey(req), deque())
+        idx = next((i for i, r in enumerate(dq)
+                    if r.arrival > req.arrival), len(dq))
+        dq.insert(idx, req)
+        if req not in self._arrived_fifo:      # identity compare (eq=False)
+            fifo = self._arrived_fifo
+            idx = next((i for i, r in enumerate(fifo)
+                        if r.arrival > req.arrival), len(fifo))
+            fifo.insert(idx, req)
+        self._arrived_count += 1
+
+    def _try_preempt(self) -> bool:
+        """With every lane busy: if the best waiting class strictly
+        outranks the lowest-priority active lane, evict that lane (ties go
+        to the most predicted remaining work) → whether a lane was freed.
+        Equal priorities never preempt."""
+        if not self._bucket_q:
+            return False
+        top = min(self._bucket_q)
+        head = self._bucket_q[top][0]
+        if (head.resume is None and self._needs_chunking(top[1])
+                and self._pending is not None):
+            return False          # could not be admitted this round anyway
+        pred = self.predicted_free_blocks()
+        victim: Optional[int] = None
+        vrank: Tuple[int, int] = (0, 0)
+        for lane in np.flatnonzero(self.active):
+            lane = int(lane)
+            if self._pending is not None and lane == self._pending.lane:
+                continue
+            rid = self._lane_rid[lane]
+            if rid is None or rid not in self._req_by_rid:
+                continue
+            rank = (int(self._lane_prio[lane]), -pred.get(lane, 0))
+            if victim is None or rank < vrank:
+                victim, vrank = lane, rank
+        if victim is None or -top[0] <= vrank[0]:
+            return False
+        self._preempt_lane(victim)
+        return True
+
+    def predicted_free_blocks(self) -> Dict[int, int]:
+        """Per active lane, the decode blocks until it frees: its unspent
+        budget, bounded by an observed mean EOS-termination length (minus
+        what it already emitted). The mean is the lane's (priority,
+        bucket) class's once that class has 4 EOS completions; below that
+        the global mean applies when at least 4 EOS completions were seen
+        and no fewer than budget exhaustions."""
+        eos_mean = None
+        if (len(self._eos_lens) >= 4
+                and len(self._eos_lens) >= self._budget_done):
+            eos_mean = float(np.mean(self._eos_lens))
+        out: Dict[int, int] = {}
+        for lane in np.flatnonzero(self.active):
+            lane = int(lane)
+            exp = int(self.remaining[lane])
+            mean = eos_mean
+            rid = self._lane_rid[lane]
+            st = self.stats.get(rid) if rid is not None else None
+            if st is not None:
+                cell = self._eos_by_class.get((st.priority, st.bucket))
+                if cell is not None and len(cell) >= 4:
+                    mean = float(np.mean(cell))
+            if mean is not None:
+                exp = min(exp, max(1, round(mean)
+                                   - len(self.outputs[lane])))
+            out[lane] = max(1, math.ceil(exp / self.block))
+        return out
+
+    def _reserve(self) -> None:
+        """Drain-aware pre-grouping: with every lane busy, pop as many
+        queued requests as lanes are predicted to free within
+        `reserve_blocks` decode blocks, so their admission fires the moment
+        the lanes free. Reserved requests follow the normal target order
+        (class, shortest bucket, aging) and go ahead of the queues."""
+        if (not self.reserve_blocks or not self.group_admit
+                or not self._bucket_q):
+            return
+        soon = sum(1 for b in self.predicted_free_blocks().values()
+                   if b <= self.reserve_blocks)
+        room = soon - len(self._reserved)
+        if room <= 0:
+            return
+        fifo_head = self._fifo_head()
+        if fifo_head is None:
+            return
+        target = min(self._bucket_q)
+        if (-target[0] <= fifo_head.priority
+                and target != self._qkey(fifo_head)
+                and self._head_skips >= self.max_head_skips):
+            target = self._qkey(fifo_head)     # aging
+        if (self._needs_chunking(target[1])
+                and self._bucket_q[target][0].resume is None):
+            return          # sliced prefills reserve their own lane
+        group = self._take_bucket(target, room)
+        if not group:
+            return
+        self._head_skips = (0 if fifo_head in group
+                            else self._head_skips + 1)
+        self._reserved.extend(group)
+        self.counters["reservations"] += len(group)
 
     # -- prefix cache ----------------------------------------------------------
 
@@ -501,12 +1150,14 @@ class ServeLoop:
     def _splice_cached(self, lane: int, req: Request,
                        entry: StateEntry) -> None:
         """Admit from an exact-prompt hit: copy the cached finalized state
-        into `lane` (no prefill dispatch); its first token is the argmax of
-        the cached logits, so a greedy repeat reproduces the original
-        stream."""
+        into `lane` (no prefill dispatch); the cached logits seed its first
+        token through the request's rule, so a greedy repeat reproduces the
+        original stream."""
         t0 = time.perf_counter()
         state_lane_insert(self.state, lane, entry.state)
-        self.tok[lane] = torch.argmax(entry.logits.to(self.device), -1)
+        gens = [self._seed_keys(req, lane)]
+        self.tok[lane] = self._first_tokens(
+            entry.logits.to(self.device)[None], [req], gens)[0]
         self.prefix_host_s["splice_s"] += time.perf_counter() - t0
         self.counters["admit_dispatches"] += 1
         self.counters["prefix_copies"] += 1
@@ -650,30 +1301,28 @@ class ServeLoop:
     # -- decode --------------------------------------------------------------
 
     def _step_block(self) -> None:
-        """Decode `block` steps over every lane. A lane emits its carried
-        token while active; it stops at EOS (never emitted) or when its
-        budget is spent, and from then on its cache rows stay frozen."""
+        """Decode `block` steps over every lane (`decode_block_lanes`). A
+        lane emits its carried token while active; it stops at its stop
+        token (never emitted) or when its budget is spent, and from then on
+        its cache rows stay frozen."""
         dev = self.device
-        active = torch.as_tensor(self.active, device=dev)
-        rem = torch.as_tensor(self.remaining, device=dev)
-        finite = torch.ones(self.lanes, dtype=torch.bool, device=dev)
-        tok = self.tok
-        toks, emits = [], []
-        for _ in range(self.block):
-            logits, self.state = self.model.decode_step(
-                self.params, self.state, tok, active)
-            finite &= torch.isfinite(logits).all(dim=-1) | ~active
-            emit = active & (rem > 0) & (tok != self.eos)
-            rem = rem - emit.to(rem.dtype)
-            toks.append(tok)
-            emits.append(emit)
-            active = emit & (rem > 0)
-            tok = torch.argmax(logits, -1)
-        self.tok = tok
+        eos = self.lane_eos
+        # one stop token for every lane stays a Python scalar: the greedy
+        # block then copies nothing more to the card than before per-lane
+        # stop tokens
+        eos = (int(eos[0]) if (eos == eos[0]).all()
+               else torch.as_tensor(eos, device=dev))
+        (self.state, self.tok, active, rem, finite, toks,
+         emits) = decode_block_lanes(
+            self.model, self.params, self.state, self.tok,
+            torch.as_tensor(self.active, device=dev),
+            torch.as_tensor(self.remaining, device=dev), eos,
+            self._lane_gens, self.lane_temp, self.lane_topk, self.lane_topp,
+            steps=self.block)
         self.counters["decode_blocks"] += 1
         self.counters["decode_steps"] += self.block
-        host_toks = torch.stack(toks).cpu().numpy()        # [steps, lanes]
-        host_emit = torch.stack(emits).cpu().numpy()
+        host_toks = toks.cpu().numpy()                     # [steps, lanes]
+        host_emit = emits.cpu().numpy()
         was_active = self.active.copy()
         self.active = active.cpu().numpy()
         self.remaining = rem.cpu().numpy().astype(np.int32)
@@ -700,7 +1349,18 @@ class ServeLoop:
         self.completed.append(st)
         self._finished.add(rid)
         self._lane_rid[lane] = None
+        self._req_by_rid.pop(rid, None)
         self.active[lane] = False
+        self._reset_lane_knobs(lane)
+        if st.max_new > 0:
+            # drain-prediction statistics: a lane that stopped with budget
+            # left stopped on its stop token
+            if self.remaining[lane] > 0:
+                self._eos_lens.append(len(st.tokens))
+                self._eos_by_class.setdefault(
+                    (st.priority, st.bucket), []).append(len(st.tokens))
+            else:
+                self._budget_done += 1
 
     # -- driver ----------------------------------------------------------------
 
@@ -710,8 +1370,8 @@ class ServeLoop:
         block."""
         if self._t0 is None:
             self._t0 = time.monotonic()
-        while (self._arrivals or self._waiting or self.active.any()
-               or self._pending is not None):
+        while (self._arrived_count or self._arrivals or self._reserved
+               or self.active.any() or self._pending is not None):
             admitted = self.schedule()
             sliced = self._advance_chunked()
             if self.active.any():
@@ -760,8 +1420,6 @@ class ServeLoop:
 # CLI — the reference's flags, plus --device
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = ("temperature", "top_k", "top_p")
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -792,11 +1450,14 @@ def main(argv=None):
     ap.add_argument("--sequential-admit", action="store_true",
                     help="disable grouped admission (--serve only)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="not ported yet (greedy only: must stay 0)")
+                    help="sampling temperature (0 = greedy; --serve only)")
     ap.add_argument("--top-k", type=int, default=0,
-                    help="not ported yet (must stay 0)")
+                    help="truncate sampling to the k most likely tokens "
+                         "(0 = full distribution; --serve only)")
     ap.add_argument("--top-p", type=float, default=0.0,
-                    help="not ported yet (must stay 0)")
+                    help="nucleus sampling: truncate to the smallest token "
+                         "set with cumulative probability >= p (0 = "
+                         "disabled; --serve only)")
     ap.add_argument("--no-window", action="store_true",
                     help="accepted for the reference's command lines: the "
                          "port always decodes at full slot width, and the "
@@ -805,9 +1466,6 @@ def main(argv=None):
                     help="torch device (default cuda; raises without a "
                          "card — pass cpu to run the plain PyTorch path)")
     args = ap.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not ported yet")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -837,6 +1495,8 @@ def main(argv=None):
                          buckets=None if args.no_buckets else "auto",
                          chunk_prefill=args.chunk_prefill,
                          group_admit=not args.sequential_admit,
+                         temperature=args.temperature, top_k=args.top_k,
+                         top_p=args.top_p,
                          prefix_cache_bytes=args.prefix_cache,
                          device=args.device)
         lens = (args.prompt_len, max(8, args.prompt_len // 2),

@@ -240,7 +240,7 @@ def test_one_sliced_prefill_at_a_time_short_prompts_pass_it():
         loop.submit(Request(prompt=p, max_new=m))
     loop.schedule()
     assert loop._pending is not None and loop._pending.req.rid == 0
-    assert [r.rid for r in loop._waiting] == [1]     # the short one went in
+    assert [r.rid for r in loop.queue] == [1]      # the short one went in
     assert loop.stats[2].lane >= 0
     loop.run()
     assert [s.prefill_chunks for s in sorted(loop.completed,

@@ -88,9 +88,40 @@ def test_cli_serves_on_cpu(capsys):
     assert "generated (2, 3)" in capsys.readouterr().out
 
 
-def test_cli_refuses_unported_flags():
-    with pytest.raises(SystemExit):
-        main(["--reduced", "--temperature", "0.7", "--device", "cpu"])
+def _cli_streams(monkeypatch, argv):
+    """Serve through the CLI; → every request's token stream, by rid."""
+    runs = []
+    run = ServeLoop.run
+
+    def recording_run(self):
+        stats = run(self)
+        runs.append({s.rid: s.tokens for s in stats})
+        return stats
+
+    with monkeypatch.context() as m:
+        m.setattr(ServeLoop, "run", recording_run)
+        main(["--reduced", "--batch", "2", "--prompt-len", "24",
+              "--new-tokens", "6", "--fused", "--serve", "--device", "cpu",
+              *argv])
+    (streams,) = runs
+    return streams
+
+
+def test_cli_serves_with_sampling_flags(monkeypatch, capsys):
+    streams = _cli_streams(monkeypatch, ["--temperature", "0.7",
+                                         "--top-k", "20", "--top-p", "0.9"])
+    assert "served 4 reqs on 2 lanes" in capsys.readouterr().out
+    assert [len(streams[r]) for r in range(4)] == [6, 3, 6, 3]
+    greedy = _cli_streams(monkeypatch, [])
+    assert streams != greedy                  # the knobs reached the lanes
+
+
+def test_cli_greedy_output_unchanged_by_top_k(monkeypatch, capsys):
+    """Temperature 0 is greedy whatever top-k says: the same streams."""
+    assert (_cli_streams(monkeypatch, ["--top-k", "5"])
+            == _cli_streams(monkeypatch, []))
+    out = capsys.readouterr().out
+    assert out.count("served 4 reqs on 2 lanes") == 2
 
 
 def test_serve_streams_equal_reference_serve_loop():
