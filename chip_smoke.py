@@ -75,7 +75,26 @@ Phases, in order (no failure is caught: any one exits non-zero):
                sampler's device time per step, device events and card
                time a step, host wall per step with and without sampled
                lanes, and the bytes and seconds of a preemption's capture
-               and resume.
+               and resume;
+  8. faults  — fault tolerance on the same weights and pruning, 4 lanes,
+               block 8, 6 requests of about 1,024 tokens (greedy, top-k
+               and top-p with seeds): a clean loop and one whose lanes 0
+               and 1 take NaN logits in block 1 (bf16 and int8 KV: the
+               two requests are quarantined, prefilled again and their
+               streams equal the clean loop's), then (bf16) an inert
+               ChaosConfig, exhausted retries (the failed request keeps the
+               clean stream's prefix), a deadline that passes inside a
+               stall (the lane frees within one block), cancellation of an
+               active and a queued request, a flood against max_queue
+               (rejections with retry_after) and the degrade ladder
+               (streams unchanged); on every loop ragged_decode launches 32
+               x the decode steps and flash_prefill 32 x the prefill
+               dispatches (re-prefills included); a block with a fault
+               mask synchronises the host nowhere a clean one does not.
+               Printed: each loop's wall and counters, the wall a
+               quarantine and retry add, the card ms and device events of
+               the sentinel and the mask, blocks and ms from a deadline's
+               expiry to its free lane, and retry_after.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -122,6 +141,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
 from repro_torch.models.transformer import (DecodeState,  # noqa: E402
                                             Model, layer_params)
+from repro_torch.runtime.chaos import ChaosConfig, flood  # noqa: E402
 from repro_torch.surgery import (state_lane_insert,  # noqa: E402
                                  state_lane_slice)
 
@@ -1409,10 +1429,15 @@ def run_perlane_loop(model, params, reqs, arrival=None, reverse=False):
     return loop, [handles[i] for i in sorted(handles)], first, wall, main_path
 
 
+# the aten ops a decode step of `decode_block_lanes` adds to `one_stop_block`:
+# the non-finite sentinel's deactivation of a poisoned lane
+SENTINEL_OPS = {"aten.bitwise_and.Tensor": 1}
+
+
 def one_stop_block(model, params, state, tok, active, rem, eos, steps):
     """The decode block as the engine ran it before per-lane knobs (greedy,
     one stop token for every lane), kept to count what an all-greedy
-    `decode_block_lanes` block adds to it."""
+    `decode_block_lanes` block adds to it (`SENTINEL_OPS` a step)."""
     finite = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
     toks, emits = [], []
     for _ in range(steps):
@@ -1621,18 +1646,21 @@ def perlane_costs(model, params, loop, kv, smi):
             torch.cuda.synchronize()
             wall[name].append(round((time.monotonic() - t0) / steps * 1e3,
                                     2))
+    # the non-finite sentinel's deactivation (`active & ok`) is the one op
+    # a step that an all-greedy block adds to the one-stop block
+    sentinel = {op: n * steps for op, n in SENTINEL_OPS.items()}
+    extra = ops["all greedy"] - ops["one stop"]
     print(f"  perlane kv={kv}: a block of {steps} steps: aten ops "
-          f"{ {k: sum(v.values()) for k, v in ops.items()} } (the one-stop "
-          f"and the all-greedy block's equal: "
-          f"{ops['all greedy'] == ops['one stop']}); device events (kernels, "
-          f"copies, sets) and card ms a step "
+          f"{ {k: sum(v.values()) for k, v in ops.items()} } (the all-greedy "
+          f"block adds to the one-stop block {dict(extra)}, the sentinel's "
+          f"ops x {steps} steps: {dict(extra) == sentinel}); device events "
+          f"(kernels, copies, sets) and card ms a step "
           f"{ {k: (n, round(ms / steps, 3)) for k, (n, ms) in events.items()} }"
           f"; a sampled block adds {sum(added.values())} aten ops, of new "
           f"kinds {new_kinds}; host syncs a block {syncs}; host wall ms a "
           f"step, in turns: {wall}  [{smi}]")
-    assert ops["all greedy"] == ops["one stop"], (
-        ops["all greedy"] - ops["one stop"],
-        ops["one stop"] - ops["all greedy"])
+    assert dict(extra) == sentinel and not ops["one stop"] - ops[
+        "all greedy"], (extra, ops["one stop"] - ops["all greedy"])
     assert set(syncs["sampled"]) <= set(syncs["all greedy"]), syncs
 
     logits, state = model.decode_step(params, state, tok, active)
@@ -1686,6 +1714,305 @@ def perlane_costs(model, params, loop, kv, smi):
           f"= {2 * nbytes / cap / 1e9:.0f} GB/s, resume (state_lane_insert) "
           f"{res * 1e3:.3f} ms = {2 * nbytes / res / 1e9:.0f} GB/s; median "
           f"of 5, host wall with sync  [{smi}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: fault tolerance — quarantine and retry, exhausted retries, inert
+# chaos, a deadline under a stall, cancellation, backpressure, the ladder
+# ---------------------------------------------------------------------------
+
+# six requests of about 1,024 tokens (one bucket), 16 new tokens each (two
+# blocks of 8): R0, R2, R4, R5 greedy, R1 top-k and R3 top-p with pinned
+# seeds (each admitted solo). R0-R3 fill the 4 lanes; R4 and R5 wait.
+FAULT_LENS = (1024, 1000, 1017, 990, 1008, 1020)
+FAULT_NEW = 16
+FAULT_KNOBS = {1: SamplingParams(temperature=0.8, top_k=50),
+               3: SamplingParams(temperature=1.0, top_p=0.9)}
+FAULT_SEEDS = {1: 7, 3: 11}
+# NaN logits on lanes 0 and 1 (R0 greedy, R1 sampled) at every step of the
+# second block: both are quarantined and retried on other lanes
+QUARANTINE = ChaosConfig(seed=3, logit_fault_rate=1.0, fault_blocks=(1,),
+                         fault_lanes=(0, 1))
+FAIL_STEP = 3        # exhausted retries: lane 0's first NaN, block 1
+# a stall before block 1 as long as the deadline: the deadline passes
+# inside the stall whenever the request's prefill and block 0 end before
+# it (1.55 s on an H100 at 700 W, about 150 ms a host-bound step)
+STALL_S = DEADLINE_S = 3.0
+FLOOD_QUEUE = 4       # the flood: 3 x FLOOD_QUEUE requests in two waves
+LADDER = ({"block": 4},)
+
+
+def fault_requests(vocab):
+    """Request fields of R0-R5."""
+    rng = np.random.default_rng(SEED + 8)
+    reqs = [dict(prompt=rng.integers(0, vocab, t), max_new=FAULT_NEW)
+            for t in FAULT_LENS]
+    for i, sp in FAULT_KNOBS.items():
+        reqs[i].update(sampling=sp, sample_seed=FAULT_SEEDS[i])
+    return reqs
+
+
+def fail_chaos():
+    """NaN logits on lane 0 of block 1 from step FAIL_STEP on: the first
+    seed whose mask (rate 0.5) starts there."""
+    for seed in itertools.count():
+        c = ChaosConfig(seed=seed, logit_fault_rate=0.5, fault_blocks=(1,),
+                        fault_lanes=(0,))
+        col = c.fault_mask(1, 8, LANES)[:, 0]
+        if col.any() and int(np.argmax(col)) == FAIL_STEP:
+            return c
+
+
+def check_main_path(loop, main_path, others):
+    """Every prompt pass of the loop (re-prefills of retried requests
+    included) ran flash_prefill once a layer, every decode step
+    ragged_decode once a layer, and nothing else ran a kernel or the plain
+    prompt attention on the card."""
+    layers, c = loop.model.cfg.num_layers, loop.counters
+    assert main_path["ragged_decode"] == layers * c["decode_steps"] > 0, c
+    assert main_path["flash_prefill"] == layers * c["prefill_dispatches"] > 0
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    assert not any(others.values()), others
+
+
+def run_fault_loop(model, params, reqs, drive=None, **kw):
+    """Serve `reqs` on LANES lanes, block 8 (`drive(loop, handles)` in place
+    of `run()`) → (loop, handles, wall, launches of the main path)."""
+    loop = ServeLoop(model, params, lanes=LANES, block=8,
+                     device=model.device, **kw)
+    hs = [loop.submit(Request(**r)) for r in reqs]
+    torch.cuda.synchronize()
+    reset_launches()
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
+    t0 = time.monotonic()
+    if drive is None:
+        loop.run()
+    else:
+        drive(loop, hs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    main_path = {"ragged_decode": counts.pop("ragged_decode"),
+                 "flash_prefill": counts.pop("flash_prefill")}
+    check_main_path(loop, main_path, counts)
+    return loop, hs, wall, main_path
+
+
+FAULT_COUNTERS = ("prefill_dispatches", "decode_blocks", "decode_steps",
+                  "nonfinite_lanes", "quarantined_lanes", "retried_requests",
+                  "failed_requests", "deadline_expired", "cancelled_requests",
+                  "rejected_requests", "shed_requests", "degrade_down",
+                  "degrade_up", "chaos_faults", "chaos_stalls")
+
+
+def fault_summary(name, kv, loop, hs, wall, launches, smi):
+    c = loop.counters
+    print(f"  faults {name} kv={kv}: wall {wall:.3f}s; outcomes "
+          f"{[h.outcome for h in hs]}, tokens {[len(h.tokens) for h in hs]}, "
+          f"retries {[h.stats.retries for h in hs]}; "
+          f"{ {k: c[k] for k in FAULT_COUNTERS if c[k]} }; ragged_decode "
+          f"{launches['ragged_decode']} = 32 x {c['decode_steps']}, "
+          f"flash_prefill {launches['flash_prefill']} = 32 x "
+          f"{c['prefill_dispatches']}  [{smi}]")
+
+
+def phase_faults(cfg, params, smi):
+    """Fault tolerance at full width: retried streams equal the clean
+    run's (greedy and seeded sampled, bf16 and int8), every loop's
+    launches are the main path's, and each loop's counters are the ones
+    the scheduler gives its trace. Returns the launches of ragged_decode
+    and flash_prefill."""
+    launches = {"ragged_decode": 0, "flash_prefill": 0}
+
+    def run(name, kv, model, reqs, drive=None, **kw):
+        loop, hs, wall, counted = run_fault_loop(model, params, reqs, drive,
+                                                 **kw)
+        for k, n in counted.items():
+            launches[k] += n
+        fault_summary(name, kv, loop, hs, wall, counted, smi)
+        return loop, hs, wall
+
+    reqs = fault_requests(cfg.vocab_size)
+    for kv in ("bf16", "int8"):
+        model = Model(cfg, baselines.unicaim(
+            heavy=PROMPT_LEN // 2, reserve=64, select_k=PROMPT_LEN // 16,
+            fused=True, kv_dtype=kv), device="cuda")
+        clean, c_hs, c_wall = run("clean", kv, model, reqs)
+        quar, q_hs, q_wall = run("quarantine", kv, model, reqs,
+                                 chaos=QUARANTINE)
+        want = [h.tokens for h in c_hs]
+        same = sum(h.tokens == w for h, w in zip(q_hs, want))
+        assert [h.outcome for h in q_hs] == ["done"] * len(reqs)
+        assert [h.stats.retries for h in q_hs] == [1, 1, 0, 0, 0, 0]
+        qc, cc = quar.counters, clean.counters
+        assert (qc["quarantined_lanes"], qc["retried_requests"],
+                qc["nonfinite_lanes"], qc["chaos_faults"]) == (2, 2, 2, 16), qc
+        assert qc["prefill_dispatches"] == cc["prefill_dispatches"] + 2
+        assert qc["decode_steps"] == cc["decode_steps"] == 32
+        assert cc["prefill_dispatches"] == 5 and cc["nonfinite_lanes"] == 0
+        print(f"  faults kv={kv}: the quarantine and retry of R0 and R1 "
+              f"(greedy, top-k; retried on lanes "
+              f"{[q_hs[i].stats.lane for i in (0, 1)]}) add "
+              f"{q_wall - c_wall:.3f}s of loop wall ({c_wall:.3f} -> "
+              f"{q_wall:.3f}s) and 2 prefill dispatches; R0 done at "
+              f"{c_hs[0].stats.t_done:.3f} -> {q_hs[0].stats.t_done:.3f}s, "
+              f"R1 at {c_hs[1].stats.t_done:.3f} -> "
+              f"{q_hs[1].stats.t_done:.3f}s; streams equal the clean "
+              f"loop's: {same} of {len(want)}  [{smi}]")
+        assert same == len(want)
+        if kv == "bf16":
+            fault_loops(run, kv, model, reqs, want, cc, smi)
+            fault_costs(model, params, quar, smi)
+        del model, clean, quar
+        gc.collect()
+    return launches
+
+
+def fault_loops(run, kv, model, reqs, want, cc, smi):
+    """The bf16 loops past quarantine: inert chaos, exhausted retries, a
+    deadline under a stall, cancellation, a flood against `max_queue` and
+    the degrade ladder."""
+    inert, i_hs, _ = run("inert chaos", kv, model, reqs, chaos=ChaosConfig())
+    assert [h.tokens for h in i_hs] == want
+    ic = inert.counters
+    assert all(ic[k] == cc[k] for k in FAULT_COUNTERS), (ic, cc)
+
+    failing = fail_chaos()
+    fail, f_hs, _ = run("exhausted retries", kv, model, reqs[:4],
+                        max_retries=0, chaos=failing)
+    assert f_hs[0].outcome == "failed" and f_hs[0].stats.retries == 1
+    assert f_hs[0].tokens == want[0][:8 + FAIL_STEP]
+    assert [h.tokens for h in f_hs[1:]] == want[1:4]
+    assert fail.counters["failed_requests"] == 1
+
+    ends = []
+
+    def timed(loop, hs):
+        step = loop._step_block
+
+        def block():
+            step()
+            ends.append(loop._now())
+        loop._step_block = block
+        loop.run()
+
+    # R1 samples, so R0 is prefilled alone as in the clean loop (a grouped
+    # prefill may take other GEMM kernels, so other bits)
+    dl_reqs = [dict(reqs[0], max_new=64, deadline_s=DEADLINE_S), reqs[1]]
+    dead, d_hs, _ = run("deadline under a stall", kv, model, dl_reqs, timed,
+                        chaos=ChaosConfig(stall_blocks=(1,),
+                                          stall_s=STALL_S))
+    st = d_hs[0].stats
+    expiry = st.t_arrival + DEADLINE_S
+    blocks = sum(expiry <= e <= st.t_done for e in ends)
+    print(f"  faults deadline kv={kv}: R0 (deadline {DEADLINE_S}s) expired "
+          f"inside the {STALL_S}s stall before block 1; its lane freed "
+          f"{(st.t_done - expiry) * 1e3:.1f} ms and {blocks} block(s) after "
+          f"the expiry; block ends {[round(e, 3) for e in ends]}s  [{smi}]")
+    assert d_hs[0].outcome == "deadline" and blocks == 1
+    assert d_hs[0].tokens == want[0][:16]
+    assert d_hs[1].outcome == "done" and d_hs[1].tokens == want[1]
+    assert (dead.counters["deadline_expired"],
+            dead.counters["chaos_stalls"]) == (1, 1)
+
+    def cancel(loop, hs):
+        loop.schedule()
+        loop._step_block()
+        assert hs[0].cancel() and hs[4].cancel()
+        loop.run()
+
+    canc, k_hs, _ = run("cancel", kv, model, reqs[:5], cancel)
+    assert [h.outcome for h in k_hs] == ["cancelled", "done", "done",
+                                          "done", "cancelled"]
+    assert k_hs[0].tokens == want[0][:8] and k_hs[4].tokens == []
+    assert [h.tokens for h in k_hs[1:4]] == want[1:4]
+    assert canc.counters["cancelled_requests"] == 2
+    assert canc.counters["prefill_dispatches"] == 4     # R4 never prefilled
+
+    burst = flood(model.cfg.vocab_size, 3 * FLOOD_QUEUE,
+                  length=PROMPT_LEN // 2,
+                  max_new=8, seed=SEED)
+
+    def overflow(loop, hs):
+        loop.run()                       # measures the block wall first
+        hs.extend(loop.submit(Request(**kw)) for kw in burst[FLOOD_QUEUE:])
+        loop.run()
+
+    fl, fl_hs, _ = run("flood", kv, model, burst[:FLOOD_QUEUE], overflow,
+                       max_queue=FLOOD_QUEUE)
+    late = fl_hs[FLOOD_QUEUE:]
+    outcomes = [h.outcome for h in fl_hs]
+    hints = [h.stats.retry_after for h in late if h.outcome == "rejected"]
+    print(f"  faults flood kv={kv}: {len(late)} submitted against max_queue "
+          f"{FLOOD_QUEUE} after {FLOOD_QUEUE} served: {outcomes.count('done')}"
+          f" done, {outcomes.count('rejected')} rejected with retry_after "
+          f"{[round(x, 3) for x in hints]}s (block wall EMA "
+          f"{fl._block_s_ema:.3f}s)  [{smi}]")
+    assert outcomes.count("done") == 2 * FLOOD_QUEUE
+    assert outcomes.count("rejected") == len(late) - FLOOD_QUEUE
+    assert fl.counters["rejected_requests"] == len(late) - FLOOD_QUEUE
+    assert all(x > 0 for x in hints) and len(hints) == FLOOD_QUEUE
+
+    lad, l_hs, _ = run("ladder", kv, model, reqs, degrade=LADDER,
+                       degrade_high=2)
+    lc = lad.counters
+    assert [h.tokens for h in l_hs] == want
+    assert lc["degrade_down"] >= 1 and lc["degrade_up"] >= 1
+    assert lad._degrade_level == 0
+    assert lc["decode_steps"] < 8 * lc["decode_blocks"]
+
+
+def fault_costs(model, params, loop, smi):
+    """On the quarantine loop's final 4-lane state, blocks of COST_STEPS
+    steps, clean and with one lane's logits poisoned at its second step:
+    the aten ops and device events the fault mask adds, the card ms of the
+    sentinel's op and of the mask's at [4, V], and host syncs (a faulted
+    block must synchronise nowhere a clean one does not)."""
+    dev, state, tok, gens = model.device, loop.state, loop.tok, loop._lane_gens
+    steps = COST_STEPS
+    active = torch.ones(LANES, dtype=torch.bool, device=dev)
+    rem = torch.full((LANES,), 1 << 20, dtype=torch.int32, device=dev)
+    greedy = (np.zeros(LANES, np.float32), np.zeros(LANES, np.int32),
+              np.zeros(LANES, np.float32))
+    mask = np.zeros((steps, LANES), bool)
+    mask[1, 2] = True
+
+    def block(fault):
+        return decode_block_lanes(model, params, state, tok, active, rem, -1,
+                                  gens, *greedy, steps, fault=fault)
+
+    runs = {"clean": lambda: block(None), "faulted": lambda: block(mask)}
+    finite = block(mask)[4].cpu().numpy()
+    assert list(finite) == [True, True, False, True], finite
+    ops = {k: aten_ops(fn) for k, fn in runs.items()}
+    events = {k: device_events(fn) for k, fn in runs.items()}
+    syncs = {k: host_syncs(fn) for k, fn in runs.items()}
+    added = ops["faulted"] - ops["clean"]
+    logits = model.decode_step(params, state, tok, active)[0]
+    fault_t = torch.as_tensor(mask).to(dev)
+    finite = torch.ones(LANES, dtype=torch.bool, device=dev)
+    ok = torch.isfinite(logits).all(dim=-1) | ~active
+
+    def sentinel():                     # decode_block_lanes' check, a step
+        good = torch.isfinite(logits).all(dim=-1) | ~active
+        finite.bitwise_and_(good)
+        return active & good
+
+    whole_ms = cuda_ms(sentinel)
+    added_ms = cuda_ms(lambda: active & ok)
+    mask_ms = cuda_ms(lambda: torch.where(fault_t[1, :, None], math.nan,
+                                          logits))
+    print(f"  faults costs at [{LANES}, {logits.shape[-1]}], a block of "
+          f"{steps} steps: card time a step of the whole sentinel "
+          f"{whole_ms:.4f} ms, of its op new in this slice (active & ok) "
+          f"{added_ms:.4f} ms, of the fault mask's where {mask_ms:.4f} ms; a "
+          f"faulted block adds aten ops {dict(added)}; device events "
+          f"and card ms a step "
+          f"{ {k: (n, round(ms / steps, 3)) for k, (n, ms) in events.items()} }"
+          f"; host syncs a block {syncs}  [{smi}]")
+    assert set(syncs["faulted"]) <= set(syncs["clean"]), syncs
+    assert not ops["clean"] - ops["faulted"]
 
 
 def three_pass_attend(cache, q, prune):
@@ -1974,6 +2301,13 @@ def main():
             launches[name] += n
         gc.collect()
         print(f"[perlane] kv={kv} phase {time.monotonic() - t:.1f}s")
+
+    # 8. fault tolerance: quarantine and retry, deadlines, cancellation,
+    # backpressure, the degrade ladder
+    t = time.monotonic()
+    for name, n in phase_faults(cfg, params, smi).items():
+        launches[name] += n
+    print(f"[faults] phase {time.monotonic() - t:.1f}s")
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key

@@ -1,6 +1,6 @@
 """Serving engine — the port of `repro/launch/serve.py` (the engine's
 core, chunked admission, the prefix cache, per-lane sampling knobs,
-priority preemption and drain-aware reservation).
+priority preemption, drain-aware reservation and fault tolerance).
 
 `ServeLoop` keeps a fixed number of decode lanes and a request queue.
 Admission is grouped: every arrived request that pads to the same bucket
@@ -22,8 +22,18 @@ snapshots (`prefix_cache.py`) lets a repeated prompt splice its cached
 state with no prefill, and a prompt that shares a cached prefix resume
 its sliced prefill past it.
 
-Not ported yet: fault tolerance (deadlines, cancellation, backpressure,
-the degrade ladder, quarantine and retry, chaos) and meshes.
+Fault tolerance: a request may carry a deadline or be cancelled through
+its handle; a bounded queue (`max_queue`) rejects or sheds by priority; a
+degrade ladder shortens the decode block and caps new budgets under
+sustained pressure; the decode block's non-finite sentinel deactivates a
+poisoned lane on the device, and the loop quarantines it and retries the
+request token-identically (`max_retries`, then outcome "failed"); a
+`runtime.chaos.ChaosConfig` injects NaN logits, stalls and blackouts; and
+`run()` resolves a queue it cannot place instead of spinning. Every
+request ends with one outcome: done, cancelled, deadline, rejected or
+failed.
+
+Not ported yet: meshes (the port serves one shard).
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.prefix_cache import PrefixCache, RowsEntry, StateEntry
 from repro_torch.models.transformer import (DecodeState, Model,
                                             PrefillChunkState)
+from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.surgery import (cache_prefix_rows, state_lane_insert,
                                  state_lane_slice, state_lanes_insert)
 
@@ -200,7 +211,8 @@ def decode_block_lanes(model: Model, params, state, tok: torch.Tensor,
                        eos: Union[int, torch.Tensor],
                        gens: Sequence[torch.Generator],
                        temperature: np.ndarray, top_k: np.ndarray,
-                       top_p: np.ndarray, steps: int = 1):
+                       top_p: np.ndarray, steps: int = 1,
+                       fault: Optional[np.ndarray] = None):
     """`steps` decode steps with per-lane termination and per-lane
     sampling knobs — the engine's decode block.
 
@@ -221,9 +233,23 @@ def decode_block_lanes(model: Model, params, state, tok: torch.Tensor,
     seed, steps resident) alone — independent of its neighbours, its lane
     index and any preempt/resume boundary. No host sync inside the block.
 
+    Non-finite sentinel: every step checks each active lane's logits for
+    NaN/Inf; a poisoned lane is deactivated on the device BEFORE it emits
+    that step's carried token (the reference's order), so nothing it
+    emits comes from corrupt logits, and the host quarantines it. The
+    check and the deactivation run every step with no branch: the
+    reference's `lax.cond(any(bad))` has no eager counterpart without a
+    host sync, and `active & ok` is a bitwise no-op on clean lanes (a NaN
+    never crosses the lane axis). `fault` (optional [steps, B] bool host
+    array) overwrites the masked lanes' logits with NaN before the check —
+    the injection point of `runtime/chaos.py`; it goes to the card in one
+    copy a block that does not wait for it. The clean path passes None
+    and adds no op: eager PyTorch has no compiled program to share, so the
+    reference's always-passed all-False mask has no use here.
+
     Returns (state, tok, active, rem, finite [B], toks [steps, B],
     emitted [steps, B]); `finite` is False for a lane that was active at
-    a step whose logits were not all finite."""
+    a step whose logits were not all finite (a poisoned lane)."""
     dev = tok.device
     sampled_any = bool((np.asarray(temperature) > 0).any())
     if sampled_any:
@@ -232,11 +258,18 @@ def decode_block_lanes(model: Model, params, state, tok: torch.Tensor,
         knobs = torch.as_tensor(np.stack([temperature, top_k, top_p]),
                                 dtype=torch.float32).to(dev, non_blocking=True)
         t, k, p = knobs[0], knobs[1].long(), knobs[2]
+    if fault is not None:
+        fault = torch.as_tensor(np.asarray(fault, bool)).to(
+            dev, non_blocking=True)
     finite = torch.ones(tok.shape[0], dtype=torch.bool, device=dev)
     toks, emits = [], []
-    for _ in range(steps):
+    for i in range(steps):
         logits, state = model.decode_step(params, state, tok, active)
-        finite &= torch.isfinite(logits).all(dim=-1) | ~active
+        if fault is not None:
+            logits = torch.where(fault[i, :, None], math.nan, logits)
+        ok = torch.isfinite(logits).all(dim=-1) | ~active
+        finite &= ok
+        active = active & ok
         emit = active & (rem > 0) & (tok != eos)
         rem = rem - emit.to(rem.dtype)
         toks.append(tok)
@@ -282,6 +315,11 @@ class Request:
     first and may PREEMPT the lowest-priority active lane when no lane is
     free (the victim's state is captured and it resumes token-identical
     later). `reuse_prefix=False` opts out of the prefix cache both ways.
+    `deadline_s` is a completion deadline in seconds from arrival: a
+    request still waiting or still decoding when it expires resolves with
+    outcome "deadline" (partial tokens kept; its lane frees at the next
+    block boundary). `RequestHandle.cancel()` resolves the same way with
+    outcome "cancelled".
     Identity-compared (eq=False): the scheduler removes requests from its
     queues by identity."""
     prompt: np.ndarray
@@ -291,11 +329,18 @@ class Request:
     sampling: Optional[SamplingParams] = None
     priority: int = 0
     reuse_prefix: bool = True            # consult + feed the prefix cache
+    deadline_s: Optional[float] = None   # completion deadline from arrival
     # engine-assigned fields — never pass these to the constructor
     rid: int = -1
     bucket: int = 0            # memoized pad width under the loop's grid
     admitted: bool = False     # lazy-prune marker for the arrival deque
     resume: Optional["_ResumeState"] = None   # set while preempted
+    cancelled: bool = False    # set by RequestHandle.cancel()
+    retries: int = 0           # quarantine retries consumed so far
+    # the lane generator's seed, memoized at the first sampled admission
+    # so a quarantine retry replays the same stream without drawing from
+    # the loop's stream again (see `_seed_keys`)
+    seed_keys: Optional[int] = None
 
 
 class RequestHandle:
@@ -318,6 +363,19 @@ class RequestHandle:
     @property
     def tokens(self) -> List[int]:
         return list(self.stats.tokens)
+
+    @property
+    def outcome(self) -> Optional[str]:
+        """Terminal outcome — "done" | "cancelled" | "deadline" |
+        "rejected" | "failed" — or None while the request is live."""
+        return self.stats.outcome if self.done else None
+
+    def cancel(self) -> bool:
+        """Ask for cancellation → True if the request was still live (it
+        resolves "cancelled" at the next scheduler round; a decoding lane
+        frees at the next block boundary), False if it had already
+        ended."""
+        return self._loop.cancel(self.rid)
 
     def __repr__(self) -> str:
         return f"RequestHandle(rid={self.rid}, done={self.done})"
@@ -343,6 +401,11 @@ class RequestStats:
     prefix_exact: bool = False  # whole prompt hit (state splice, no prefill)
     priority: int = 0          # scheduling class (higher = more urgent)
     preemptions: int = 0       # times this request was evicted + requeued
+    outcome: str = "done"      # done|cancelled|deadline|rejected|failed
+    detail: str = ""           # the reason for an outcome other than done
+    retries: int = 0           # quarantine retries this request consumed
+    retry_after: float = 0.0   # suggested resubmit delay (backpressure)
+    degraded: bool = False     # admitted under a degraded budget cap
 
     @property
     def latency(self) -> float:
@@ -467,6 +530,33 @@ class ServeLoop:
     `prefix_tokens_reused`, `prefix_inserts`, `prefix_evictions`;
     `prefix_host_s` holds the host seconds of the trie's snapshot copies
     (`insert_s`) and of exact-hit splices (`splice_s`).
+
+    Fault tolerance follows the reference. `Request(deadline_s=...)` and
+    `RequestHandle.cancel()` end a waiting request when it is popped
+    (`_resolve_dead`) and a decoding one at the next round
+    (`_sweep_lanes`: the lane's host active flag clears, so the next
+    block's device mask drops its writes; partial tokens kept). The
+    decode block's sentinel deactivates a lane whose logits are not
+    finite; `_quarantine_lane` frees it, drops its partial tokens and
+    requeues the request at its arrival rank, which replays token-
+    identical (a re-prefill, and the seed memoized on the request), up to
+    `max_retries` times, then resolves "failed" with the clean prefix.
+    `max_queue > 0` bounds the waiting population: a submit that
+    overflows it sheds the latest waiter of a strictly lower class, or is
+    itself rejected, with a `retry_after` hint from the measured block
+    wall. Unservable submits (empty prompt, `max_new <= 0`, a prompt
+    longer than a pinned grid) are rejected at once. `degrade` ("auto" or
+    a tuple of {"block", "max_new_cap"} levels) steps down one level a
+    round while every lane is busy, at least `degrade_high` wait and no
+    lane frees within the reservation horizon, and back up once at most
+    `degrade_low` wait; a smaller block only shortens the dispatch (the
+    port has no decode window), so token values never change. `chaos`
+    attaches a `ChaosConfig` (NaN logits, stalls, blackouts). `run()`
+    resolves waiting work it cannot place (`_fail_stuck`). Counters:
+    `deadline_expired`, `cancelled_requests`, `rejected_requests`,
+    `shed_requests`, `quarantined_lanes`, `retried_requests`,
+    `failed_requests`, `degrade_down`, `degrade_up`, `chaos_faults`,
+    `chaos_stalls`, `chaos_blackouts`.
     """
 
     def __init__(self, model: Model, params, lanes: int, max_new: int = 64,
@@ -476,7 +566,11 @@ class ServeLoop:
                  max_head_skips: int = 8, reserve_blocks: int = 1,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 0.0, sample_seed: int = 0,
-                 prefix_cache_bytes: int = 0, device="cuda"):
+                 prefix_cache_bytes: int = 0, max_retries: int = 2,
+                 max_queue: int = 0,
+                 degrade: Union[str, Sequence[Dict[str, int]], None] = None,
+                 degrade_high: int = 0, degrade_low: int = 0,
+                 chaos: Optional[ChaosConfig] = None, device="cuda"):
         _check_device(model, device)
         self.model = model
         self.params = params
@@ -560,7 +654,30 @@ class ServeLoop:
             "prefix_copies": 0, "prefix_tokens_reused": 0,
             "prefix_inserts": 0, "prefix_evictions": 0,
             "preempt_cache_inserts": 0,
+            "deadline_expired": 0, "cancelled_requests": 0,
+            "rejected_requests": 0, "shed_requests": 0,
+            "quarantined_lanes": 0, "retried_requests": 0,
+            "failed_requests": 0, "degrade_down": 0, "degrade_up": 0,
+            "chaos_faults": 0, "chaos_stalls": 0, "chaos_blackouts": 0,
         }
+        # -- fault tolerance --------------------------------------------------
+        self.max_retries = max(0, max_retries)
+        self.max_queue = max(0, max_queue)     # 0 = unbounded
+        if degrade == "auto":
+            degrade = ({"block": max(1, self.block // 2)},
+                       {"block": max(1, self.block // 4),
+                        "max_new_cap": 4 * self.block})
+        self.degrade_ladder: Tuple[Dict[str, int], ...] = (
+            tuple(degrade) if degrade else ())
+        # hysteresis on the waiting population: down at >= high with every
+        # lane busy, back up at <= low
+        self.degrade_high = degrade_high if degrade_high > 0 else 2 * lanes
+        self.degrade_low = max(0, degrade_low)
+        self._degrade_level = 0
+        self.chaos = chaos
+        self._rounds = 0                       # run() iterations
+        self._blackout_on = False
+        self._block_s_ema: Optional[float] = None   # wall s a decode block
 
     def _now(self) -> float:
         return 0.0 if self._t0 is None else time.monotonic() - self._t0
@@ -568,20 +685,28 @@ class ServeLoop:
     # -- request intake ------------------------------------------------------
 
     def submit(self, request: Request) -> RequestHandle:
-        """Queue one request → its handle."""
+        """Queue one request → its handle. An unservable request, or one
+        that overflows `max_queue` without a lower class to shed, comes
+        back already resolved "rejected"."""
         if not isinstance(request, Request):
             raise TypeError("submit() takes a Request(prompt=..., max_new=...)")
         if request.rid >= 0:
             raise ValueError(f"Request already submitted (rid={request.rid})")
         req = request
         req.prompt = np.asarray(req.prompt)
-        if len(req.prompt) == 0:
-            raise ValueError("empty prompt")
         if req.max_new is None:
             req.max_new = self.max_new
         req.rid = self._next_rid
         self._next_rid += 1
         self._req_by_rid[req.rid] = req
+        reason = self._unadmittable(req)
+        if reason is not None:
+            return self._reject_new(req, reason)
+        if self.max_queue and self._waiting_count() >= self.max_queue:
+            victim = self._shed_candidate(req)
+            if victim is None:
+                return self._reject_new(req, "queue full", backpressure=True)
+            self._shed(victim)
         req.bucket = self._bucket_of(req)
         arrival = float(req.arrival)
         if arrival < self._drained_hwm:
@@ -599,6 +724,152 @@ class ServeLoop:
                                            req.max_new, t_arrival=arrival,
                                            priority=req.priority)
         return RequestHandle(self, req.rid)
+
+    # -- structured rejection + backpressure -----------------------------------
+
+    def _unadmittable(self, req: Request) -> Optional[str]:
+        """Why this request can never be served (it is rejected at submit
+        instead of wedging `run()`), or None."""
+        if len(req.prompt) == 0:
+            return "empty prompt"
+        if req.max_new <= 0:
+            return "max_new <= 0 generates nothing"
+        if (isinstance(self.buckets, tuple) and self.buckets
+                and len(req.prompt) > max(self.buckets)):
+            return (f"prompt length {len(req.prompt)} exceeds every "
+                    f"bucket of the pinned grid {self.buckets}")
+        return None
+
+    def _waiting_count(self) -> int:
+        """The waiting population `max_queue` bounds: arrived and not
+        admitted, future arrivals and reserved requests."""
+        return (self._arrived_count + len(self._arrivals)
+                + len(self._reserved))
+
+    def _retry_after(self) -> float:
+        """Suggested resubmit delay for a backpressure rejection: the
+        waiting population's predicted drain time at the measured wall
+        time a decode block (0.05 s before the first block)."""
+        blk = self._block_s_ema if self._block_s_ema is not None else 0.05
+        depth = self._waiting_count() / max(self.lanes, 1)
+        tokens = np.mean([r.max_new for r in self._arrived_fifo
+                          if not r.admitted] or [self.max_new])
+        return depth * math.ceil(float(tokens) / self.block) * blk
+
+    def _finish_queued(self, req: Request, outcome: str,
+                       detail: str = "") -> None:
+        """Resolve a request that holds no lane with a terminal outcome
+        (a preempted one keeps its partial tokens)."""
+        st = self.stats[req.rid]
+        now = self._now()
+        if req.resume is not None:
+            st.tokens = list(req.resume.outputs)
+            req.resume = None
+        st.outcome = outcome
+        st.detail = detail
+        st.t_done = max(now, st.t_arrival)
+        if st.t_first < st.t_admit:
+            st.t_first = st.t_done
+        req.admitted = True                    # lazy-prune marker
+        self.completed.append(st)
+        self._finished.add(req.rid)
+        self._req_by_rid.pop(req.rid, None)
+
+    def _reject_new(self, req: Request, reason: str,
+                    backpressure: bool = False) -> RequestHandle:
+        """Resolve a just-submitted request "rejected" without queueing it;
+        under backpressure its `retry_after` says when to resubmit."""
+        self.stats[req.rid] = RequestStats(
+            req.rid, len(req.prompt), max(req.max_new, 0),
+            t_arrival=float(req.arrival), priority=req.priority)
+        self.counters["rejected_requests"] += 1
+        self._finish_queued(req, "rejected", reason)
+        if backpressure:
+            self.stats[req.rid].retry_after = self._retry_after()
+        return RequestHandle(self, req.rid)
+
+    def _shed_candidate(self, new: Request) -> Optional[Request]:
+        """The latest arrival of the worst waiting class, if that class is
+        strictly below `new`'s; else None (then `new` is rejected)."""
+        worst: Optional[Request] = None
+        if self._bucket_q:
+            worst = self._bucket_q[max(self._bucket_q)][-1]
+        for r in self._arrivals:
+            if worst is None or r.priority < worst.priority or (
+                    r.priority == worst.priority
+                    and r.arrival >= worst.arrival):
+                worst = r
+        if worst is None or worst.priority >= new.priority:
+            return None
+        return worst
+
+    def _shed(self, victim: Request) -> None:
+        """Drop one waiting request to make room ("rejected", counted as
+        shed; its handle stays valid)."""
+        if victim in self._arrivals:           # identity compare (eq=False)
+            self._arrivals.remove(victim)
+        else:
+            key = self._qkey(victim)
+            dq = self._bucket_q[key]
+            dq.remove(victim)
+            if not dq:
+                del self._bucket_q[key]
+            self._arrived_count -= 1
+        self.counters["shed_requests"] += 1
+        self.counters["rejected_requests"] += 1
+        self._finish_queued(victim, "rejected", "shed under backpressure")
+        self.stats[victim.rid].retry_after = self._retry_after()
+
+    # -- cancellation + deadlines ----------------------------------------------
+
+    def cancel(self, rid: int) -> bool:
+        """Flag one request for cancellation (see RequestHandle.cancel)."""
+        req = self._req_by_rid.get(rid)
+        if rid in self._finished or req is None:
+            return False
+        req.cancelled = True
+        return True
+
+    def _deadline_over(self, req: Request, now: float) -> bool:
+        return (req.deadline_s is not None
+                and now >= self.stats[req.rid].t_arrival + req.deadline_s)
+
+    def _resolve_dead(self, req: Request) -> bool:
+        """Resolve a waiting request that was cancelled or whose deadline
+        passed → whether it is gone (then it is not admitted). Called where
+        a request leaves a queue, so no round scans the backlog."""
+        if req.cancelled:
+            self.counters["cancelled_requests"] += 1
+            self._finish_queued(req, "cancelled")
+            return True
+        if self._deadline_over(req, self._now()):
+            self.counters["deadline_expired"] += 1
+            self._finish_queued(req, "deadline",
+                                f"deadline_s={req.deadline_s} expired "
+                                "before admission")
+            return True
+        return False
+
+    def _sweep_lanes(self, now: float) -> None:
+        """End the active lanes whose request was cancelled or passed its
+        deadline: clear the host active flag (the next block's device
+        mask drops their writes) and finish them with their partial
+        tokens. Runs every round, so such a lane frees within one block."""
+        for lane in np.flatnonzero(self.active):
+            lane = int(lane)
+            req = self._req_by_rid[self._lane_rid[lane]]
+            if req.cancelled:
+                self.counters["cancelled_requests"] += 1
+                outcome, detail = "cancelled", ""
+            elif self._deadline_over(req, now):
+                self.counters["deadline_expired"] += 1
+                outcome = "deadline"
+                detail = f"deadline_s={req.deadline_s} expired mid-decode"
+            else:
+                continue
+            self.active[lane] = False
+            self.remaining[lane] = 0
+            self._finish_lane(lane, now, outcome=outcome, detail=detail)
 
     def _bucket_of(self, req: Request) -> int:
         if self.buckets is None:
@@ -697,10 +968,23 @@ class ServeLoop:
 
     def _free_lanes(self) -> List[int]:
         """Lanes without a request; a sliced prefill's reserved lane is not
-        free."""
+        free. A chaos blackout of shard 0 (the port's one shard) hides
+        every free lane while it lasts (resident lanes keep decoding) and
+        counts once an interval; rounds keep ticking, so it expires."""
         reserved = None if self._pending is None else self._pending.lane
-        return [i for i in range(self.lanes)
+        free = [i for i in range(self.lanes)
                 if self._lane_rid[i] is None and i != reserved]
+        black = self._blackout_active()
+        if black:
+            free = []
+            if not self._blackout_on:
+                self.counters["chaos_blackouts"] += 1
+        self._blackout_on = black
+        return free
+
+    def _blackout_active(self) -> bool:
+        return (self.chaos is not None and self.chaos.blackout_shard >= 0
+                and self.chaos.blacked_out(self._rounds, 0))
 
     def _needs_chunking(self, bucket: int) -> bool:
         return 0 < self.chunk_prefill < bucket
@@ -752,6 +1036,8 @@ class ServeLoop:
                 take = len(free)
             if self._bucket_q[target][0].resume is not None:
                 req = self._take_bucket(target, 1)[0]
+                if self._resolve_dead(req):
+                    continue
                 self._head_skips = (0 if fifo_head is req
                                     else self._head_skips + 1)
                 self._admit_resumed(free[0], req)
@@ -768,14 +1054,18 @@ class ServeLoop:
                     return n
                 target = min(alts)
                 if self._bucket_q[target][0].resume is not None:
-                    self._admit_resumed(free[0],
-                                        self._take_bucket(target, 1)[0])
+                    req = self._take_bucket(target, 1)[0]
+                    if self._resolve_dead(req):
+                        continue
+                    self._admit_resumed(free[0], req)
                     n += 1
                     continue
             if self._needs_chunking(target[1]):
                 if self._pending is not None:
                     return n
                 head = self._take_bucket(target, 1)[0]
+                if self._resolve_dead(head):
+                    continue
                 self._head_skips = (0 if fifo_head is head
                                     else self._head_skips + 1)
                 self._start_chunked(free[0], head)
@@ -788,7 +1078,11 @@ class ServeLoop:
 
     def _admit_chosen(self, free: List[int], group: List[Request]) -> int:
         """Dispatch an already-popped group into free lanes (a resuming
-        head splices its captured state)."""
+        head splices its captured state). Cancelled or expired members
+        resolve here instead: the group shrinks."""
+        group = [r for r in group if not self._resolve_dead(r)]
+        if not group:
+            return 0
         if group[0].resume is not None:
             self._admit_resumed(free[0], group[0])
         elif len(group) == 1:
@@ -855,12 +1149,17 @@ class ServeLoop:
         stream. The first token's noise and every later step's come from
         this one stream, so a seeded request's sampled tokens depend only
         on (seed, tokens generated): solo, grouped, on any lane, or across
-        a preempt/resume boundary alike."""
+        a preempt/resume boundary alike. The seed is memoized on the
+        request at its first admission, so a quarantine retry replays the
+        same stream and does not draw from the loop's stream again (a
+        second draw would fork the retry and shift later requests'
+        seeds)."""
         if self._req_sampling(req)[0] <= 0:
             return None
-        seed = (req.sample_seed if req.sample_seed is not None
-                else self._sample_key())
-        return self._lane_gens[lane].manual_seed(seed)
+        if req.seed_keys is None:
+            req.seed_keys = (req.sample_seed if req.sample_seed is not None
+                             else self._sample_key())
+        return self._lane_gens[lane].manual_seed(req.seed_keys)
 
     def _first_tokens(self, logits: torch.Tensor, group: List[Request],
                       gens: List[Optional[torch.Generator]]) -> torch.Tensor:
@@ -926,9 +1225,12 @@ class ServeLoop:
                         bucket: int, prefill_chunks: int,
                         prefix_tokens: int, prefix_exact: bool = False,
                         group_size: int = 1) -> None:
-        """Host-side bookkeeping for a request just spliced into `lane`."""
-        self.active[lane] = req.max_new > 0
-        self.remaining[lane] = max(req.max_new, 0)
+        """Host-side bookkeeping for a request just spliced into `lane`;
+        the degrade ladder's budget cap applies here."""
+        cap = self._degrade_cap()
+        budget = req.max_new if cap is None else min(req.max_new, cap)
+        self.active[lane] = True               # submit rejected max_new <= 0
+        self.remaining[lane] = budget
         self.outputs[lane] = []
         self._lane_rid[lane] = req.rid
         self._set_lane_knobs(lane, req)
@@ -938,10 +1240,8 @@ class ServeLoop:
         st.admit_seq = self._admit_seq
         st.group_size = group_size
         st.prefix_tokens, st.prefix_exact = prefix_tokens, prefix_exact
+        st.degraded = st.degraded or budget < req.max_new
         self._admit_seq += 1
-        if req.max_new <= 0:                   # prefill-only request
-            st.t_first = now
-            self._finish_lane(lane, now)
 
     # -- priority preemption + drain-aware reservation -------------------------
 
@@ -1224,6 +1524,47 @@ class ServeLoop:
         self.prefix_host_s["insert_s"] += time.perf_counter() - t0
         self._sync_cache_counters()
 
+    # -- graceful degradation --------------------------------------------------
+
+    def _effective_block(self) -> int:
+        """Decode block size at the current degrade level (the ladder's
+        "block"; level 0 = the configured block). A smaller block answers
+        deadlines, cancellation and quarantine sooner and amortizes less;
+        token values do not change (the block size never enters a lane's
+        arithmetic)."""
+        if not self._degrade_level:
+            return self.block
+        lvl = self.degrade_ladder[self._degrade_level - 1]
+        return max(1, int(lvl.get("block", self.block)))
+
+    def _degrade_cap(self) -> Optional[int]:
+        """Budget cap on new admissions at the current level (the ladder's
+        "max_new_cap"; None = uncapped). A capped request ends "done" with
+        `stats.degraded`."""
+        if not self._degrade_level:
+            return None
+        cap = self.degrade_ladder[self._degrade_level - 1].get(
+            "max_new_cap")
+        return int(cap) if cap else None
+
+    def _pressure_tick(self) -> None:
+        """One hysteresis step a round: down when every lane is busy, at
+        least `degrade_high` wait and no lane is predicted to free within
+        the reservation horizon; up when at most `degrade_low` wait."""
+        if not self.degrade_ladder:
+            return
+        waiting = self._arrived_count + len(self._reserved)
+        if (waiting >= self.degrade_high
+                and self._degrade_level < len(self.degrade_ladder)
+                and not self._free_lanes()):
+            pred = self.predicted_free_blocks()
+            if pred and min(pred.values()) > max(1, self.reserve_blocks):
+                self._degrade_level += 1
+                self.counters["degrade_down"] += 1
+        elif waiting <= self.degrade_low and self._degrade_level:
+            self._degrade_level -= 1
+            self.counters["degrade_up"] += 1
+
     # -- chunked (time-sliced) admission ---------------------------------------
 
     def _start_chunked(self, lane: int, req: Request) -> None:
@@ -1265,6 +1606,12 @@ class ServeLoop:
         p = self._pending
         if p is None:
             return False
+        if p.req.cancelled or self._deadline_over(p.req, self._now()):
+            # drop the sliced prefill: its reserved lane frees at once and
+            # the remaining slices are never dispatched
+            self._pending = None
+            self._resolve_dead(p.req)
+            return False
         c = self.chunk_prefill
         row0 = p.next_chunk * c
         tok_c = torch.as_tensor(p.padded[None, row0:row0 + c],
@@ -1301,49 +1648,109 @@ class ServeLoop:
     # -- decode --------------------------------------------------------------
 
     def _step_block(self) -> None:
-        """Decode `block` steps over every lane (`decode_block_lanes`). A
-        lane emits its carried token while active; it stops at its stop
-        token (never emitted) or when its budget is spent, and from then on
-        its cache rows stay frozen."""
+        """Decode `steps` = `_effective_block()` steps over every lane
+        (`decode_block_lanes`). A lane emits its carried token while
+        active; it stops at its stop token (never emitted) or when its
+        budget is spent, and from then on its cache rows stay frozen. With
+        a `ChaosConfig`, its stall sleeps before the dispatch and its fault
+        mask for this block index rides in (only a mask with a set bit is
+        passed). Lanes the sentinel flagged are quarantined and their
+        requests retried (`_quarantine_lane`), never finished."""
         dev = self.device
+        steps = self._effective_block()
         eos = self.lane_eos
         # one stop token for every lane stays a Python scalar: the greedy
         # block then copies nothing more to the card than before per-lane
         # stop tokens
         eos = (int(eos[0]) if (eos == eos[0]).all()
                else torch.as_tensor(eos, device=dev))
+        fault = None
+        if self.chaos is not None and self.chaos.any_faults:
+            blk = self.counters["decode_blocks"]
+            stall = self.chaos.stall(blk)
+            if stall > 0:
+                self.counters["chaos_stalls"] += 1
+                time.sleep(stall)
+            mask = self.chaos.fault_mask(blk, steps, self.lanes)
+            self.counters["chaos_faults"] += int(mask.sum())
+            if mask.any():
+                fault = mask
+        t_disp = time.monotonic()
         (self.state, self.tok, active, rem, finite, toks,
          emits) = decode_block_lanes(
             self.model, self.params, self.state, self.tok,
             torch.as_tensor(self.active, device=dev),
             torch.as_tensor(self.remaining, device=dev), eos,
             self._lane_gens, self.lane_temp, self.lane_topk, self.lane_topp,
-            steps=self.block)
+            steps=steps, fault=fault)
         self.counters["decode_blocks"] += 1
-        self.counters["decode_steps"] += self.block
+        self.counters["decode_steps"] += steps
         host_toks = toks.cpu().numpy()                     # [steps, lanes]
         host_emit = emits.cpu().numpy()
         was_active = self.active.copy()
         self.active = active.cpu().numpy()
         self.remaining = rem.cpu().numpy().astype(np.int32)
-        self.counters["nonfinite_lanes"] += int(
-            (~finite.cpu().numpy() & was_active).sum())
+        poison = was_active & ~finite.cpu().numpy()
+        # the block's wall, the card's work included (the dispatch returns
+        # before the card finishes; the copies above wait for it): an EMA
+        # feeds the backpressure hint `retry_after`
+        dt = time.monotonic() - t_disp
+        self._block_s_ema = (dt if self._block_s_ema is None
+                             else 0.8 * self._block_s_ema + 0.2 * dt)
+        self.counters["nonfinite_lanes"] += int(poison.sum())
         now = self._now()
         for lane in np.flatnonzero(host_emit.any(axis=0)):
             if not self.outputs[lane]:
                 self.stats[self._lane_rid[lane]].t_first = now
             self.outputs[lane].extend(
                 host_toks[host_emit[:, lane], lane].tolist())
-        for lane in np.flatnonzero(was_active & ~self.active):
+        for lane in np.flatnonzero(was_active & ~self.active & ~poison):
             self._finish_lane(int(lane), now)
+        for lane in np.flatnonzero(poison):
+            self._quarantine_lane(int(lane))
 
-    def _finish_lane(self, lane: int, now: float) -> None:
+    def _quarantine_lane(self, lane: int) -> None:
+        """A lane tripped the non-finite sentinel: free it (its state rows
+        are overwritten by the next admission's splice) and retry the
+        request from its prompt — requeued at its arrival rank, prefilled
+        again, its seed memoized (`_seed_keys`), so greedy and seeded
+        sampled streams come back token-identical. The poisoned
+        incarnation's tokens are dropped (the retry emits them again).
+        After `max_retries` quarantines the request resolves "failed" and
+        keeps its clean partial stream."""
+        rid = self._lane_rid[lane]
+        self.counters["quarantined_lanes"] += 1
+        partial = list(self.outputs[lane])
+        self.active[lane] = False
+        self.remaining[lane] = 0
+        self.outputs[lane] = []
+        self._lane_rid[lane] = None
+        self._reset_lane_knobs(lane)
+        req = self._req_by_rid[rid]
+        st = self.stats[rid]
+        req.retries += 1
+        st.retries = req.retries
+        st.lane = -1
+        if req.retries > self.max_retries:
+            self.counters["failed_requests"] += 1
+            st.tokens = partial                # the clean prefix
+            self._finish_queued(req, "failed",
+                                "non-finite logits; max_retries="
+                                f"{self.max_retries} exhausted")
+        else:
+            self.counters["retried_requests"] += 1
+            self._requeue(req)
+
+    def _finish_lane(self, lane: int, now: float, outcome: str = "done",
+                     detail: str = "") -> None:
         rid = self._lane_rid[lane]
         st = self.stats[rid]
         if st.t_first < st.t_admit:     # nothing emitted (first token EOS)
             st.t_first = now
         st.tokens = list(self.outputs[lane])
         st.t_done = now
+        st.outcome = outcome
+        st.detail = detail
         fill = self.state.kv.fill[:, lane].float()
         st.occupancy = float(fill.mean()) / self.state.kv.slots
         self.completed.append(st)
@@ -1352,9 +1759,11 @@ class ServeLoop:
         self._req_by_rid.pop(rid, None)
         self.active[lane] = False
         self._reset_lane_knobs(lane)
-        if st.max_new > 0:
-            # drain-prediction statistics: a lane that stopped with budget
-            # left stopped on its stop token
+        if outcome == "done":
+            # drain-prediction statistics, natural completions only (a
+            # cancelled or expired lane has budget left and is no EOS
+            # sample): a lane that stopped with budget left stopped on its
+            # stop token
             if self.remaining[lane] > 0:
                 self._eos_lens.append(len(st.tokens))
                 self._eos_by_class.setdefault(
@@ -1366,20 +1775,63 @@ class ServeLoop:
 
     def run(self) -> List[RequestStats]:
         """Drive until the queue is drained and every lane is idle. Each
-        round schedules, runs at most one prefill slice, then one decode
-        block."""
+        round sweeps cancelled and expired lanes, schedules, ticks the
+        degrade ladder, runs at most one prefill slice, then one decode
+        block.
+
+        Hang-proof: a round that admits, slices and decodes nothing while
+        requests wait, the lanes idle and nothing is due to arrive means
+        the scheduler cannot place the waiting work; after three such
+        rounds it resolves "rejected" (`_fail_stuck`). A chaos blackout
+        is exempt: it sleeps 1 ms a round until the round counter ends
+        it."""
         if self._t0 is None:
             self._t0 = time.monotonic()
+        idle = 0
         while (self._arrived_count or self._arrivals or self._reserved
                or self.active.any() or self._pending is not None):
+            self._rounds += 1
+            self._sweep_lanes(self._now())
             admitted = self.schedule()
+            self._pressure_tick()
             sliced = self._advance_chunked()
             if self.active.any():
                 self._step_block()
-            elif not (admitted or sliced) and self._arrivals:
-                time.sleep(min(max(self._arrivals[0].arrival - self._now(),
-                                   0.0), 0.05))
+            elif not (admitted or sliced):
+                # a cancelled future arrival is resolved now, not slept
+                # out
+                while self._arrivals and self._arrivals[0].cancelled:
+                    self._resolve_dead(self._arrivals.popleft())
+                if self._arrivals:
+                    wait = self._arrivals[0].arrival - self._now()
+                    if wait > 0:
+                        time.sleep(min(wait, 0.05))
+                elif self._blackout_active():
+                    time.sleep(0.001)
+                elif self._arrived_count or self._reserved:
+                    idle += 1
+                    if idle >= 3:
+                        self._fail_stuck()
+                        idle = 0
+                continue
+            idle = 0
         return self.completed
+
+    def _fail_stuck(self) -> None:
+        """Last-resort hang breaker: resolve every waiting request
+        "rejected" (the scheduler made no progress with idle lanes and
+        nothing pending or arriving)."""
+        stuck: List[Request] = list(self._reserved)
+        self._reserved.clear()
+        for key in list(self._bucket_q):
+            dq = self._bucket_q.pop(key)
+            self._arrived_count -= len(dq)
+            stuck.extend(dq)
+        for req in stuck:
+            self.counters["rejected_requests"] += 1
+            self._finish_queued(req, "rejected",
+                                "scheduler made no progress — request "
+                                "cannot be placed")
 
     def aggregate(self) -> Dict[str, float]:
         """Serving metrics over completed requests, plus the counters.
