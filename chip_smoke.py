@@ -12,8 +12,11 @@ Phases, in order (no failure is caught: any one exits non-zero):
                (spills) of the prompt kernel's routes and the HMMA
                (tensor-core) instructions in their SASS (cuobjdump);
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at longchat-7b and granite-like (GQA) decode shapes, bf16
-               and int8 K/V, and flash_prefill at the served prompt shape
+               at longchat-7b, granite-like (GQA), starcoder2-3b (G = 12)
+               and grok-1-314b (G = 6, ragged_decode) decode shapes, bf16
+               and int8 K/V (the decode kernels' G = 12 times with L2 cold
+               beside the served shape's), flash_prefill with group 12,
+               and flash_prefill at the served prompt shape
                (4 x 2048, both contracts, lengths, obs_window, a row0
                chunk, chunked-vs-whole column sums bit for bit; bf16 on
                the tensor cores, its division checked bit for bit against
@@ -95,6 +98,23 @@ Phases, in order (no failure is caught: any one exits non-zero):
                quarantine and retry add, the card ms and device events of
                the sentinel and the mask, blocks and ms from a deadline's
                expiry to its free lane, and retry_after.
+  9. family  — the rest of the dense family and the MoE family at full
+               width, random bf16 weights from the seed, each model freed
+               before the next: starcoder2-3b (LayerNorm, tanh-GELU, qkv
+               bias, G = 12; 30 layers) served as in phase 4 (bf16 and
+               int8 KV, select_blocks 1 and 4, teacher-forced kernel vs
+               composed path, chunk_prefill = 512 held to whole
+               admission), minitron-8b (LayerNorm, relu², vocab 256,000;
+               32 layers) and phi3-medium-14b (40 layers, 4 requests of 16
+               new tokens) served once, llava-next-mistral-7b (the vision
+               frontend; 32 layers) through greedy_generate behind a seeded
+               [4, 576, 4096] vision_embed (cache.step = 576 + length), and
+               grok-1-314b (MoE: 8 experts of d_ff 32,768) with its depth
+               cut to 4 layers, served bf16 and int8 and with
+               chunk_prefill = 512, printing the (token, choice) pairs each
+               prompt pass drops to the experts' capacity. Every serve's
+               launch counts and its no-plain-prompt-attention check hold;
+               printed: wall, tok/s, TTFT, peak memory.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -136,8 +156,9 @@ from repro_torch.kernels import ragged_decode as ragged_mod  # noqa: E402
 from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
                                       ServeLoop, _next_token_lanes,
                                       bucket_length, decode_block_lanes,
-                                      gumbel_noise)
+                                      greedy_generate, gumbel_noise)
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
 from repro_torch.models.transformer import (DecodeState,  # noqa: E402
                                             Model, layer_params)
@@ -504,6 +525,9 @@ def phase_ragged():
         ("granite-like GQA", 4 * 8, 4, 64, 576, 64),
         # a long cache: smaller ring tiles, winners staged in chunks
         ("longchat S=16384", 16, 1, 128, 16384, 128),
+        # starcoder2-3b's and grok-1-314b's served decode shapes
+        ("starcoder2 G=12", 4 * 2, 12, 128, 1088, 128),
+        ("grok G=6", 4 * 8, 6, 128, 1088, 128),
     ]
     worst = 0.0
     for (ci, (name, bh, g, d, s, k)), kv, make in itertools.product(
@@ -551,7 +575,44 @@ def phase_ragged():
               f"{plain:.4f} ms, bound {t:.4f} ms ({by}: {nbytes} B at "
               "3.35 TB/s); library call: none (no single PyTorch call "
               "computes this function)")
+    timings["g12"] = g12_times("ragged_decode", lambda fl, *a: (
+        ragged_mod.ragged_decode(fl, *a, select_k=128)),
+        lambda fl, *a: ref.fused_decode_ref(*a, select_k=128),
+        lambda fl, a: ragged_bound(fl, a, 128))
     return worst, timings
+
+
+# starcoder2-3b's served decode: 4 lanes x 2 kv-heads, G = 12, S = 1088
+G12_FILLS = [f for f in (1040, 1030, 1050, 690) for _ in range(2)]
+L2_BYTES = 50e6
+
+
+def g12_times(name, call, plain, bound_of):
+    """Card times of a decode kernel at starcoder2-3b's served shape, bf16
+    and int8 K/V: with L2 cold (enough input sets in turn to hold twice the
+    L2, as many as the 8 rows' ~5 MB sets need), with its inputs in L2,
+    its plain version, and the bound on the first set."""
+    out = {}
+    for kv in (torch.bfloat16, torch.int8):
+        first = kernel_inputs(8, 12, 128, 1088, G12_FILLS, kv, seed=40)
+        nbytes = sum(a.numel() * a.element_size() for a in first[1])
+        n_sets = max(COLD_SETS, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [first] + [kernel_inputs(8, 12, 128, 1088, G12_FILLS, kv,
+                                        seed=40 + i)
+                          for i in range(1, n_sets)]
+        fills, args = first
+        warm = cuda_ms(lambda: call(fills, *args))
+        cold = cold_ms(call, [(f, *a) for f, a in sets])
+        plain_ms = cuda_ms(lambda: plain(fills, *args))
+        t, by, nb = bound_of(fills, args)
+        key = str(kv)[6:]
+        out[key] = {"ms": cold, "ms_l2_warm": warm, "plain_ms": plain_ms,
+                    "bound_ms": t, "bound_by": by}
+        print(f"  time starcoder2-3b shape (BH=8 G=12 d=128 S=1088 k=128 "
+              f"{key}) {name}: kernel {cold:.4f} ms with L2 cold ({n_sets} "
+              f"input sets in turn; {warm:.4f} ms with its inputs in L2), "
+              f"plain {plain_ms:.4f} ms, bound {t:.4f} ms ({by}: {nb} B)")
+    return out
 
 
 def fused_bound(args, select_k, nb):
@@ -581,6 +642,7 @@ def phase_fused():
         ("longchat S=1088", 4 * 32, 1, 128, 1088, 128),
         ("granite-like GQA S=1088", 4 * 8, 4, 64, 1088, 128),
         ("granite-like GQA S=8256", 8, 4, 64, 8256, 128),
+        ("starcoder2 G=12 S=1088", 4 * 2, 12, 128, 1088, 128),
     ]
     worst = 0.0
     for (ci, (name, bh, g, d, s, k)), kv, make in itertools.product(
@@ -641,6 +703,10 @@ def phase_fused():
               f"{plain:.4f} ms, bound {t:.4f} ms ({by}: {nbytes} B at "
               "3.35 TB/s); library call: none (no single PyTorch call "
               "scores, races and attends)")
+    timings["g12"] = g12_times("fused_decode nb=4", lambda fl, *a: (
+        fused_mod.fused_decode(*a, select_k=128, num_blocks=4)),
+        lambda fl, *a: ref.fused_decode_ref(*a, select_k=128, num_blocks=4),
+        lambda fl, a: fused_bound(a, 128, 4))
     return worst, timings
 
 
@@ -676,7 +742,8 @@ def phase_approx():
     equal bit for bit."""
     for ci, (name, bh, g, d, s) in enumerate([
             ("longchat S=1088", 128, 1, 128, 1088),
-            ("granite-like GQA S=1088", 32, 4, 64, 1088)]):
+            ("granite-like GQA S=1088", 32, 4, 64, 1088),
+            ("starcoder2 G=12 S=1088", 8, 12, 128, 1088)]):
         fills = mixed_fills(bh, s, 128, ci)
         qq, qs, kq, ks, valid = score_inputs(bh, g, d, s, fills, 20 + ci)
         got = approx_mod.approx_score(qq, qs, kq, ks, valid)
@@ -735,7 +802,8 @@ def phase_gather():
     rows with no valid slot (the mean of their V rows, as the oracle)."""
     worst = 0.0
     for ci, (name, bh, g, d) in enumerate([("longchat", 128, 1, 128),
-                                           ("granite-like GQA", 32, 4, 64)]):
+                                           ("granite-like GQA", 32, 4, 64),
+                                           ("starcoder2", 8, 12, 128)]):
         for kv in (torch.bfloat16, torch.int8):
             args = gather_inputs(bh, g, d, 128, kv, 30 + ci)
             out = gather_mod.gather_attention(*args)
@@ -963,6 +1031,8 @@ def phase_flash():
             (("served", 4, 32, 32, 2048, 128, torch.bfloat16, served, 32), {}),
             (("granite-like GQA ragged N", 4, 32, 8, 1000, 64,
               torch.bfloat16, gqa, 0), {}),
+            (("starcoder2 group 12", 4, 24, 2, 2048, 128, torch.bfloat16,
+              served, 0), {}),
             (("f32 GQA", 2, 8, 2, 1000, 128, torch.float32, [1000, 600], 16),
              {}),
             (("served chunk", 4, 32, 32, 2048, 128, torch.bfloat16, served),
@@ -1069,10 +1139,10 @@ def phase_flash():
 # ---------------------------------------------------------------------------
 
 
-def served_prompts(vocab):
+def served_prompts(vocab, n=2 * LANES, new=NEW_TOKENS):
     rng = np.random.default_rng(SEED)
     return [(rng.integers(0, vocab, LENS[i % len(LENS)]),
-             NEW_TOKENS // (1 + i % 2)) for i in range(2 * LANES)]
+             new // (1 + i % 2)) for i in range(n)]
 
 
 # the plain prompt-attention versions, watched: a call on a CUDA tensor
@@ -1091,13 +1161,15 @@ def watch_plain_prompt_attention():
         setattr(ref, name, watched)
 
 
-def phase_serve(cfg, params, kv, smi, blocks, chunk=0):
-    """Serve the 8 requests; every decode step must run one kernel per
-    layer: ragged_decode with global selection, fused_decode with
-    `blocks` > 1, and no other decode kernel; every prompt pass (a whole
-    bucket, or one chunk with `chunk` > 0) one flash_prefill per layer,
-    and no plain prompt attention on the card. Returns (decode kernel, its
-    launches, flash_prefill launches, model, handles, loop)."""
+def phase_serve(cfg, params, kv, smi, blocks, chunk=0, n=2 * LANES,
+                new=NEW_TOKENS):
+    """Serve the `n` requests (8 by default); every decode step must run
+    one kernel per layer: ragged_decode with global selection, fused_decode
+    with `blocks` > 1, and no other decode kernel; every prompt pass (a
+    whole bucket, or one chunk with `chunk` > 0) one flash_prefill per
+    layer, and no plain prompt attention on the card. Returns (decode
+    kernel, its launches, flash_prefill launches, model, handles, the
+    loop's aggregate)."""
     prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
                               select_k=PROMPT_LEN // 16, select_blocks=blocks,
                               fused=True, kv_dtype=kv)
@@ -1105,8 +1177,9 @@ def phase_serve(cfg, params, kv, smi, blocks, chunk=0):
     model = Model(cfg, prune, device="cuda")
     loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS, block=8,
                      chunk_prefill=chunk, device="cuda")
+    prompts = served_prompts(cfg.vocab_size, n, new)
     handles = [(loop.submit(Request(prompt=p, max_new=m)), m)
-               for p, m in served_prompts(cfg.vocab_size)]
+               for p, m in prompts]
     torch.cuda.synchronize()
     reset_launches()
     for name in PLAIN_ON_CARD:
@@ -1128,7 +1201,7 @@ def phase_serve(cfg, params, kv, smi, blocks, chunk=0):
               f"new={len(s.tokens)} latency={s.latency:.3f}s "
               f"ttft={s.ttft:.3f}s")
     agg = loop.aggregate()
-    print(f"  serve longchat-7b kv={kv} fused select_blocks={blocks} "
+    print(f"  serve {cfg.name} kv={kv} fused select_blocks={blocks} "
           f"chunk_prefill={chunk}: {len(stats)} requests on {LANES} lanes, "
           f"{toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, p50 TTFT "
           f"{agg['p50_ttft_s']:.3f}s; {steps} decode steps, "
@@ -1146,8 +1219,7 @@ def phase_serve(cfg, params, kv, smi, blocks, chunk=0):
     assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
     assert not any(counts.values()), counts
     if chunk:
-        want = sum(math.ceil(len(p) / chunk)
-                   for p, _ in served_prompts(cfg.vocab_size))
+        want = sum(math.ceil(len(p) / chunk) for p, _ in prompts)
         assert c["chunk_dispatches"] == want, (c["chunk_dispatches"], want)
     return kernel, launches, flash, model, [h for h, _ in handles], agg
 
@@ -2189,6 +2261,180 @@ def phase_prefill_profile(cfg, params, model):
         print(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the dense family and the MoE family, full width
+# ---------------------------------------------------------------------------
+
+VISION_PROMPT, VISION_STEPS = 1024, 16   # llava: 4 prompts, 16 steps
+GROK_LAYERS = 4                          # grok-1-314b's depth, cut to fit
+FAMILY_PRUNE = dict(heavy=PROMPT_LEN // 2, reserve=64,
+                    select_k=PROMPT_LEN // 16)
+
+
+def family_weights(name, smi, **cut):
+    """A full-width config (`cut`: the fields cut to fit the card) and its
+    random bf16 weights from SEED, made on the card."""
+    cfg = get_config(name)
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    params = Model(cfg, baselines.unicaim(**FAMILY_PRUNE),
+                   device="cuda").init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"[family] {name} ({cfg.family}, {cfg.num_layers} layers"
+          f"{' cut from ' + str(get_config(name).num_layers) if cut else ''}"
+          f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads: G = "
+          f"{cfg.n_heads // cfg.n_kv_heads},"
+          f" norm {cfg.norm}, act {cfg.act}, qkv_bias {cfg.qkv_bias}, "
+          f"frontend {cfg.frontend}): {n_params} random bf16 params, made "
+          f"on the card in {time.monotonic() - t:.1f}s  [{smi}]")
+    return cfg, params
+
+
+def family_done(name, t0, smi):
+    print(f"[family] {name} done in {time.monotonic() - t0:.1f}s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)  [{smi}]")
+
+
+def phase_vision(cfg, params, smi):
+    """llava's frontend stub through `greedy_generate`: four 1,024-token
+    prompts behind a seeded [4, 576, d] vision_embed; every lane's cache
+    holds 576 + its length positions after the prefill; the prompt pass
+    runs flash_prefill once a layer, each decode step ragged_decode once a
+    layer, and nothing else."""
+    model = Model(cfg, baselines.unicaim(fused=True, kv_dtype="bf16",
+                                         **FAMILY_PRUNE), device="cuda")
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    length = torch.full((LANES,), VISION_PROMPT, dtype=torch.int32,
+                        device="cuda")
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (LANES, VISION_PROMPT)), device="cuda"),
+             "length": length,
+             "vision_embed": torch.randn(
+                 (LANES, cfg.frontend_len, cfg.d_model), generator=gen,
+                 device="cuda")}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, st = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    ttft = time.monotonic() - t0
+    steps = st.kv.step
+    assert torch.equal(steps, (cfg.frontend_len + length).expand_as(steps)), \
+        steps
+    assert torch.isfinite(logits).all()
+    del st
+    reset_launches()
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
+    t0 = time.monotonic()
+    toks, st = greedy_generate(model, params, batch, VISION_STEPS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    ragged, flash = counts.pop("ragged_decode"), counts.pop("flash_prefill")
+    print(f"  greedy_generate {cfg.name}: {LANES} prompts of "
+          f"{VISION_PROMPT} tokens behind {cfg.frontend_len} vision rows, "
+          f"cache.step after the prefill {cfg.frontend_len} + "
+          f"{VISION_PROMPT} on every lane and layer; a prefill (TTFT) "
+          f"{ttft:.3f}s; prefill + {VISION_STEPS} steps in {wall:.3f}s = "
+          f"{LANES * VISION_STEPS / wall:.1f} tok/s; ragged_decode launches "
+          f"{ragged} = {cfg.num_layers} x {VISION_STEPS}, flash_prefill "
+          f"{flash} = {cfg.num_layers} x 1; plain prompt attention on the "
+          f"card {PLAIN_ON_CARD}; other kernels {counts}  [{smi}]")
+    assert toks.shape == (LANES, VISION_STEPS)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert torch.equal(st.kv.step, (cfg.frontend_len + length
+                                    + VISION_STEPS).expand_as(st.kv.step))
+    assert ragged == cfg.num_layers * VISION_STEPS
+    assert flash == cfg.num_layers
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    assert not any(counts.values()), counts
+    return {"ragged_decode": ragged, "flash_prefill": flash}
+
+
+def print_drops(tag, drops, cfg):
+    """The (token, choice) pairs each prompt pass lost to the experts'
+    capacity, summed over its layers; decode steps (LANES tokens, at most
+    8 an expert: under the least capacity) must lose none."""
+    layers, k = cfg.num_layers, cfg.moe.top_k
+    passes = [(n, int(d)) for n, d in drops if n > LANES]
+    assert not any(int(d) for n, d in drops if n <= LANES)
+    assert len(passes) % layers == 0, len(passes)
+    rows = [(passes[i][0], sum(d for _, d in passes[i:i + layers]))
+            for i in range(0, len(passes), layers)]
+    print(f"  {tag}: per prompt pass, (its tokens, the (token, choice) pairs "
+          f"the experts' capacity dropped over its {layers} layers, of "
+          f"tokens x {k} x {layers}): {rows}")
+
+
+def phase_family(smi):
+    """Phase 9: starcoder2-3b (LayerNorm, tanh-GELU, qkv bias, G = 12),
+    minitron-8b (LayerNorm, relu², vocab 256,000), phi3-medium-14b (40
+    layers), llava-next-mistral-7b (the vision frontend) at full width and
+    depth, and grok-1-314b (MoE, 8 experts of d_ff 32,768) at full width,
+    its depth cut to GROK_LAYERS. Returns the launches of each kernel."""
+    launches = dict.fromkeys(launch_counts(), 0)
+
+    def serve(cfg, params, kv, blocks=1, chunk=0, **kw):
+        kernel, n, flash, model, handles, _ = phase_serve(
+            cfg, params, kv, smi, blocks, chunk=chunk, **kw)
+        launches[kernel] += n
+        launches["flash_prefill"] += flash
+        return model, handles
+
+    def starcoder2():
+        cfg, params = family_weights("starcoder2-3b", smi)
+        for blocks, kv in itertools.product((1, 4), ("bf16", "int8")):
+            model, whole = serve(cfg, params, kv, blocks)
+            if blocks == 1 and kv == "bf16":
+                phase_teacher(cfg, params, model)
+                cmodel, sliced = serve(cfg, params, kv, 1, chunk=CHUNK)
+                phase_chunked(cfg, params, cmodel, whole, sliced, CHUNK)
+
+    def minitron():
+        cfg, params = family_weights("minitron-8b", smi)
+        serve(cfg, params, "bf16")
+
+    def phi3():
+        cfg, params = family_weights("phi3-medium-14b", smi)
+        serve(cfg, params, "bf16", n=LANES, new=NEW_TOKENS // 2)
+
+    def llava():
+        cfg, params = family_weights("llava-next-mistral-7b", smi)
+        for name, n in phase_vision(cfg, params, smi).items():
+            launches[name] += n
+
+    def grok():
+        cfg, params = family_weights("grok-1-314b", smi,
+                                     num_layers=GROK_LAYERS)
+        for kv, chunk in (("bf16", 0), ("int8", 0), ("bf16", CHUNK)):
+            moe_mod.DROPS = []
+            try:
+                serve(cfg, params, kv, chunk=chunk)
+                print_drops(f"{cfg.name} kv={kv} chunk_prefill={chunk}",
+                            moe_mod.DROPS, cfg)
+            finally:
+                moe_mod.DROPS = None
+
+    for name, run in (("starcoder2-3b", starcoder2),
+                      ("minitron-8b", minitron),
+                      ("phi3-medium-14b", phi3),
+                      ("llava-next-mistral-7b", llava),
+                      ("grok-1-314b", grok)):
+        t0 = time.monotonic()
+        run()
+        family_done(name, t0, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     t_all = time.monotonic()
     # 1. device
@@ -2235,6 +2481,7 @@ def main():
             "int8": dict(zip(("ms", "plain_ms", "bound_ms"),
                              timings[name]["int8"][:3]),
                          ms_l2_warm=timings[name]["int8 warm"][0]),
+            "starcoder2_g12": timings[name]["g12"],
             **decode_compiled.get(name, {})}
 
     # 4 + 5. full-width longchat-7b, global then block-local selection
@@ -2308,6 +2555,19 @@ def main():
     for name, n in phase_faults(cfg, params, smi).items():
         launches[name] += n
     print(f"[faults] phase {time.monotonic() - t:.1f}s")
+    # longchat-7b's weights and every loop that holds them (the handles of
+    # phase 4) go before the next model is made
+    del params, whole, sliced
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[family] before phase 9: {held / 2 ** 30:.3f} GiB still "
+          f"allocated on the card (longchat-7b's 13.5 GB freed)")
+    assert held < 1 << 30, held
+
+    # 9. the rest of the dense family and the MoE family, full width
+    for name, n in phase_family(smi).items():
+        launches[name] += n
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key
@@ -2344,8 +2604,8 @@ def main():
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v)
         else:
             yield v

@@ -5,7 +5,9 @@
   * PruneConfig  — the paper's static-dynamic KV-cache pruning knobs
 
 Configs are frozen dataclasses, as in the reference. The registry loads
-the dense configurations this port serves (longchat-7b, granite-3-2b).
+the configurations this port serves: the dense family (longchat-7b,
+granite-3-2b, phi3-medium-14b, starcoder2-3b, minitron-8b and the
+vision-frontend llava-next-mistral-7b) and the MoE family (grok-1-314b).
 """
 from __future__ import annotations
 
@@ -278,7 +280,9 @@ def _ensure_loaded():
     # import all config modules once so they register themselves
     if _REGISTRY.get("__loaded__"):
         return
-    from repro_torch.configs import granite_3_2b, longchat_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        granite_3_2b, grok1_314b, llava_next_mistral_7b, longchat_7b,
+        minitron_8b, phi3_medium_14b, starcoder2_3b)
     _REGISTRY["__loaded__"] = True
 
 

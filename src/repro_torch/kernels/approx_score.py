@@ -26,9 +26,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ragged_decode import MAX_GROUPS, check_groups
 
 LAUNCHES = {"approx_score": 0, "approx_score_packed": 0}
-MAX_GROUPS, MAX_GROUP_DIM = 8, 4096   # kMaxG, kMaxGD in the source
+MAX_GROUP_DIM = 4096                  # kMaxGD in the source
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -43,6 +44,7 @@ def _bind(lib):
 
 def _launch(name, qq, qscale, kq, kscale, valid, packed: bool):
     bh, g, d = qq.shape
+    check_groups(name, g)
     s = kq.shape[1]
     dev = qq.device
     width = d // 2 if packed else d
@@ -55,9 +57,9 @@ def _launch(name, qq, qscale, kq, kscale, valid, packed: bool):
         "valid": (valid, (bh, s), torch.int8)}, dev)
     if d % 8:
         raise ValueError(f"{name}: head_dim {d} is not a multiple of 8")
-    if g > MAX_GROUPS or g * d > MAX_GROUP_DIM:
+    if g * d > MAX_GROUP_DIM:
         raise ValueError(f"{name}: G={g} x d={d} exceeds the kernel's "
-                         f"{MAX_GROUPS} rows and {MAX_GROUP_DIM} codes")
+                         f"{MAX_GROUP_DIM} query codes (G <= {MAX_GROUPS})")
     build.check_aligned(name, qq, kq)
     lib = _bind(build.load("approx_score"))
     out = torch.empty((bh, g, s), dtype=torch.float32, device=dev)
@@ -73,7 +75,8 @@ def _launch(name, qq, qscale, kq, kscale, valid, packed: bool):
 
 def approx_score(qq, qscale, kq, kscale, valid):
     """CAM scores over the int8 mirror → [BH, G, S] f32 (see the module
-    note). Raises on a tensor that is not contiguous on the CUDA card, on a
+    note). Raises on G above the kernels' limit (first, whatever the
+    device), on a tensor that is not contiguous on the CUDA card, on a
     shape or dtype the kernel does not take, on d % 8 != 0, and when the
     launch fails."""
     return _launch("approx_score", qq, qscale, kq, kscale, valid, False)

@@ -37,7 +37,7 @@ constexpr int kThreads = 256;
 constexpr int kLanesPerSlot = 8;
 constexpr int kSlotsPerPass = kThreads / kLanesPerSlot;  // 32
 constexpr int kTile = 128;                               // slots per CTA
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;
 constexpr int kMaxGD = 4096;  // largest G*d
 constexpr float kNegInf = -1e30f;
 
@@ -52,7 +52,8 @@ __device__ __forceinline__ int int8x4(int a, int b, int c, int d) {
 }
 
 // PACKED: kq rows are d/2 bytes of nibbles; else d bytes of int8 codes.
-template <bool PACKED>
+// MAX_G: the accumulators a thread keeps (G <= MAX_G).
+template <bool PACKED, int MAX_G>
 __global__ void __launch_bounds__(kThreads) approx_score_kernel(
     const int8_t* __restrict__ qq, const float* __restrict__ qscale,
     const uint8_t* __restrict__ kq, const float* __restrict__ kscale,
@@ -75,9 +76,9 @@ __global__ void __launch_bounds__(kThreads) approx_score_kernel(
   for (int base = s0; base < s1; base += kSlotsPerPass) {
     const int s = base + tid / kLanesPerSlot;
     const bool ok = s < s1 && valid[(size_t)row * S + s] != 0;
-    int acc[kMaxG];
+    int acc[MAX_G];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0;
+    for (int g = 0; g < MAX_G; ++g) acc[g] = 0;
     if (ok) {
       const unsigned* kw = reinterpret_cast<const unsigned*>(
           kq + ((size_t)row * S + s) * row_bytes);
@@ -89,21 +90,21 @@ __global__ void __launch_bounds__(kThreads) approx_score_kernel(
           const int hi = int8x4(nibble(p, 16), nibble(p, 20), nibble(p, 24),
                                 nibble(p, 28));
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
+          for (int g = 0; g < MAX_G; ++g)
             if (g < G) {
               acc[g] = __dp4a(lo, qq4[g * d4 + 2 * w], acc[g]);
               acc[g] = __dp4a(hi, qq4[g * d4 + 2 * w + 1], acc[g]);
             }
         } else {
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
+          for (int g = 0; g < MAX_G; ++g)
             if (g < G) acc[g] = __dp4a((int)p, qq4[g * d4 + w], acc[g]);
         }
       }
     }
     // the eight lanes of a slot are neighbours: offsets 4, 2, 1
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
+    for (int g = 0; g < MAX_G; ++g)
       if (g < G)
         for (int o = kLanesPerSlot / 2; o > 0; o >>= 1)
           acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], o);
@@ -117,15 +118,30 @@ __global__ void __launch_bounds__(kThreads) approx_score_kernel(
   }
 }
 
-template <bool PACKED>
+template <bool PACKED, int MAX_G>
 void launch(const void* qq, const void* qscale, const void* kq,
             const void* kscale, const void* valid, void* out, int BH, int S,
             int G, int d, cudaStream_t stream) {
   const dim3 grid(BH, (S + kTile - 1) / kTile);
-  approx_score_kernel<PACKED><<<grid, kThreads, 0, stream>>>(
+  approx_score_kernel<PACKED, MAX_G><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(qq), static_cast<const float*>(qscale),
       static_cast<const uint8_t*>(kq), static_cast<const float*>(kscale),
       static_cast<const int8_t*>(valid), static_cast<float*>(out), S, G, d);
+}
+
+// One instantiation for G <= 8 and one for G <= kMaxG: a thread keeps
+// MAX_G accumulators and walks them in unrolled loops, so G <= 8 (every
+// config but starcoder2-3b's G = 12) keeps the short loops.
+template <bool PACKED>
+void launch_g(const void* qq, const void* qscale, const void* kq,
+              const void* kscale, const void* valid, void* out, int BH,
+              int S, int G, int d, cudaStream_t stream) {
+  if (G <= 8)
+    launch<PACKED, 8>(qq, qscale, kq, kscale, valid, out, BH, S, G, d,
+                      stream);
+  else
+    launch<PACKED, kMaxG>(qq, qscale, kq, kscale, valid, out, BH, S, G, d,
+                          stream);
 }
 
 }  // namespace
@@ -133,18 +149,21 @@ void launch(const void* qq, const void* qscale, const void* kq,
 extern "C" {
 
 // packed: 0 = int8 mirror [BH,S,d], 1 = nibble-packed [BH,S,d/2]. The
-// caller guarantees d % 8 == 0, 4-byte aligned rows, G <= 8 and
-// G*d <= 4096 (the shared query buffer). Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
+// caller guarantees d % 8 == 0 and 4-byte aligned rows; G outside
+// [1, kMaxG] or G*d above kMaxGD (the shared query buffer) is refused.
+// Launches on `stream` and returns cudaGetLastError() (0 on success);
+// never synchronises.
 int approx_score_launch(int packed, const void* qq, const void* qscale,
                         const void* kq, const void* kscale, const void* valid,
                         void* out, int BH, int S, int G, int d,
                         void* stream) {
+  if (G < 1 || G > kMaxG || G * d > kMaxGD)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (packed)
-    launch<true>(qq, qscale, kq, kscale, valid, out, BH, S, G, d, st);
+    launch_g<true>(qq, qscale, kq, kscale, valid, out, BH, S, G, d, st);
   else
-    launch<false>(qq, qscale, kq, kscale, valid, out, BH, S, G, d, st);
+    launch_g<false>(qq, qscale, kq, kscale, valid, out, BH, S, G, d, st);
   return (int)cudaGetLastError();
 }
 

@@ -61,7 +61,7 @@ namespace decode {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;           // query rows per kv-head, at most
 constexpr int kLanes = 8;            // lanes per winner (logits)
 constexpr int kStages = 3;           // mirror ring depth
 constexpr int kRingBytes = 96 * 1024;  // mirror ring, at most
@@ -136,7 +136,7 @@ __host__ __device__ inline Layout layout(int S, int G, int d, int dv,
   m.pr = take(at, (size_t)S);
   m.qf = take(at, 4 * (size_t)G * d);
   m.qq = take(at, (size_t)G * d);
-  m.qs = take(at, 4 * (size_t)kMaxG);
+  m.qs = take(at, 4 * (size_t)G);
   m.picks = take(at, 4 * (size_t)select_k);
   m.win = take(at, 4 * (size_t)select_k);
   m.wks = take(at, 4 * (size_t)select_k);
@@ -962,6 +962,7 @@ int allow_smem(Kernel kernel, size_t smem) {
 template <typename Kernel>
 int launch(Kernel kernel, const Params& p, int BH, size_t smem,
            cudaStream_t stream) {
+  if (p.G < 1 || p.G > kMaxG) return (int)cudaErrorInvalidValue;
   const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
   kernel<<<BH, kThreads, smem, stream>>>(p);

@@ -31,7 +31,8 @@ using namespace decode;
 
 namespace {
 
-template <typename KV>
+// MAX_G: the per-row accumulators a lane keeps (G <= MAX_G).
+template <typename KV, int MAX_G>
 __global__ void __launch_bounds__(kThreads) gather_attention_kernel(
     const float* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const int8_t* __restrict__ valid,
@@ -56,17 +57,17 @@ __global__ void __launch_bounds__(kThreads) gather_attention_kernel(
       continue;
     }
     const KV* kr = k_row + (size_t)j * d;
-    float acc[kMaxG];
+    float acc[MAX_G];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
+    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
     for (int c = lane; c < d; c += 32) {
       const float kv = to_f32(kr[c]);
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
+      for (int g = 0; g < MAX_G; ++g)
         if (g < G) acc[g] += qf[g * d + c] * kv;
     }
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
+    for (int g = 0; g < MAX_G; ++g)
       if (g < G) acc[g] = warp_sum(acc[g]);
     if (lane == 0)
       for (int g = 0; g < G; ++g) pl[g * K + j] = __fmul_rn(acc[g], scale);
@@ -103,18 +104,30 @@ __global__ void __launch_bounds__(kThreads) gather_attention_kernel(
   }
 }
 
+// One instantiation for G <= 8 and one for G <= kMaxG (a lane keeps MAX_G
+// accumulators in unrolled loops), so G <= 8 keeps the short loops.
 template <typename KV>
 struct Launch {
-  static int run(const void* q, const void* k, const void* v,
-                 const void* valid, void* out, int BH, int K, int G, int d,
-                 int dv, float scale, size_t smem, cudaStream_t stream) {
-    const int err = allow_smem(gather_attention_kernel<KV>, smem);
+  template <int MAX_G>
+  static int go(const void* q, const void* k, const void* v,
+                const void* valid, void* out, int BH, int K, int G, int d,
+                int dv, float scale, size_t smem, cudaStream_t stream) {
+    const int err = allow_smem(gather_attention_kernel<KV, MAX_G>, smem);
     if (err != 0) return err;
-    gather_attention_kernel<KV><<<BH, kThreads, smem, stream>>>(
+    gather_attention_kernel<KV, MAX_G><<<BH, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const KV*>(k),
         static_cast<const KV*>(v), static_cast<const int8_t*>(valid),
         static_cast<float*>(out), K, G, d, dv, scale);
     return (int)cudaGetLastError();
+  }
+
+  static int run(const void* q, const void* k, const void* v,
+                 const void* valid, void* out, int BH, int K, int G, int d,
+                 int dv, float scale, size_t smem, cudaStream_t stream) {
+    return G <= 8 ? go<8>(q, k, v, valid, out, BH, K, G, d, dv, scale, smem,
+                          stream)
+                  : go<kMaxG>(q, k, v, valid, out, BH, K, G, d, dv, scale,
+                              smem, stream);
   }
 };
 
@@ -127,12 +140,14 @@ size_t gather_attention_smem_bytes(int K, int G, int d) {
   return sizeof(float) * ((size_t)G * d + (size_t)G * K + kWarps);
 }
 
-// kv_kind: 0 = f32, 1 = bf16, 2 = int8 K/V. Launches on `stream` and
-// returns cudaGetLastError() (0 on success); never synchronises.
+// kv_kind: 0 = f32, 1 = bf16, 2 = int8 K/V; 1 <= G <= kMaxG (16).
+// Launches on `stream` and returns cudaGetLastError() (0 on success);
+// never synchronises.
 int gather_attention_launch(int kv_kind, const void* q, const void* k,
                             const void* v, const void* valid, void* out,
                             int BH, int K, int G, int d, int dv, float scale,
                             void* stream) {
+  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
   return by_kv_kind<Launch>(kv_kind, q, k, v, valid, out, BH, K, G, d, dv,
                             scale, gather_attention_smem_bytes(K, G, d),
                             static_cast<cudaStream_t>(stream));

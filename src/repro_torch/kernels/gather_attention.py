@@ -23,7 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ragged_decode import KV_KIND, MAX_GROUPS
+from repro_torch.kernels.ragged_decode import KV_KIND, check_groups
 
 LAUNCHES = {"gather_attention": 0}
 _P = ctypes.c_void_p
@@ -42,10 +42,12 @@ def _bind(lib):
 
 def gather_attention(q, k, v, valid):
     """Launch the kernel on the current stream → out [BH, G, dv] f32.
-    Raises on a tensor that is not contiguous on the CUDA card, on a shape
+    Raises on G above the kernels' limit (first, whatever the device), on
+    a tensor that is not contiguous on the CUDA card, on a shape
     or dtype the kernel does not take, when the logits do not fit in shared
     memory, and when the launch fails; only q is converted (to f32)."""
     bh, g, d = q.shape
+    check_groups("gather_attention", g)
     kk, dv = v.shape[1], v.shape[-1]
     dev = q.device
     q = q.to(torch.float32).contiguous()
@@ -55,8 +57,6 @@ def gather_attention(q, k, v, valid):
         "valid": (valid, (bh, kk), torch.int8)}, dev)
     if k.dtype not in KV_KIND:
         raise TypeError(f"K/V dtype {k.dtype} not in {list(KV_KIND)}")
-    if g > MAX_GROUPS:
-        raise ValueError(f"gather_attention: G={g} exceeds {MAX_GROUPS}")
     lib = _bind(build.load("gather_attention"))
     build.check_smem("gather_attention",
                      lib.gather_attention_smem_bytes(kk, g, d), dev,

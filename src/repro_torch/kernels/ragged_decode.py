@@ -34,7 +34,7 @@ from repro_torch.kernels import build
 LAUNCHES = {"ragged_decode": 0}
 BLOCK_S = 64                 # slots per live block (the skip granularity)
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_GROUPS = 8               # query rows per kv-head (kMaxG in the source)
+MAX_GROUPS = 16              # query rows per kv-head (kMaxG in the source)
 SMEM_WHAT = ("S={s} slots x G={g} (large-slot decode needs a global score "
              "scratch, not ported yet)")
 _P = ctypes.c_void_p
@@ -52,6 +52,14 @@ def _bind(lib):
     return lib
 
 
+def check_groups(kernel: str, g: int) -> None:
+    """Raise on G query rows per kv-head outside [1, MAX_GROUPS]: the
+    decode, score and gather kernels size per-row arrays by kMaxG."""
+    if not 1 <= g <= MAX_GROUPS:
+        raise ValueError(f"{kernel}: G={g} query rows per kv-head outside "
+                         f"the kernels' [1, {MAX_GROUPS}]")
+
+
 def granule(nbytes: int) -> int:
     """The widest copy (16, 8 or 4 bytes; 1 = bytewise) that tiles rows of
     `nbytes`: the width at which the kernels copy K and V rows."""
@@ -62,12 +70,14 @@ def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
                 k, v, select_k: int, kernel: str):
     """Check the eleven decode inputs shared by `ragged_decode` and
     `fused_decode` → (q as f32, the inputs in launch order, (BH, S, G, d,
-    dv)). Raises on a tensor that is not contiguous on the CUDA card, on a
-    shape or dtype the kernels do not take, on select_k outside [1, S], on
-    G above the kernels' limit, and on qq, the mirror, K or V not starting
-    aligned to the kernels' copies of it (4 bytes for qq; 16 for the mirror
-    when d % 16 == 0, else 4; `granule` of a row's bytes for K and V)."""
+    dv)). Raises on G above the kernels' limit (first, whatever the
+    device), on a tensor that is not contiguous on the CUDA card, on a
+    shape or dtype the kernels do not take, on select_k outside [1, S], and
+    on qq, the mirror, K or V not starting aligned to the kernels' copies
+    of it (4 bytes for qq; 16 for the mirror when d % 16 == 0, else 4;
+    `granule` of a row's bytes for K and V)."""
     bh, g, d = q.shape
+    check_groups(kernel, g)
     s = mirror.shape[1]
     dv = v.shape[-1]
     dev = q.device
@@ -90,9 +100,6 @@ def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
         kernel, qq=(qq, 4), mirror=(mirror, 16 if d % 16 == 0 else 4),
         k=(k, granule(d * k.element_size())),
         v=(v, granule(dv * v.element_size())))
-    if g > MAX_GROUPS:
-        raise ValueError(f"G={g} query rows per kv-head exceeds the "
-                         f"kernels' {MAX_GROUPS}")
     return q, [t for t, _, _ in spec.values()], (bh, s, g, d, dv)
 
 

@@ -177,7 +177,8 @@ def greedy_generate(model: Model, params, batch, steps: int,
     (tokens [B, steps], final state). tokens[:, 0] is the argmax of the
     prefill logits; each later token follows `_next_token`, with noise
     from `generator` (a generator seeded 0 on the model's device when
-    sampling and none is given)."""
+    sampling and none is given). `batch` goes to `Model.prefill` whole:
+    its `length` and a frontend model's `<frontend>_embed` with it."""
     _check_device(model, device)
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
@@ -572,6 +573,11 @@ class ServeLoop:
                  degrade_high: int = 0, degrade_low: int = 0,
                  chaos: Optional[ChaosConfig] = None, device="cuda"):
         _check_device(model, device)
+        if model.cfg.frontend != "none":
+            raise ValueError(
+                f"{model.cfg.name}: ServeLoop admits token prompts; a "
+                f"{model.cfg.frontend}-frontend model takes its embeddings "
+                "through Model.prefill / greedy_generate")
         self.model = model
         self.params = params
         self.lanes = lanes
@@ -580,6 +586,8 @@ class ServeLoop:
         self.block = max(1, block)
         self.buckets = (tuple(buckets)
                         if isinstance(buckets, (list, tuple)) else buckets)
+        if self.buckets is not None and not model.supports_bucketed_prefill():
+            self.buckets = None               # exact-length prefills
         self.chunk_prefill = max(0, chunk_prefill)
         if self.chunk_prefill and not model.supports_chunked_prefill():
             self.chunk_prefill = 0            # whole-bucket admission
@@ -1116,15 +1124,23 @@ class ServeLoop:
         """One batched prefill of `group` and one splice into `lanes` →
         (logits, prefilled state, bucket)."""
         self._ensure_state()
+        g = len(group)
         rows = np.stack([self._padded_prompt(r) for r in group])
         lengths = np.array([len(r.prompt) for r in group], np.int32)
+        # up to a power-of-two row count with copies of row 0, as the
+        # reference pads its group programs: a moe block's expert capacity
+        # is shared by every row of the pass, so the copies count
+        gp = min(1 << (g - 1).bit_length(), self.lanes)
+        rows = np.concatenate([rows, np.repeat(rows[:1], gp - g, axis=0)])
+        lengths = np.concatenate([lengths, np.repeat(lengths[:1], gp - g)])
         logits, fresh = self.model.prefill_group(
             self.params, torch.as_tensor(rows, device=self.device),
             torch.as_tensor(lengths, device=self.device))
+        logits = logits[:g]
         self.counters["prefill_dispatches"] += 1
-        if len(group) > 1:
+        if g > 1:
             self.counters["grouped_admissions"] += 1
-            self.counters["grouped_requests"] += len(group)
+            self.counters["grouped_requests"] += g
         self._splice(lanes, group, logits, fresh, bucket=len(rows[0]))
         return logits, fresh, len(rows[0])
 
@@ -1986,6 +2002,11 @@ def main(argv=None):
 
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     batch = {"tokens": torch.as_tensor(prompts, device=model.device)}
+    if cfg.frontend != "none":     # the stub's embeddings, from the seed
+        batch[f"{cfg.frontend}_embed"] = torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.frontend_len,
+                                 cfg.d_model)).astype(np.float32),
+            device=model.device)
     t0 = time.time()
     if args.no_scan:
         toks, _ = greedy_generate(model, params, batch, args.new_tokens,

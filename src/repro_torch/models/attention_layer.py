@@ -14,12 +14,20 @@ from repro_torch.core.pruning import prefill_and_prune
 from repro_torch.models.layers import rope
 
 
+def _qkv(p, x: torch.Tensor):
+    """The three projections of x, each with its bias where the config has
+    one (`qkv_bias`: bq, bk, bv, added before RoPE)."""
+    return tuple(x @ p[w] + p[b] if b in p else x @ p[w]
+                 for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+
+
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
     """x: [B,T,d] → q [B,Hq,T,dh], k/v [B,Hk,T,dh] (RoPE applied)."""
     b, t, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = _qkv(p, x)
+    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -69,9 +77,10 @@ def decode_qkv(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache):
     """Decode projections: x [B,d] → q [B,Hq,dh], k/v [B,Hk,dh], rotated
     at each lane's position `cache.step`."""
     b, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = _qkv(p, x)
+    q = q.reshape(b, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, cfg.n_kv_heads, cfg.head_dim)
     if cfg.pos == "rope":
         pos = cache.step[:, None]                           # [B,1]
         q = rope(q, pos, cfg.rope_theta)

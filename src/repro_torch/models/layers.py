@@ -1,5 +1,6 @@
-"""Shared layers: RMS norm, RoPE, the SwiGLU MLP, and their inits — the
-port of `repro/models/layers.py` (dense family).
+"""Shared layers: RMS norm and LayerNorm, RoPE, the MLP (SwiGLU,
+tanh-GELU or relu²), and their inits — the port of
+`repro/models/layers.py`.
 
 Weights keep the reference layout: a projection is [d_in, d_out] and is
 applied as `x @ W`.
@@ -32,14 +33,27 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
     return (w * 0.02).to(dtype)
 
 
-def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
-    """RMS norm computed in f32 and cast back to x's dtype."""
+def norm_init(kind: str, d: int, dtype, device, lead=()):
+    """Unit weights, and zero biases for LayerNorm (`kind="ln"`)."""
+    shape = tuple(lead) + (d,)
+    p = {"w": torch.ones(shape, dtype=dtype, device=device)}
     if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+        p["b"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
+    """RMS norm (`kind="rms"`) or LayerNorm (population variance), computed
+    in f32 and cast back to x's dtype."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * p["w"].float()).to(x.dtype)
+    if kind == "rms":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * p["w"].float()).to(x.dtype)
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * p["w"].float() + p["b"].float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -60,8 +74,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype,
+             device, lead=()):
+    """wi, wg (SwiGLU only) and wo, drawn in that order."""
+    p = {"wi": dense_init(gen, d, d_ff, dtype, device, lead)}
+    if act == "swiglu":
+        p["wg"] = dense_init(gen, d, d_ff, dtype, device, lead)
+    p["wo"] = dense_init(gen, d_ff, d, dtype, device, lead)
+    return p
+
+
+def activate(act: str, h: torch.Tensor, gate=None) -> torch.Tensor:
+    """The MLP's nonlinearity on h = x @ wi: SwiGLU (silu(gate) * h, with
+    gate = x @ wg), GELU in its tanh form (`jax.nn.gelu`'s default, not
+    the erf form) or relu²."""
+    if act == "swiglu":
+        return F.silu(gate) * h
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "relu2":
+        return torch.square(F.relu(h))
+    raise ValueError(act)
+
+
 def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    if act != "swiglu":
-        raise NotImplementedError(f"activation {act!r} is not ported yet")
-    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    gate = x @ p["wg"] if act == "swiglu" else None
+    return activate(act, x @ p["wi"], gate) @ p["wo"]

@@ -1,9 +1,14 @@
-"""The dense model — the port of `repro/models/transformer.py` (dense
-family only).
+"""The model — the port of `repro/models/transformer.py` for the dense
+family (RMS norm or LayerNorm; SwiGLU, tanh-GELU or relu²; an optional qkv
+bias; the vision frontend stub) and the MoE family (routed experts in every
+block, `models/moe.py`). MLA, SSM, hybrid and enc-dec models, sinusoidal
+positions and multi-token prediction are not ported yet: `Model` refuses
+them.
 
 `Model` keeps the reference's functional surface: parameters are nested
 dicts of tensors with the reference's key names (`embed`, `final_norm`,
-`lm_head`, and `seg0_dense` stacked on a leading layer axis), and
+`lm_head`, `frontend_adapter`, and one segment `seg0_dense` or `seg0_moe`
+stacked on a leading layer axis), and
 
   prefill(params, batch)           → (last-valid-position logits, state)
   prefill_one / prefill_group      → the same for one request / a padded
@@ -33,6 +38,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention_layer import (attention_decode,
                                                 attention_prefill,
                                                 attention_prefill_chunk)
+from repro_torch.models.moe import apply_moe, init_moe
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -95,26 +101,29 @@ def _store_layer(state: DecodeState, li: int, filled: KVCache) -> None:
             dst.copy_(getattr(filled, name))
 
 
-def layer_params(params_seg: Dict[str, Any], li: int):
-    """Layer `li`'s parameters out of a stacked segment (views)."""
-    return {k: (layer_params(v, li) if isinstance(v, dict) else v[li])
-            for k, v in params_seg.items()}
+def layer_params(params_seg, li: int):
+    """Layer `li`'s parameters out of a stacked segment (views); lists (the
+    shared experts) keep their nesting."""
+    if isinstance(params_seg, dict):
+        return {k: layer_params(v, li) for k, v in params_seg.items()}
+    if isinstance(params_seg, list):
+        return [layer_params(v, li) for v in params_seg]
+    return params_seg[li]
 
 
 class Model:
-    """Dense-family model facade (functional: params are passed in)."""
+    """Model facade for the dense and MoE families (functional: params are
+    passed in)."""
 
     def __init__(self, cfg: ModelConfig, prune: PruneConfig, device="cuda"):
         unsupported = [name for name, bad in (
-            ("family", cfg.family != "dense"), ("norm", cfg.norm != "rms"),
-            ("act", cfg.act != "swiglu"), ("pos", cfg.pos not in ("rope",
-                                                              "none")),
-            ("qkv_bias", cfg.qkv_bias), ("frontend", cfg.frontend != "none"),
+            ("family", cfg.family not in ("dense", "moe")),
+            ("pos", cfg.pos not in ("rope", "none")),
             ("mtp_depth", cfg.mtp_depth > 0)) if bad]
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unsupported)} not ported yet "
-                "(the port serves the dense family)")
+                "(the port serves the dense and MoE families)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prune = prune
@@ -123,40 +132,74 @@ class Model:
     def dtype(self) -> torch.dtype:
         return DTYPES[self.cfg.compute_dtype]
 
+    # -- segments -----------------------------------------------------------
+
+    def _segments(self):
+        """[(kind, n_layers)] of the stack: one segment of `dense` or `moe`
+        blocks, as in the reference."""
+        return [(self.cfg.family, self.cfg.num_layers)]
+
+    def _layers(self, params):
+        """(global layer index, that layer's parameters) over the stack."""
+        li = 0
+        for i, (kind, n) in enumerate(self._segments()):
+            seg = params[f"seg{i}_{kind}"]
+            for j in range(n):
+                yield li, layer_params(seg, j)
+                li += 1
+
     # -- init ---------------------------------------------------------------
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from `seed`, made on the model's device, with the
         reference's distributions (N(0, 1/d_in) projections, N(0, 0.02²)
-        embeddings, unit norms). The reference's JAX draws differ; use
+        embeddings, unit norms, zero biases; the MoE router in f32) and its
+        tree. The reference's JAX draws differ; use
         `params.from_reference` to run the same weights on both sides."""
         cfg = self.cfg
         dt = DTYPES[cfg.param_dtype]
         dev = self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        n, d = cfg.num_layers, cfg.d_model
-
-        def ones(*shape):
-            return torch.ones(shape, dtype=dt, device=dev)
-
-        def dense(d_in, d_out):
-            return L.dense_init(gen, d_in, d_out, dt, dev, lead=(n,))
-
+        d = cfg.d_model
         params: Dict[str, Any] = {
             "embed": L.embed_init(gen, cfg.vocab_size, d, dt, dev),
-            "final_norm": {"w": ones(d)},
-            "seg0_dense": {
-                "ln1": {"w": ones(n, d)}, "ln2": {"w": ones(n, d)},
-                "attn": {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
-                         "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)},
-                "mlp": {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
-                        "wo": dense(cfg.d_ff, d)},
-            },
+            "final_norm": L.norm_init(cfg.norm, d, dt, dev),
         }
+        for i, (kind, n) in enumerate(self._segments()):
+            params[f"seg{i}_{kind}"] = self._init_block(gen, kind, n, dt)
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, d, cfg.vocab_size, dt, dev)
+        if cfg.frontend != "none":
+            params["frontend_adapter"] = L.dense_init(gen, d, d, dt, dev)
         return params
+
+    def _init_block(self, gen: torch.Generator, kind: str, n: int, dt):
+        """`n` residual blocks of `kind` (dense | moe), stacked on a leading
+        layer axis."""
+        cfg = self.cfg
+        dev, d, lead = self.device, cfg.d_model, (n,)
+
+        def dense(d_in, d_out):
+            return L.dense_init(gen, d_in, d_out, dt, dev, lead=lead)
+
+        def zeros(width):
+            return torch.zeros((n, width), dtype=dt, device=dev)
+
+        attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+                "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
+                        bv=zeros(cfg.kv_dim))
+        block = {"ln1": L.norm_init(cfg.norm, d, dt, dev, lead),
+                 "ln2": L.norm_init(cfg.norm, d, dt, dev, lead),
+                 "attn": attn}
+        if kind == "moe":
+            block["moe"] = init_moe(gen, cfg, dt, dev, lead)
+        else:
+            block["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.act, dt, dev,
+                                      lead)
+        return block
 
     # -- state --------------------------------------------------------------
 
@@ -178,6 +221,31 @@ class Model:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(self.dtype)
 
+    def _prepend_frontend(self, params, batch, x: torch.Tensor):
+        """The frontend stub: batch["<frontend>_embed"] [B, F, d] through
+        the adapter, in front of the token embeddings → (x, F)."""
+        cfg = self.cfg
+        if cfg.frontend == "none":
+            return x, 0
+        key = f"{cfg.frontend}_embed"
+        if batch.get(key) is None:
+            raise ValueError(f"{cfg.name} takes batch[{key!r}] (its "
+                             f"{cfg.frontend} frontend's embeddings)")
+        emb = torch.as_tensor(batch[key], device=self.device).to(x.dtype)
+        emb = emb @ params["frontend_adapter"]
+        return torch.cat([emb, x], dim=1), emb.shape[1]
+
+    def _ffn(self, p, h: torch.Tensor) -> torch.Tensor:
+        """The block's feed-forward on h ([B, T, d], or a decode step's
+        [B, d]): the routed experts of a moe block (the aux loss is a
+        training quantity), else the MLP. A decode step routes its B lanes'
+        tokens together, as the reference's [B, 1, d] call does."""
+        if "moe" in p:
+            y, _ = apply_moe(p["moe"], h.reshape(h.shape[0], -1,
+                                                 h.shape[-1]), self.cfg)
+            return y.reshape(h.shape)
+        return L.apply_mlp(p["mlp"], h, self.cfg.act)
+
     # -- prefill --------------------------------------------------------------
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, DecodeState]:
@@ -186,31 +254,34 @@ class Model:
 
         `batch["length"]` ([B] int32, optional) marks the true lengths of
         prompts right-padded to a shared bucket: pads neither attend,
-        accumulate, nor enter the static top-k."""
+        accumulate, nor enter the static top-k. A frontend model takes
+        `batch["<frontend>_embed"]` ([B, F, d]): its F rows sit in front
+        of the tokens and are always valid, so the cache holds F + length
+        positions."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         length = batch.get("length")
         if length is not None:
             length = torch.as_tensor(length, dtype=torch.int32,
                                      device=self.device)
-        b, t = tokens.shape
-        x = self._embed(params, tokens)
-        pos = torch.arange(t, device=self.device)[None]
+        b = tokens.shape[0]
+        x, n_front = self._prepend_frontend(params, batch,
+                                            self._embed(params, tokens))
+        eff_len = None if length is None else length + n_front
+        pos = torch.arange(x.shape[1], device=self.device)[None]
         state = self.init_decode_state(b)
-        seg = params["seg0_dense"]
-        for li in range(cfg.num_layers):
-            p = layer_params(seg, li)
+        for li, p in self._layers(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             a, filled = attention_prefill(p["attn"], h, cfg, pos, self.prune,
-                                          state.kv.layer(li), length=length)
+                                          state.kv.layer(li), length=eff_len)
             _store_layer(state, li, filled)
             x = x + a
-            h = L.apply_norm(p["ln2"], x, cfg.norm)
-            x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+            x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         if length is None:
             x_last = x[:, -1]
         else:  # last *valid* position per lane, not the bucket's last pad
-            x_last = x[torch.arange(b, device=self.device), length.long() - 1]
+            x_last = x[torch.arange(b, device=self.device),
+                       eff_len.long() - 1]
         return self._logits(params, x_last), state
 
     def prefill_one(self, params, tokens, length=None
@@ -237,15 +308,24 @@ class Model:
 
     # -- chunked (time-sliced) prefill ----------------------------------------
 
+    def supports_bucketed_prefill(self) -> bool:
+        """Right-padded, length-masked prefill needs an attention-only
+        prompt pass: every family the port builds (recurrent and enc-dec
+        families would absorb the pads into their state)."""
+        return self.cfg.family not in ("ssm", "hybrid", "encdec")
+
     def supports_chunked_prefill(self) -> bool:
-        """Chunked prefill covers the plain attention stacks: every model
-        the port builds (the dense family)."""
-        return True
+        """Chunked prefill covers the plain attention stacks (dense and
+        MoE); a frontend model admits its prompt whole."""
+        cfg = self.cfg
+        return (cfg.family in ("dense", "moe") and cfg.mla is None
+                and cfg.frontend == "none")
 
     def init_prefill_chunk_state(self, batch_size: int,
                                  bucket: int) -> PrefillChunkState:
         """Empty workspace for prompts padded to `bucket`."""
         cfg = self.cfg
+        assert self.supports_chunked_prefill(), cfg.name
         shape = (cfg.num_layers, batch_size, cfg.n_kv_heads, bucket,
                  cfg.head_dim)
         return PrefillChunkState(
@@ -288,16 +368,13 @@ class Model:
         row0 = int(row0)
         x = self._embed(params, tokens_c)
         pos = row0 + torch.arange(tokens_c.shape[1], device=self.device)[None]
-        seg = params["seg0_dense"]
-        for li in range(cfg.num_layers):
-            p = layer_params(seg, li)
+        for li, p in self._layers(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             a, _, _, _ = attention_prefill_chunk(
                 p["attn"], h, cfg, pos, self.prune, pstate.k[li],
                 pstate.v[li], pstate.acc[li], row0, length)
             x = x + a
-            h = L.apply_norm(p["ln2"], x, cfg.norm)
-            x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+            x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         return x, pstate
 
     def prefill_finalize(self, params, pstate: PrefillChunkState, x_last,
@@ -331,13 +408,10 @@ class Model:
         cfg = self.cfg
         token = torch.as_tensor(token, device=self.device)
         x = self._embed(params, token)
-        seg = params["seg0_dense"]
-        for li in range(cfg.num_layers):
-            p = layer_params(seg, li)
+        for li, p in self._layers(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             a = attention_decode(p["attn"], h, cfg, state.kv.layer(li),
                                  self.prune, active)
             x = x + a
-            h = L.apply_norm(p["ln2"], x, cfg.norm)
-            x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+            x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         return self._logits(params, x), state

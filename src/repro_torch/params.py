@@ -1,32 +1,39 @@
 """Weights from the reference: turn the tree of the reference's
 `Model.init` into the port's parameters.
 
-The tree comes as nested dicts of numpy arrays (`jax.tree.map(np.asarray,
-params)`); the key names stay (`embed`, `final_norm`, `lm_head`, and
-`seg0_dense` stacked on the layer axis with `ln1`, `attn.{wq,wk,wv,wo}`,
-`ln2` and `mlp.{wi,wg,wo}`), and so does the layout: the reference's
-projections are [d_in, d_out] and the port applies them as `x @ W` too.
+The tree comes as nested dicts (and lists) of numpy arrays
+(`jax.tree.map(np.asarray, params)`) for any model the port builds, dense
+or MoE. The key names stay (`embed`, `final_norm`, `lm_head`,
+`frontend_adapter`, and `seg0_dense` or `seg0_moe` stacked on the layer
+axis with `ln1`, `attn.{wq,wk,wv,wo}` and the optional `attn.{bq,bk,bv}`,
+`ln2`, and `mlp.{wi,wg,wo}` or `moe.{router,wi,wg,wo,shared}`), and so does
+the layout: the reference's projections are [d_in, d_out] and the port
+applies them as `x @ W` too.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.models.transformer import DTYPES
 
+# leaves the reference keeps in f32 whatever the parameter dtype
+# (`repro/models/moe.py`: the router)
+F32_LEAVES = ("router",)
 
-def from_reference(tree: Dict[str, Any], dtype: str = "float32",
-                   device="cpu") -> Dict[str, Any]:
-    """Nested dict of numpy arrays → the same nesting of tensors in `dtype`
-    on `device`."""
-    dt = DTYPES[dtype]
-    out: Dict[str, Any] = {}
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            out[key] = from_reference(val, dtype, device)
-        else:
-            arr = np.array(val, dtype=np.float32)         # a writable copy
-            out[key] = torch.from_numpy(arr).to(device=device, dtype=dt)
-    return out
+
+def from_reference(tree: Any, dtype: str = "float32", device="cpu") -> Any:
+    """Nested dicts and lists of numpy arrays → the same nesting of tensors
+    in `dtype` on `device` (f32 for the leaves in `F32_LEAVES`)."""
+    def convert(t, key):
+        if isinstance(t, dict):
+            return {k: convert(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [convert(v, key) for v in t]
+        dt = torch.float32 if key in F32_LEAVES else DTYPES[dtype]
+        arr = np.array(t, dtype=np.float32)             # a writable copy
+        return torch.from_numpy(arr).to(device=device, dtype=dt)
+
+    return convert(tree, "")

@@ -1,6 +1,8 @@
 """Parity of the port's dense model with the reference at reduced size.
 
-Reduced longchat-7b (MHA) and granite-3-2b (GQA, tied embeddings), f32,
+Reduced longchat-7b (MHA), granite-3-2b (GQA, tied embeddings),
+phi3-medium-14b, starcoder2-3b (LayerNorm, tanh-GELU, qkv bias) and
+minitron-8b (LayerNorm, relu²), f32,
 bf16 and int8 KV, fused and composed decode, the same weights on both sides
 (`repro_torch.params`): prefill logits and teacher-forced decode logits to
 1e-4, greedy token streams exactly; the same under the unicaim knobs that
@@ -29,7 +31,11 @@ from torch_parity import model_pair, to_np  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
-ARCHS = ["longchat-7b", "granite-3-2b"]
+# the dense family: MHA, GQA with tied embeddings, GQA G = 4 (phi3), and
+# starcoder2 (LayerNorm, tanh-GELU, qkv bias) and minitron (LayerNorm,
+# relu²), whose zero-initialised biases `model_pair` fills with noise
+ARCHS = ["longchat-7b", "granite-3-2b", "phi3-medium-14b", "starcoder2-3b",
+         "minitron-8b"]
 # 40-token prompts into 24+8 slots: the static top-k prunes, the cache
 # fills after 8 decode steps, and eviction runs for the rest
 UNICAIM = dict(heavy=24, reserve=8, select_k=8, sink_tokens=2,

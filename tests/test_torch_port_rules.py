@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_prefill as flash_mod
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import gather_attention as gather_mod
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import ragged_decode as ragged_mod
 from repro_torch.kernels.ragged_decode import LAUNCHES, granule, ragged_decode
 from repro_torch.launch.serve import ServeLoop, greedy_generate
 from repro_torch.models.transformer import Model
@@ -148,7 +149,7 @@ SMEM_OPTIN, RING_BYTES, RING_STAGES, CTA_THREADS, CTA_WARPS = (
 
 def _decode_smem_bytes(s, g, d, dv, k, elt, nb=1):
     at = 0
-    for n in (4 * g * s, 4 * s, s, s, 4 * g * d, g * d, 32, 4 * k, 4 * k,
+    for n in (4 * g * s, 4 * s, s, s, 4 * g * d, g * d, 4 * g, 4 * k, 4 * k,
               4 * k, 4 * k, 4 * g * k, 4 * CTA_THREADS,
               1024 * min(nb, CTA_WARPS), 8 * CTA_WARPS, 8 * CTA_WARPS,
               4 * CTA_WARPS, 16, 8 * (RING_STAGES + 2)):
@@ -175,6 +176,8 @@ def _largest_s(g, d, k, elt, nb=1):
     (1, 128, 1088, 1), (1, 128, 1088, 4),      # longchat-7b, served
     (4, 64, 8256, 1), (4, 64, 8256, 4),        # granite: 16K prompt, heavy 8K
     (1, 128, 16384, 1), (1, 128, 22528, 1),
+    (12, 128, 1088, 1), (12, 128, 1088, 4),    # starcoder2-3b, served
+    (6, 128, 1088, 1),                         # grok-1-314b, served
 ])
 def test_decode_shapes_fit_in_shared_memory(g, d, s, nb):
     for elt in (4, 2, 1):
@@ -183,7 +186,8 @@ def test_decode_shapes_fit_in_shared_memory(g, d, s, nb):
 
 @pytest.mark.parametrize("g,d,nb,floor", [
     (1, 128, 1, 22640), (1, 128, 4, 22332), (4, 64, 1, 10203),
-    (4, 64, 4, 10064)])
+    (4, 64, 4, 10064), (12, 128, 1, 3957), (12, 128, 4, 3900),
+    (6, 128, 1, 7354)])
 def test_decode_kernels_largest_slot_count(g, d, nb, floor):
     """The largest S one CTA takes at select_k = 128 with bf16 K/V: only the
     [G + 1][S] words and two bytes a slot grow with S, and the mirror ring
@@ -201,6 +205,40 @@ def test_misaligned_copy_source_raises():
     with pytest.raises(ValueError, match="16-byte aligned"):
         build.check_copy_aligned("ragged_decode", mirror=(shifted, 16))
     build.check_copy_aligned("ragged_decode", mirror=(shifted, 4))
+
+
+def _over_limit_calls(device):
+    """Every decode, score and gather wrapper, called with G one above the
+    kernels' limit."""
+    g = ragged_mod.MAX_GROUPS + 1
+    fills, args = _kernel_args(2, g, 16, 40, [7, 40], torch.bfloat16, device)
+    sargs = _score_args(2, g, 16, 24, device)
+    packed = list(sargs)
+    packed[2] = quant.pack_int4(sargs[2])
+    gargs = _gather_args(2, g, 16, 12, torch.bfloat16, device)
+    return g, [lambda: ragged_decode(fills, *args, select_k=8),
+               lambda: fused_mod.fused_decode(*args, select_k=8,
+                                              num_blocks=2),
+               lambda: approx_mod.approx_score(*sargs),
+               lambda: approx_mod.approx_score_packed(*packed),
+               lambda: gather_mod.gather_attention(*gargs)]
+
+
+def test_group_count_above_the_limit_raises_before_any_launch():
+    """G = MAX_GROUPS + 1 query rows per kv-head is refused by every
+    decode, score and gather wrapper before anything else is checked (so
+    also for a CPU tensor) and nothing launches; the plain versions behind
+    `ops` take any G on the CPU."""
+    assert ragged_mod.MAX_GROUPS == 16
+    g, calls = _over_limit_calls("cpu")
+    before = _all_launches()
+    for call in calls:
+        with pytest.raises(ValueError, match=f"G={g} "):
+            call()
+    assert _all_launches() == before
+    _, args = _kernel_args(2, g, 16, 40, [7, 40], torch.bfloat16, "cpu")
+    out, _ = ops.fused_decode(*args, select_k=8)
+    assert out.shape == (2, g, 16) and _all_launches() == before
 
 
 def test_cpu_tensor_takes_plain_path_without_a_launch():
@@ -314,6 +352,9 @@ def _needs_card():
     (1, 128, 1088, 128, 4, torch.bfloat16), (1, 128, 1088, 128, 2, torch.int8),
     (4, 64, 576, 64, 8, torch.bfloat16), (4, 64, 576, 64, 4, torch.int8),
     (1, 128, 16384, 128, 4, torch.bfloat16), (4, 64, 8256, 128, 4, torch.int8),
+    (12, 128, 1088, 128, 4, torch.bfloat16), (12, 128, 1088, 128, 4,
+                                              torch.int8),
+    (12, 128, 3900, 128, 4, torch.bfloat16),
 ])
 def test_fused_kernel_matches_plain_version_on_card(g, d, s, k, nb, kv):
     _needs_card()
@@ -332,7 +373,8 @@ def test_fused_kernel_matches_plain_version_on_card(g, d, s, k, nb, kv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("g,d,s", [(1, 128, 1088), (4, 64, 576)])
+@pytest.mark.parametrize("g,d,s", [(1, 128, 1088), (4, 64, 576),
+                                   (12, 128, 1088), (16, 128, 576)])
 def test_approx_score_kernels_equal_plain_versions_on_card(g, d, s):
     _needs_card()
     qq, qs, kq, ks, valid = _score_args(16, g, d, s, "cuda")
@@ -352,7 +394,9 @@ def test_approx_score_kernels_equal_plain_versions_on_card(g, d, s):
 @pytest.mark.gpu
 @pytest.mark.parametrize("g,d,kk,kv", [(1, 128, 128, torch.bfloat16),
                                        (4, 64, 128, torch.int8),
-                                       (2, 64, 40, torch.float32)])
+                                       (2, 64, 40, torch.float32),
+                                       (12, 128, 128, torch.bfloat16),
+                                       (16, 64, 128, torch.int8)])
 def test_gather_attention_kernel_matches_plain_version_on_card(g, d, kk, kv):
     _needs_card()
     args = _gather_args(16, g, d, kk, kv, "cuda")
@@ -371,6 +415,10 @@ def test_gather_attention_kernel_matches_plain_version_on_card(g, d, kk, kv):
     # long caches: smaller ring tiles, winners staged in chunks
     (1, 128, 16384, 128, torch.bfloat16), (1, 128, 22528, 128, torch.int8),
     (4, 64, 8256, 128, torch.bfloat16),
+    # G = 12 (starcoder2-3b) and 6 (grok-1-314b); the largest S at G = 12
+    (12, 128, 1088, 128, torch.bfloat16), (12, 128, 1088, 128, torch.int8),
+    (12, 128, 3957, 128, torch.bfloat16), (6, 128, 1088, 128, torch.int8),
+    (16, 64, 576, 64, torch.bfloat16),
 ])
 def test_ragged_kernel_matches_plain_version_on_card(g, d, s, k, kv):
     _needs_card()
@@ -397,8 +445,8 @@ def test_decode_smem_queries_match_the_layout_on_card():
     rlib = ragged_mod._bind(build.load("ragged_decode"))
     flib = fused_mod._bind(build.load("fused_decode"))
     for (g, d), s, kind in itertools.product(
-            ((1, 128), (4, 64), (2, 36)), (64, 1088, 8256, 22640, 22641),
-            (0, 1, 2)):
+            ((1, 128), (4, 64), (2, 36), (12, 128), (6, 128), (16, 64)),
+            (64, 1088, 3957, 8256, 22640, 22641), (0, 1, 2)):
         elt = (4, 2, 1)[kind]
         assert rlib.ragged_decode_smem_bytes(s, g, d, d, 128, kind) == \
             _decode_smem_bytes(s, g, d, d, 128, elt)
@@ -417,6 +465,7 @@ def test_decode_smem_queries_match_the_layout_on_card():
 @pytest.mark.parametrize("g,d,s,k,kv", [
     (1, 128, 1088, 128, torch.bfloat16), (1, 128, 1088, 128, torch.int8),
     (4, 64, 576, 64, torch.bfloat16), (4, 64, 576, 64, torch.int8),
+    (12, 128, 1088, 128, torch.bfloat16), (12, 128, 1088, 128, torch.int8),
 ])
 def test_ragged_kernel_winner_set_on_card(g, d, s, k, kv):
     """Tie-heavy inputs whose out names the winner set (`_set_args`): the
@@ -440,6 +489,8 @@ def test_ragged_kernel_winner_set_on_card(g, d, s, k, kv):
     (1, 128, 1088, 128, 4, torch.bfloat16),
     (1, 128, 1088, 128, 4, torch.int8),
     (4, 64, 576, 64, 2, torch.bfloat16), (4, 64, 576, 64, 8, torch.int8),
+    (12, 128, 1088, 128, 4, torch.bfloat16),
+    (12, 128, 1088, 128, 4, torch.int8),
 ])
 def test_fused_kernel_winner_set_on_card(g, d, s, k, nb, kv):
     """Tie-heavy inputs whose out names the winner set (`_set_args`): each
@@ -455,3 +506,15 @@ def test_fused_kernel_winner_set_on_card(g, d, s, k, nb, kv):
     torch.testing.assert_close(out, out_r, rtol=0, atol=1e-3)
     torch.testing.assert_close(probs, probs_r, rtol=0, atol=1e-5)
     assert not out[0].any() and not probs[0].any()     # no valid slot
+
+
+@pytest.mark.gpu
+def test_group_count_above_the_limit_raises_before_any_launch_on_card():
+    """The same refusal for tensors on the card: no kernel launches."""
+    _needs_card()
+    g, calls = _over_limit_calls("cuda")
+    before = _all_launches()
+    for call in calls:
+        with pytest.raises(ValueError, match=f"G={g} "):
+            call()
+    assert _all_launches() == before

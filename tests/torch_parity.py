@@ -3,16 +3,23 @@ and the port's model from one config and one seed, with the same weights,
 and move arrays between the two (numpy in between)."""
 from __future__ import annotations
 
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.configs.base import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced
 from repro.core import baselines as jax_baselines
+from repro.launch.serve import _decode_step_fn, _model_key, _prefill_fn
+from repro.launch.serve import greedy_generate as jax_greedy
 from repro.models.transformer import Model as JaxModel
 from repro_torch.configs.base import get_config, reduced
+from repro_torch.configs import base as tbase
 from repro_torch.core import baselines
+from repro_torch.launch.serve import greedy_generate
 from repro_torch.models.transformer import Model
 from repro_torch.params import from_reference
 
@@ -23,17 +30,54 @@ def prune_pair(policy: str = "unicaim", **kw):
             getattr(baselines, policy)(**kw))
 
 
+# leaves the reference initialises to zeros (LayerNorm's `b`, the qkv bias
+# `bq`/`bk`/`bv`): a port that never added them would match on those
+# weights, so `model_pair` overwrites them with seeded noise of this scale
+ZERO_INIT_LEAVES = ("b", "bq", "bk", "bv")
+BIAS_NOISE = 0.1
+
+
+def noisy_zero_leaves(tree, seed: int):
+    """The numpy tree with every zero-initialised leaf replaced by seeded
+    N(0, BIAS_NOISE²) noise of its shape and dtype (in tree order)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t, key=""):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v, key) for v in t]
+        if key not in ZERO_INIT_LEAVES:
+            return t
+        noise = rng.standard_normal(np.shape(t)) * BIAS_NOISE
+        return noise.astype(np.asarray(t).dtype)
+
+    return walk(tree)
+
+
 def model_pair(arch: str, policy: str = "unicaim", seed: int = 0,
-               cfg_kw=None, **kw):
+               cfg_kw=None, moe_kw=None, **kw):
     """(jax model, jax params, port model, port params) for the reduced
-    `arch` (f32; `cfg_kw` overrides config fields on both sides), the
-    port's weights converted from the reference's."""
+    `arch` (f32; `cfg_kw` overrides config fields on both sides, `moe_kw`
+    fields of their MoEConfig): the reference's weights with
+    `noisy_zero_leaves` on both sides (a no-op for an arch without such
+    leaves), the port's converted from them."""
     jprune, tprune = prune_pair(policy, **kw)
     cfg_kw = cfg_kw or {}
-    jm = JaxModel(jax_reduced(jax_get_config(arch), **cfg_kw), jprune)
-    jp = jm.init(jax.random.PRNGKey(seed))
-    tm = Model(reduced(get_config(arch), **cfg_kw), tprune, device="cpu")
-    tp = from_reference(jax.tree.map(np.asarray, jp), "float32", "cpu")
+
+    def cfg(c):
+        if moe_kw:
+            c = dataclasses.replace(c, moe=dataclasses.replace(c.moe,
+                                                               **moe_kw))
+        return c
+
+    jm = JaxModel(cfg(jax_reduced(jax_get_config(arch), **cfg_kw)), jprune)
+    tree = noisy_zero_leaves(
+        jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed))), seed)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tm = Model(cfg(reduced(get_config(arch), **cfg_kw)), tprune,
+               device="cpu")
+    tp = from_reference(tree, "float32", "cpu")
     return jm, jp, tm, tp
 
 
@@ -41,3 +85,35 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def port_cfg(jcfg):
+    """The reference's ModelConfig as the port's (nested configs too)."""
+    fields = {}
+    for f in dataclasses.fields(jcfg):
+        v = getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(tbase, type(v).__name__)(**dataclasses.asdict(v))
+        fields[f.name] = v
+    return tbase.ModelConfig(**fields)
+
+
+def decode_runs(jm, jp, tm, tp, batch, teacher, greedy_steps):
+    """Both sides on one batch (a dict of numpy arrays): prefill logits
+    stacked with the logits of the teacher-forced decode steps (`teacher`
+    [steps, B] tokens) → (jax [1 + steps, B, V], port's), and
+    `greedy_generate` over `greedy_steps` → (jax tokens, port's)."""
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    jlog, jst = _prefill_fn(_model_key(jm))(jp, jbatch)
+    tlog, tst = tm.prefill(tp, tbatch)
+    step = _decode_step_fn(_model_key(jm))
+    jl, tl = [to_np(jlog)], [to_np(tlog)]
+    for tok in teacher:
+        lj, jst = step(jp, jst, jnp.asarray(tok))
+        lt, tst = tm.decode_step(tp, tst, torch.as_tensor(tok))
+        jl.append(to_np(lj))
+        tl.append(to_np(lt))
+    jtoks, _ = jax_greedy(jm, jp, jbatch, greedy_steps)
+    ttoks, _ = greedy_generate(tm, tp, tbatch, greedy_steps, device="cpu")
+    return (np.stack(jl), np.stack(tl)), (to_np(jtoks), to_np(ttoks))
