@@ -22,7 +22,10 @@ Phases, in order (no failure is caught: any one exits non-zero):
                the tensor cores, its division checked bit for bit against
                the operator, its out error over 12 seeds with and without
                its exact rows beside the f32 route's; f32 on the CUDA
-               cores), with CUDA-event
+               cores), flash_prefill's latent route at MLA's shape (128
+               q-heads over one latent, d = 576, dv = 512, V a view,
+               B = 2, N = 2048, lengths 2048 and 1377, obs_window 0 and
+               32; timed there and at 4 x 2048), with CUDA-event
                times beside the reckoned bound (and beside the one PyTorch
                call that computes the function, where there is one);
   4. serve   — full-width longchat-7b (random bf16 weights from a seed)
@@ -115,6 +118,25 @@ Phases, in order (no failure is caught: any one exits non-zero):
                prompt pass drops to the experts' capacity. Every serve's
                launch counts and its no-plain-prompt-attention check hold;
                printed: wall, tok/s, TTFT, peak memory.
+ 10. mla     — deepseek-v3-671b (MLA latent attention, 256 experts and a
+               shared one, dense first 3 blocks, the MTP head) at full
+               width, its depth cut to 5 layers, random bf16 weights from
+               the seed, after phase 9's models are freed: phase 4's 8
+               requests on 4 lanes, bf16 (global selection, select_blocks
+               4, the threshold race, chunk_prefill 512) and int8 (global
+               selection, select_blocks 4) latent KV; every serve's
+               streams equal its dtype's first run's (the reference's
+               latent attend ignores those knobs without a mesh; an MLA
+               model admits whole prompts), flash_prefill's latent route
+               launches 5 x prefill dispatches, no decode kernel and no
+               plain prompt attention runs on the card; the prompt pass
+               through the kernel and through its plain version keep the
+               same positions in every layer (at least 99%), and with the
+               dense policy agree on top-1 at least 55 of 64 times over
+               16 teacher-forced steps (under the served pruning that
+               agreement is printed). Printed: wall, tok/s, TTFT, the
+               MoE's drops, a decode step's wall, a profiled 4 x 2048
+               prompt pass, peak memory.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -251,6 +273,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def long_ms(fn, iters: int = 3) -> float:
+    """The card's time per call of a function whose kernels run far longer
+    than its host time: CUDA events around `iters` calls after a warm one
+    (no sleep needed to queue them)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def cold_ms(fn, inputs, iters: int = 20) -> float:
     """`cuda_ms` of fn(*inputs[i]) over input sets taken in turn: with
     enough sets the 50 MB L2 holds none of a call's inputs when it starts,
@@ -285,12 +322,18 @@ SERVED_TC = ("flash_prefill_tc_kernel<128, true>",
              "flash_prefill_tc_kernel<128, false>")
 
 
+LATENT_TC = "flash_prefill_latent_kernel<576, 512>"
+
+
 def prompt_kernel_name(text):
     """The demangled name of a prompt kernel in a mangled one, or None."""
     m = re.search(r"flash_prefill_tc_kernelILi(\d+)ELb([01])E", text)
     if m:
         return (f"flash_prefill_tc_kernel<{m.group(1)}, "
                 f"{'true' if m.group(2) == '1' else 'false'}>")
+    m = re.search(r"flash_prefill_latent_kernelILi(\d+)ELi(\d+)E", text)
+    if m:
+        return f"flash_prefill_latent_kernel<{m.group(1)}, {m.group(2)}>"
     return "flash_prefill_f32_kernel" if "flash_prefill_f32_kernel" in text \
         else None
 
@@ -383,7 +426,7 @@ def prompt_kernel_report():
             name = prompt_kernel_name(line)
         elif name and "HMMA" in line:
             report[name]["hmma"] += 1
-    for name in (*SERVED_TC, "flash_prefill_f32_kernel"):
+    for name in (*SERVED_TC, LATENT_TC, "flash_prefill_f32_kernel"):
         r = report.get(name, {})
         print(f"[build] {name}: {r.get('registers')} registers, "
               f"{r.get('stack_bytes')} B stack, {r.get('local_bytes')} B "
@@ -396,11 +439,15 @@ def prompt_kernel_report():
           f"{sorted({r['hmma'] for r in tc.values()})}, registers "
           f"{sorted({r['registers'] for r in tc.values()})}, stack + local "
           f"bytes {sorted(spilled)}")
-    assert all(n in report for n in SERVED_TC), sorted(report)
+    assert all(n in report for n in (*SERVED_TC, LATENT_TC)), sorted(report)
     for name, r in tc.items():
         assert r["hmma"] > 0, (name, "no tensor-core instruction")
         assert r["stack_bytes"] == r["local_bytes"] == 0, (name, "spills")
-    return {"compiled": {n: report[n] for n in SERVED_TC}}
+    # the latent route runs on the tensor cores too; its stack and local
+    # bytes are printed and kept in the kernels line, not held to zero
+    # (its register budget is a redesign's work, ROADMAP Queue D)
+    assert report[LATENT_TC]["hmma"] > 0, LATENT_TC
+    return {"compiled": {n: report[n] for n in (*SERVED_TC, LATENT_TC)}}
 
 
 # ---------------------------------------------------------------------------
@@ -913,19 +960,25 @@ def check_tpu_contract(name, bh, g, n, d, dtype, lengths, seed):
     assert ok_out and e_rel <= FLASH_ACC_RTOL and zeros and pads, name
 
 
-def flash_bound(lengths, heads, d, kv_bytes):
+def flash_bound(lengths, heads, d, kv_bytes, dv=None, kv_heads=None):
     """(bound_ms, bound_by, flops, bytes) of one model-contract call over a
     whole prompt, counting only what its output needs: the rows below each
     lane's length (rows past it are outputs the contract discards), and
     two causal products over each q-head's L (L + 1) / 2 live (row, column)
-    pairs (q.k and p.v: out and the column sums both come from them) at the
-    peak of the inputs' type (bf16: the tensor cores; f32: the CUDA cores,
-    since the tensor cores would round f32 to TF32); those rows of q, k, v
-    read once and of the f32 out written, acc's L columns read and
-    written, one length per lane."""
+    pairs (q.k over d and p.v over dv: out and the column sums both come
+    from them) at the peak of the inputs' type (bf16: the tensor cores;
+    f32: the CUDA cores, since the tensor cores would round f32 to TF32);
+    those rows of q and of the `kv_heads` K/V heads (default: one per
+    q-head) read once, of the f32 out written, acc's L columns read and
+    written, one length per lane. With dv < d and one kv head, V is a view
+    of K's first dv columns (MLA's latent): its bytes are K's, read once."""
+    dv = d if dv is None else dv
+    kv_heads = heads if kv_heads is None else kv_heads
     ln = np.asarray(lengths, dtype=np.float64)
-    flops = heads * float((2 * 2 * d * ln * (ln + 1) / 2).sum())
-    nbytes = (heads * int(ln.sum()) * (d * (3 * kv_bytes + 4) + 2 * 4)
+    flops = heads * float((2 * (d + dv) * ln * (ln + 1) / 2).sum())
+    kv_row = d if dv < d else d + dv
+    nbytes = (int(ln.sum()) * (heads * (d * kv_bytes + dv * 4)
+                               + kv_heads * (kv_row * kv_bytes + 2 * 4))
               + 4 * len(ln))
     if kv_bytes == 4:
         t, by = bound(nbytes, f32_flops=flops)
@@ -968,8 +1021,8 @@ def f32_route_rounded(q, k, v, ln):
     lib = flash_mod._bind(build.load("flash_prefill"))
     build.check_launch("flash_prefill", lib.flash_prefill_launch(
         0, 0, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), part.data_ptr(), acc.data_ptr(), bh, n, n, d, 1, 1,
-        0, 0, 1, ctypes.c_float(1.0 / math.sqrt(d)), ctypes.c_float(0.0),
+        out.data_ptr(), part.data_ptr(), acc.data_ptr(), bh, n, n, d, d, d,
+        1, 1, 0, 0, 1, ctypes.c_float(1.0 / math.sqrt(d)), ctypes.c_float(0.0),
         torch.cuda.current_stream().cuda_stream))
     return out.reshape(b, hq, n, d)
 
@@ -1021,6 +1074,113 @@ def exact_rows_survey(seeds=range(12)):
             "exact_rows": n_exact}
 
 
+# MLA's absorbed prompt pass (deepseek-v3): 128 q-heads over one latent of
+# d = 576, V its first 512 columns (a view), scale 1/sqrt(qk_nope + rope)
+LATENT_HEADS = 128
+LATENT_SCALE = 1.0 / math.sqrt(192)
+LATENT_LENS = (2048, 1377)
+
+
+def latent_inputs(b, n, seed):
+    """q [B, 128, N, 576] and the latent u [B, 1, N, 576] bf16, and v, the
+    view of u's first 512 columns."""
+    d, dv = flash_mod.LATENT
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, LATENT_HEADS, n, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    u = torch.randn((b, 1, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return q, u, u[..., :dv]
+
+
+def check_latent(obs, seed):
+    """ops.prefill_attention at the latent shape (B = 2, N = 2048, lengths
+    LATENT_LENS) against its plain version on the card, whose softmax
+    denominators are the f32 rounding of the exact sums as the route's
+    exact rows make them (`den_f64`): out within FLASH_OUT_ATOL of
+    max|v|, acc within FLIP_ACC_RTOL, no mass past a length, v read as
+    the view (no copy) → (max abs error of out, max relative error of
+    acc)."""
+    n = 2048
+    q, u, v = latent_inputs(len(LATENT_LENS), n, seed)
+    assert not v.is_contiguous()
+    ln = torch.as_tensor(LATENT_LENS, dtype=torch.int32, device="cuda")
+    out, acc = ops.prefill_attention(q, u, v, length=ln, obs_window=obs,
+                                     scale=LATENT_SCALE)
+    want, want_acc = ref.prefill_attention_ref(q, u, v, length=ln,
+                                               obs_window=obs,
+                                               scale=LATENT_SCALE,
+                                               den_f64=True)
+    torch.cuda.synchronize()
+    vmax = float(v.abs().max())
+    d_out = (out - want).abs()
+    e_out = float(d_out.max())
+    e_rel, zeros = acc_errors(acc, want_acc)
+    pads = pad_cols_zero(acc, ln)
+    print(f"  latent route B=2 Hq={LATENT_HEADS} over one latent, N={n}, "
+          f"d={q.shape[-1]}, dv={v.shape[-1]} (v a view), lengths "
+          f"{list(LATENT_LENS)}, obs={obs}, scale 1/sqrt(192), bf16: "
+          f"max|dout|={e_out:.3g} (atol {FLASH_OUT_ATOL} x max|v| "
+          f"{vmax:.3g} = {FLASH_OUT_ATOL * vmax:.3g}; "
+          f"{int((d_out > FLASH_OUT_ATOL).sum())} of {out.numel()} outputs "
+          f"past {FLASH_OUT_ATOL}), acc max rel {e_rel:.3g} (rtol "
+          f"{FLIP_ACC_RTOL:.3g}), pad columns exactly 0 {pads}")
+    assert torch.isfinite(out).all() and torch.isfinite(acc).all()
+    assert out.shape == want.shape == (2, LATENT_HEADS, n, v.shape[-1])
+    assert e_out <= FLASH_OUT_ATOL * vmax and e_rel <= FLIP_ACC_RTOL, \
+        (e_out, e_rel)
+    assert zeros and pads
+    return e_out, e_rel
+
+
+def latent_times():
+    """The latent route's times at B = 2 (LATENT_LENS) and at phase 10's
+    served prompt pass (B = 4, the served lengths), beside the bound, the
+    plain version and F.scaled_dot_product_attention (is_causal, bf16,
+    dv = 512, K and V expanded over the 128 heads, out only: no column
+    sums) on the same inputs. Returns the served shape's numbers."""
+    d, dv = flash_mod.LATENT
+    n = 2048
+    rows = {}
+    for b, lens in ((2, LATENT_LENS), (LANES, LENS)):
+        q, u, v = latent_inputs(b, n, 9 + b)
+        ln = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+        qf, kf, vf = (q.reshape(b * LATENT_HEADS, n, d), u.reshape(b, n, d),
+                      v.reshape(b, n, dv))
+        lrep = torch.repeat_interleave(ln, LATENT_HEADS)
+        acc = torch.zeros((b, n), device="cuda")
+        ms = long_ms(lambda: flash_mod.flash_prefill(
+            qf, kf, vf, lrep, acc, group=LATENT_HEADS,
+            acc_group=LATENT_HEADS, scale=LATENT_SCALE))
+        plain = long_ms(lambda: ref.prefill_attention_ref(
+            q, u, v, length=ln, scale=LATENT_SCALE, den_f64=True))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, u.expand(b, LATENT_HEADS, n, d),
+            v.expand(b, LATENT_HEADS, n, dv), is_causal=True,
+            scale=LATENT_SCALE), iters=5, warmup=1)
+        t, by, flops, nbytes = flash_bound(lens, LATENT_HEADS, d, 2, dv=dv,
+                                           kv_heads=1)
+        t_all, _, flops_all, _ = flash_bound([n] * b, LATENT_HEADS, d, 2,
+                                             dv=dv, kv_heads=1)
+        # this design's tensor-core work: q.k over d made eight times (4 dv
+        # slices x 2 sweeps) and p.v once, over all N rows of every lane
+        design = b * LATENT_HEADS * n * (n + 1) / 2 * (8 * 2 * d + 2 * dv)
+        print(f"  time latent route B={b} N={n} lengths {list(lens)}: kernel "
+              f"pair {ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms "
+              f"({by}: {flops:.4g} flop over the rows below each length, "
+              f"{nbytes} B; all {b} x {n} rows: {flops_all:.4g} flop, "
+              f"{t_all:.4f} ms), kernel / bound {ms / t:.1f}x; "
+              f"F.scaled_dot_product_attention(is_causal=True, K/V expanded, "
+              f"out only, no column sums): {lib:.4f} ms; this design's work "
+              f"{design:.4g} flop, {design / BF16_FLOPS_PER_S * 1e3:.4f} ms "
+              f"at the bf16 peak, done at {design / ms / 1e9:.1f} TF/s")
+        rows[b] = {"ms": ms, "plain_ms": plain, "bound_ms": t,
+                   "bound_by": by, "library_ms": lib,
+                   "all_rows_bound_ms": t_all, "design_flop": design}
+        del q, u, v, qf, kf, vf
+    return {"served_B4": rows[LANES], "check_B2": rows[2]}
+
+
 def phase_flash():
     check_division()
     out_err, acc_rel = 0.0, 0.0
@@ -1040,6 +1200,11 @@ def phase_flash():
         e_out, e_rel = check_model_contract(
             *args, **{"seed": len(args[0]), **kw})
         out_err, acc_rel = max(out_err, e_out), max(acc_rel, e_rel)
+    latent_out, latent_acc = 0.0, 0.0
+    for obs in (0, 32):
+        e_out, e_rel = check_latent(obs, seed=20 + obs)
+        latent_out, latent_acc = max(latent_out, e_out), max(latent_acc,
+                                                             e_rel)
     check_tpu_contract("served", 128, 1, 2048, 128, torch.bfloat16,
                        [n for n in served for _ in range(32)], 6)
     check_tpu_contract("granite-like GQA ragged N", 128, 4, 1000, 64,
@@ -1120,6 +1285,11 @@ def phase_flash():
           f"{ms32 / t32:.1f}x; F.scaled_dot_product_attention(is_causal="
           f"True) in f32, out only: {lib32:.4f} ms")
     del q32, k32, v32, qf32, kf32, vf32
+    latent = latent_times()
+    latent.update(max_abs_err=latent_out, acc_max_rel_err=latent_acc,
+                  out_atol=f"{FLASH_OUT_ATOL} x max|v|",
+                  design="d = 576, dv = 512, G = 128: one CTA per 128-wide "
+                         "dv slice, mma.sync m16n8k16")
     return out_err, {"bfloat16": (ms, plain, t, by, lib),
                      "extra": {"out_atol": FLASH_OUT_ATOL,
                                "acc_max_rel_err": acc_rel,
@@ -1131,7 +1301,8 @@ def phase_flash():
                                "f32_route_ms": ms32,
                                "f32_route_plain_ms": plain32,
                                "f32_route_bound_ms": t32,
-                               "f32_route_library_ms": lib32}}
+                               "f32_route_library_ms": lib32,
+                               "latent": latent}}
 
 
 # ---------------------------------------------------------------------------
@@ -2360,9 +2531,9 @@ def phase_vision(cfg, params, smi):
 
 def print_drops(tag, drops, cfg):
     """The (token, choice) pairs each prompt pass lost to the experts'
-    capacity, summed over its layers; decode steps (LANES tokens, at most
-    8 an expert: under the least capacity) must lose none."""
-    layers, k = cfg.num_layers, cfg.moe.top_k
+    capacity, summed over its MoE layers; decode steps (LANES tokens, at
+    most 8 an expert: under the least capacity) must lose none."""
+    layers, k = cfg.num_layers - cfg.moe.dense_first_k, cfg.moe.top_k
     passes = [(n, int(d)) for n, d in drops if n > LANES]
     assert not any(int(d) for n, d in drops if n <= LANES)
     assert len(passes) % layers == 0, len(passes)
@@ -2432,6 +2603,203 @@ def phase_family(smi):
         family_done(name, t0, smi)
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: MLA latent attention and the mla_moe family (deepseek-v3-671b)
+# ---------------------------------------------------------------------------
+
+MLA_LAYERS = 5        # deepseek-v3-671b's 61 layers cut to 3 mla_dense + 2
+#                       mla_moe: the MoE segment keeps a stacked axis
+
+
+def plain_prefill_attention(q, k, v, acc=None, *, row0=0, length=None,
+                            obs_window=0, chunk=512, scale=None):
+    """ops.prefill_attention's plain version (with the latent route's
+    f64 denominators), run on the card: the check's other prompt pass
+    (never the served path). 128 query rows at a time, so its [B, 128,
+    rows, N] f64 denominator sums fit beside the model."""
+    out, col = ref.prefill_attention_ref(q, k, v, row0=row0, length=length,
+                                         obs_window=obs_window,
+                                         chunk=min(chunk, 128), scale=scale,
+                                         den_f64=True)
+    if acc is None:
+        return out, col
+    acc += col
+    return out, acc
+
+
+def mla_serve(cfg, params, kv, smi, chunk=0, **knobs):
+    """Serve phase 4's 8 requests through the mla_moe model: every prompt
+    pass runs flash_prefill's latent route once a layer, no decode kernel
+    launches (MLA decode is plain PyTorch, as the reference's is plain
+    XLA), no plain prompt attention runs on the card, and chunk_prefill
+    admits whole prompts. Returns (flash_prefill launches, the streams,
+    the model)."""
+    prune = baselines.unicaim(kv_dtype=kv, **FAMILY_PRUNE, **knobs)
+    model = Model(cfg, prune, device="cuda")
+    loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS, block=8,
+                     chunk_prefill=chunk, device="cuda")
+    prompts = served_prompts(cfg.vocab_size)
+    handles = [(loop.submit(Request(prompt=p, max_new=m)), m)
+               for p, m in prompts]
+    torch.cuda.synchronize()
+    reset_launches()
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
+    moe_mod.DROPS = []
+    try:
+        t0 = time.monotonic()
+        stats = loop.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        drops = moe_mod.DROPS
+    finally:
+        moe_mod.DROPS = None
+    counts = launch_counts()
+    flash = counts.pop("flash_prefill")
+    c = loop.counters
+    toks = sum(len(st.tokens) for st in stats)
+    agg = loop.aggregate()
+    tag = (f"kv={kv} chunk_prefill={chunk} "
+           + " ".join(f"{k}={v}" for k, v in knobs.items()))
+    print(f"  serve {cfg.name} {tag}: {len(stats)} requests on {LANES} "
+          f"lanes, {toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, "
+          f"p50 TTFT {agg['p50_ttft_s']:.3f}s; {c['decode_steps']} decode "
+          f"steps, {c['prefill_dispatches']} prefills, "
+          f"{c['chunk_dispatches']} chunk dispatches, "
+          f"{c['grouped_requests']} requests group-admitted; flash_prefill "
+          f"(latent route) launches {flash} = {cfg.num_layers} x "
+          f"{c['prefill_dispatches']}: "
+          f"{flash == cfg.num_layers * c['prefill_dispatches']}; decode "
+          f"kernels and the rest {counts}; plain prompt attention on the "
+          f"card {PLAIN_ON_CARD}  [{smi}]")
+    assert all(h.done and len(h.tokens) == m for h, m in handles)
+    assert c["nonfinite_lanes"] == 0 and c["chunk_dispatches"] == 0
+    assert flash == cfg.num_layers * c["prefill_dispatches"] and flash > 0
+    assert not any(counts.values()), counts
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    print_drops(f"{cfg.name} {tag}", drops, cfg)
+    return flash, [h.tokens for h, _ in handles], model
+
+
+def mla_teacher(cfg, params, model, steps=16):
+    """The 4 served prompts (4 x 2048 bucket) through the kernel's prompt
+    pass and through the plain version on the card (a check only): the
+    share of each layer's kept positions the two passes agree on (the
+    worst lane), then `steps` decode steps from each state fed the same
+    tokens (the kernel side's greedy choices), the top-1 agreement over
+    steps x LANES and the plain side's top-2 gap where they part. Returns
+    (the worst layer's kept share, the top-1 agreement, a decode step's
+    wall in ms: host clock around a synchronised step)."""
+    prompts = served_prompts(cfg.vocab_size)[:LANES]
+    padded = np.zeros((LANES, PROMPT_LEN), np.int64)
+    for i, (p, _) in enumerate(prompts):
+        padded[i, :len(p)] = p
+    batch = {"tokens": torch.as_tensor(padded, device="cuda"),
+             "length": torch.as_tensor([len(p) for p, _ in prompts],
+                                       device="cuda")}
+    logits, st = model.prefill(params, batch)
+    served = ops.prefill_attention
+    ops.prefill_attention = plain_prefill_attention
+    try:
+        logits_p, st_p = model.prefill(params, batch)
+    finally:
+        ops.prefill_attention = served
+    kept = []
+    for li in range(cfg.num_layers):
+        pk, pp = st.kv.pos[li, :, 0], st_p.kv.pos[li, :, 0]      # [B, S]
+        kept.append(min(
+            int(torch.isin(pk[b][pk[b] >= 0], pp[b][pp[b] >= 0]).sum())
+            / int((pk[b] >= 0).sum()) for b in range(LANES)))
+    first = float((logits - logits_p).abs().max())
+    tok = torch.argmax(logits, -1)
+    agree, worst, walls, gaps = 0, 0.0, [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lk, st = model.decode_step(params, st, tok)
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+        lp, st_p = model.decode_step(params, st_p, tok)
+        worst = max(worst, float((lk - lp).abs().max()))
+        ak, ap = torch.argmax(lk, -1), torch.argmax(lp, -1)
+        agree += int((ak == ap).sum())
+        top2 = torch.topk(lp, 2, dim=-1).values
+        gaps += [round(float(x), 3) for x in (top2[:, 0] - top2[:, 1])[
+            ak != ap]]
+        tok = ak
+    step_ms = float(np.median(walls))
+    print(f"  teacher-forced {cfg.num_layers} layers, policy "
+          f"{model.prune.policy}, kv={model.prune.kv_dtype}: the prompt pass "
+          f"through the latent kernel vs its plain version on the card: "
+          f"kept positions agree on {[round(k, 5) for k in kept]} (worst "
+          f"lane, by layer), first-token logits max|d| {first:.3g}; "
+          f"{steps} steps x {LANES} lanes fed the same tokens: logits "
+          f"max|d| {worst:.3g}, top-1 equal in {agree} of {steps * LANES}; "
+          f"the plain side's top-2 gap where they part {sorted(gaps)}; a "
+          f"decode step's wall {step_ms:.2f} ms (median of {steps}, "
+          f"synchronised)")
+    assert math.isfinite(first) and math.isfinite(worst)
+    return min(kept), agree, step_ms
+
+
+def phase_mla(smi):
+    """Phase 10: deepseek-v3-671b at full width (d 7168, 128 heads, latent
+    576, 256 experts of d_ff 2048 and a shared one, dense blocks of d_ff
+    18,432, the MTP head), its depth cut to MLA_LAYERS, random bf16
+    weights from the seed made on the card. Served bf16 with global
+    selection, select_blocks 4, the threshold race and chunk_prefill 512
+    (the reference's latent attend ignores the first three without a mesh,
+    and an MLA model admits whole prompts: every stream must equal the
+    first run's), int8 with global selection and select_blocks 4 (equal
+    streams). The kernel's prompt pass against the plain one: under the
+    served pruning every layer keeps the same positions (at least
+    KEPT_MIN of them, both KV dtypes), and with the dense policy (exact
+    decode over every prompt row) 16 teacher-forced steps agree on top-1
+    at least TEACHER_AGREE_MIN of 64 times. Under the served pruning the
+    teacher-forced agreement is printed, not held: its 4-bit CAM scores
+    and top-128 race turn logit noise into other winners (`PERF.md` §6).
+    One 4 x 2048 prompt pass profiled. Returns the launches of each
+    kernel."""
+    t_all = time.monotonic()
+    cfg, params = family_weights("deepseek-v3-671b", smi,
+                                 num_layers=MLA_LAYERS)
+    launches = dict.fromkeys(launch_counts(), 0)
+    for kv, runs in (("bf16", ({}, {"select_blocks": 4},
+                               {"select_mode": "threshold"},
+                               {"chunk": CHUNK})),
+                     ("int8", ({}, {"select_blocks": 4}))):
+        first = None
+        for knobs in runs:
+            t = time.monotonic()
+            flash, streams, model = mla_serve(cfg, params, kv, smi, **knobs)
+            launches["flash_prefill"] += flash
+            same = first is None or streams == first
+            print(f"[mla] kv={kv} {knobs or 'select_blocks=1'}: streams equal "
+                  f"the select_blocks=1 run's {same}; "
+                  f"{time.monotonic() - t:.1f}s")
+            assert same, knobs
+            if first is None:
+                first = streams
+                t = time.monotonic()
+                kept, _, step_ms = mla_teacher(cfg, params, model)
+                assert kept >= KEPT_MIN, (kept, KEPT_MIN)
+                if kv == "bf16":
+                    phase_prefill_profile(cfg, params, model)
+                print(f"[mla] kv={kv} teacher-forced and profile "
+                      f"{time.monotonic() - t:.1f}s")
+            del model
+    t = time.monotonic()
+    exact = Model(cfg, baselines.dense(PROMPT_LEN + 64), device="cuda")
+    _, agree, _ = mla_teacher(cfg, params, exact)
+    assert agree >= TEACHER_AGREE_MIN, (agree, TEACHER_AGREE_MIN)
+    print(f"[mla] dense-policy teacher-forced {time.monotonic() - t:.1f}s")
+    del exact
+    family_done("deepseek-v3-671b", t_all, smi)
+    print(f"[mla] phase 10 {time.monotonic() - t_all:.1f}s; a served decode "
+          f"step's wall {step_ms:.2f} ms (int8, the last measured)")
     return launches
 
 
@@ -2568,6 +2936,21 @@ def main():
     # 9. the rest of the dense family and the MoE family, full width
     for name, n in phase_family(smi).items():
         launches[name] += n
+
+    # 10. MLA and the mla_moe family: deepseek-v3-671b, 5 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[mla] before phase 10: {held / 2 ** 30:.3f} GiB still allocated "
+          f"on the card (phase 9's models freed)")
+    assert held < 1 << 30, held
+    t = time.monotonic()
+    mla_launches = phase_mla(smi)
+    for name, n in mla_launches.items():
+        launches[name] += n
+    timings["flash_prefill"]["extra"]["latent"]["launches"] = \
+        mla_launches["flash_prefill"]
+    print(f"[mla] phase {time.monotonic() - t:.1f}s")
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key

@@ -281,8 +281,8 @@ def _ensure_loaded():
     if _REGISTRY.get("__loaded__"):
         return
     from repro_torch.configs import (  # noqa: F401
-        granite_3_2b, grok1_314b, llava_next_mistral_7b, longchat_7b,
-        minitron_8b, phi3_medium_14b, starcoder2_3b)
+        deepseek_v3_671b, granite_3_2b, grok1_314b, llava_next_mistral_7b,
+        longchat_7b, minitron_8b, phi3_medium_14b, starcoder2_3b)
     _REGISTRY["__loaded__"] = True
 
 

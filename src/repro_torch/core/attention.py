@@ -119,11 +119,14 @@ def _fused_enabled(prune: PruneConfig, device: torch.device) -> bool:
 
 def _fused_eligible(cache: KVCache, prune: PruneConfig) -> bool:
     """The fused engine covers the paper-default decode configuration; the
-    threshold race and exact accumulation stay on the composed path."""
+    threshold race, exact accumulation and MLA's latent cache (no V) stay
+    on the composed path."""
     if not (_fused_enabled(prune, cache.k.device)
             and prune.policy == "unicaim"):
         return False
     if prune.select_mode != "topk" or prune.accumulate != "approx":
+        return False
+    if cache.v is None:                       # MLA latent cache
         return False
     return prune.select_k % max(1, prune.select_blocks) == 0
 

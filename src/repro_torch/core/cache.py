@@ -76,8 +76,10 @@ class KVCache:
 def init_cache(batch: int, n_kv_heads: int, head_dim: int, slots: int,
                prune: PruneConfig, dtype=torch.bfloat16,
                v_dim: Optional[int] = None, device="cpu",
-               layers: Optional[int] = None) -> KVCache:
-    """Empty cache; `layers` adds a leading layer axis (stacked cache)."""
+               layers: Optional[int] = None, latent: bool = False) -> KVCache:
+    """Empty cache; `layers` adds a leading layer axis (stacked cache).
+    `latent=True` is MLA's cache: K holds the per-token latent, there is
+    no V (and no vscale), and the int8 mirror covers the latent."""
     if v_dim is None:
         v_dim = head_dim
     lead = () if layers is None else (layers,)
@@ -96,10 +98,10 @@ def init_cache(batch: int, n_kv_heads: int, head_dim: int, slots: int,
 
     return KVCache(
         k=zeros(shape, dtype),
-        v=zeros(row + (v_dim,), dtype),
+        v=None if latent else zeros(row + (v_dim,), dtype),
         kq=zeros(shape, torch.int8) if needs_mirror else None,
         kscale=zeros(row, torch.float32) if needs_scale else None,
-        vscale=zeros(row, torch.float32) if int8_kv else None,
+        vscale=zeros(row, torch.float32) if int8_kv and not latent else None,
         acc=zeros(row, torch.float32),
         valid=zeros(row, torch.bool),
         pos=torch.full(row, -1, dtype=torch.int32, device=device),

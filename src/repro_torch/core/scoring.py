@@ -11,16 +11,25 @@ import torch
 
 from repro_torch.core.topk import NEG_INF
 
+# the widest contraction of ±127 codes whose partial sums all stay below
+# 2^24, where f32 still holds every integer: 1040 · 127² = 16,774,160
+# (MLA's latent, d = 576, is inside it; 1041 · 127² is not)
+EXACT_MAX_D = (2 ** 24 - 1) // 127 ** 2
+
 
 def approx_scores(qq: torch.Tensor, qscale: torch.Tensor, kq: torch.Tensor,
                   kscale: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """qq [B,Hq,d] int8, qscale [B,Hq], kq [B,Hk,S,d] int8, kscale [B,Hk,S],
     valid [B,Hk,S] bool → [B,Hq,S] f32 scores, NEG_INF at invalid slots.
 
-    The contraction is exact: |code| <= 127 and d <= 128 keep every partial
-    sum below 2^24, so it runs as an f32 product of the integer codes (CUDA
-    has no int32 batched matmul) and equals the reference's int32 one."""
+    The contraction is exact: |code| <= 127 and d <= EXACT_MAX_D (1040)
+    keep every partial sum below 2^24, so it runs as an f32 product of the
+    integer codes (CUDA has no int32 batched matmul) and equals the
+    reference's int32 one. A wider d raises."""
     b, hq, d = qq.shape
+    if d > EXACT_MAX_D:
+        raise ValueError(f"approx_scores: d={d} above {EXACT_MAX_D}, where "
+                         "an f32 sum of ±127 code products stops being exact")
     _, hk, s, _ = kq.shape
     g = hq // hk
     raw = torch.matmul(qq.reshape(b, hk, g, d).float(),

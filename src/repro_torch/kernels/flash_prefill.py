@@ -12,14 +12,19 @@ are `kernels/ref.flash_prefill_ref` (the TPU contract) and
 `kernels/ref.prefill_attention_ref` (the model's contract). On the bf16
 route under the model's contract, the rows whose softmax denominator is
 below `EXACT_BELOW` take their logits from f32 FMAs in the plain version's
-order instead of the tensor cores (the source note says why).
+order instead of the tensor cores (the source note says why). MLA's
+absorbed prompt pass (d = 576 over the latent, dv = 512: `LATENT`) takes
+a third kernel, `flash_prefill_latent_kernel`: bf16, the model's contract,
+one CTA per 128-wide slice of dv; its V may be a view of K's first dv
+columns (rows `v.stride(1)` elements apart), so nothing is copied.
 
   q       [BH, C, d]        f32 | bf16   queries of absolute rows
                                          [row0, row0 + C)
-  k, v    [BH/group, N, d]  q's dtype    N >= row0 + C
+  k       [BH/group, N, d]  q's dtype    N >= row0 + C
+  v       [BH/group, N, dv] q's dtype    dv = d, or LATENT
   lengths [BH]              int32        true prompt length per q-head row
   acc     [BH/acc_group, N] f32          column sums, added into IN PLACE
-  → out   [BH, C, d]        f32 (model contract) | q's dtype (TPU contract)
+  → out   [BH, C, dv]       f32 (model contract) | q's dtype (TPU contract)
 
 `LAUNCHES["flash_prefill"]` counts the launches (one per call: the
 attention kernel and its fold together).
@@ -37,6 +42,7 @@ LAUNCHES = {"flash_prefill": 0}
 BLOCK_Q = 64                 # query rows per CTA (kBQ in the source)
 BLOCK_K = 64                 # key columns per tile (kBK)
 MAX_D = 128
+LATENT = (576, 512)          # MLA's (d, dv): kv_lora + qk_rope, kv_lora
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
 # rows with a denominator l below this (a probability above 1/32) take
 # exact logits on the bf16 route, model contract; chip_smoke.py sets it to
@@ -49,45 +55,74 @@ _I = ctypes.c_int
 def _bind(lib):
     fn = lib.flash_prefill_launch
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I] + [_P] * 7 + [_I] * 9 + [ctypes.c_float] * 2 \
-            + [_P]
+        fn.argtypes = [_I, _I] + [_P] * 7 + [_I] * 11 \
+            + [ctypes.c_float] * 2 + [_P]
         fn.restype = _I
-        lib.flash_prefill_smem_bytes.argtypes = [_I, _I]
+        lib.flash_prefill_smem_bytes.argtypes = [_I, _I, _I]
         lib.flash_prefill_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def _check_v_rows(v, shape, dtype, dev) -> int:
+    """The latent route's V: `shape` and `dtype` on `dev`, each row
+    contiguous and 16-byte aligned, rows evenly spaced (a view of K's first
+    dv columns passes). Returns its row stride in elements."""
+    ld = v.stride(1)
+    if (tuple(v.shape) != tuple(shape) or v.dtype != dtype
+            or v.device != dev):
+        raise ValueError(f"flash_prefill: v is {tuple(v.shape)} {v.dtype} "
+                         f"on {v.device}, expected {tuple(shape)} {dtype} "
+                         f"on {dev}")
+    if v.stride(2) != 1 or ld < shape[2] or ld % 8 or (
+            v.stride(0) != shape[1] * ld and shape[0] > 1):
+        raise ValueError(f"flash_prefill: v's strides {v.stride()} are not "
+                         "evenly spaced rows of 16-byte multiples")
+    return ld
 
 
 def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
                   row0: int = 0, obs_window: int = 0, model: bool = True,
                   scale: float = None):
-    """Launch the kernel pair on the current stream → out [BH, C, d].
+    """Launch the kernel pair on the current stream → out [BH, C, dv].
 
     `model=True` is the model's contract: probabilities rounded to V's
     dtype (when that is bf16), out in f32, the `acc_group` q-head rows of
     each acc row summed. `model=False` is the TPU contract: f32
     probabilities, out in q's dtype (`acc_group` must be 1). bf16 inputs
-    run on the tensor cores, f32 inputs on the CUDA cores. Raises on a
-    tensor that is not contiguous on the CUDA card, on a bf16 tensor that
+    run on the tensor cores, f32 inputs on the CUDA cores; (d, dv) =
+    `LATENT` runs the latent route, bf16 and the model's contract only.
+    Raises on a tensor that is not contiguous on the CUDA card (the latent
+    route's v: whose rows are not evenly spaced), on a bf16 tensor that
     does not start 16-byte aligned (the route's cp.async copies), on a
     shape or dtype the kernel does not take, and when the launch fails."""
     bh, c, d = q.shape
-    n = k.shape[1]
+    n, dv = k.shape[1], v.shape[-1]
     dev = q.device
+    latent = (d, dv) == LATENT
     build.check_tensors("flash_prefill", {
         "q": (q, (bh, c, d), q.dtype),
         "k": (k, (bh // group, n, d), q.dtype),
-        "v": (v, (bh // group, n, d), q.dtype),
         "lengths": (lengths, (bh,), torch.int32),
         "acc": (acc, (bh // acc_group, n), torch.float32)}, dev)
+    if latent:
+        v_ld = _check_v_rows(v, (bh // group, n, dv), q.dtype, dev)
+    else:
+        build.check_tensors("flash_prefill",
+                            {"v": (v, (bh // group, n, dv), q.dtype)}, dev)
+        v_ld = dv
     if q.dtype not in KV_KIND:
         raise TypeError(f"flash_prefill: dtype {q.dtype} not in "
                         f"{list(KV_KIND)}")
     if bh % group or bh % acc_group or (not model and acc_group != 1):
         raise ValueError(f"flash_prefill: BH={bh} with group={group}, "
                          f"acc_group={acc_group}")
-    if d % 16 or d > MAX_D:
-        raise ValueError(f"flash_prefill: head dim {d} must be a multiple "
-                         f"of 16 up to {MAX_D}")
+    if latent and (q.dtype != torch.bfloat16 or not model):
+        raise ValueError(f"flash_prefill: the latent route (d, dv) = "
+                         f"{LATENT} takes bf16 under the model's contract")
+    if not latent and (d % 16 or d > MAX_D or dv != d):
+        raise ValueError(f"flash_prefill: head dims (d, dv) = ({d}, {dv}): "
+                         f"d must be a multiple of 16 up to {MAX_D} with "
+                         f"dv = d, or (d, dv) = {LATENT}")
     if row0 < 0 or row0 + c > n:
         raise ValueError(f"flash_prefill: rows [{row0}, {row0 + c}) outside "
                          f"the {n}-row K/V buffer")
@@ -97,9 +132,9 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
                          "16-byte aligned")
     lib = _bind(build.load("flash_prefill"))
     build.check_smem("flash_prefill",
-                     lib.flash_prefill_smem_bytes(KV_KIND[q.dtype], d), dev,
-                     f"head dim {d}")
-    out = torch.empty((bh, c, d), dtype=torch.float32 if model else q.dtype,
+                     lib.flash_prefill_smem_bytes(KV_KIND[q.dtype], d, dv),
+                     dev, f"head dims ({d}, {dv})")
+    out = torch.empty((bh, c, dv), dtype=torch.float32 if model else q.dtype,
                       device=dev)
     part = torch.empty((bh, math.ceil(c / BLOCK_Q), n), dtype=torch.float32,
                        device=dev)
@@ -110,8 +145,9 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
         rc = lib.flash_prefill_launch(
             KV_KIND[q.dtype], int(not model), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-            acc.data_ptr(), bh, c, n, d, group, acc_group, row0, obs_window,
-            round_p, ctypes.c_float(scale), ctypes.c_float(EXACT_BELOW),
+            acc.data_ptr(), bh, c, n, d, dv, v_ld, group, acc_group, row0,
+            obs_window, round_p, ctypes.c_float(scale),
+            ctypes.c_float(EXACT_BELOW),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("flash_prefill", rc)
     LAUNCHES["flash_prefill"] += 1

@@ -14,7 +14,8 @@ import torch.nn.functional as F
 from repro_torch.device import kernel_capable
 from repro_torch.kernels import ref
 from repro_torch.kernels.approx_score import approx_score as _approx_kernel
-from repro_torch.kernels.flash_prefill import flash_prefill as _flash_kernel
+from repro_torch.kernels.flash_prefill import (
+    LATENT, flash_prefill as _flash_kernel)
 from repro_torch.kernels.fused_decode import fused_decode as _fused_kernel
 from repro_torch.kernels.gather_attention import (
     gather_attention as _gather_kernel)
@@ -118,11 +119,15 @@ def prefill_attention(q, k, v, acc=None, *, row0: int = 0, length=None,
 
     On the card q is cast to K's dtype, and q, k and v are made contiguous
     (the model's q is a transposed view of its projection): a copy where
-    they are not."""
+    they are not. MLA's latent shape (d, dv) = `LATENT` is the exception:
+    its v is a view of k's first dv columns, and the kernel reads it where
+    it lies (no copy of the latent); its plain version takes the latent
+    route's f64 softmax denominators (`den_f64`)."""
+    latent = (q.shape[-1], v.shape[-1]) == LATENT
     if not _on_card(q, "flash_prefill"):
         out, col = ref.prefill_attention_ref(
             q, k, v, row0=row0, length=length, obs_window=obs_window,
-            chunk=chunk, scale=scale)
+            chunk=chunk, scale=scale, den_f64=latent)
         if acc is None:
             return out, col
         acc += col
@@ -135,10 +140,13 @@ def prefill_attention(q, k, v, acc=None, *, row0: int = 0, length=None,
         length = torch.full((b,), n, dtype=torch.int32, device=q.device)
     lengths = torch.repeat_interleave(
         torch.clamp(length.to(torch.int32), max=n), hq)
+    dv = v.shape[-1]
+    if not latent:
+        v = v.contiguous()
     out = _flash_kernel(
         q.to(k.dtype).contiguous().reshape(b * hq, c, d),
         k.contiguous().reshape(b * hk, n, d),
-        v.contiguous().reshape(b * hk, n, v.shape[-1]), lengths,
+        v.reshape(b * hk, n, dv), lengths,
         acc.view(b * hk, n), group=hq // hk, acc_group=hq // hk,
         row0=row0, obs_window=obs_window, model=True, scale=scale)
     return out.reshape(b, hq, c, -1), acc

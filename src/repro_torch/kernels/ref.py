@@ -134,7 +134,7 @@ def flash_prefill_ref(q, k, v, group: int = 1, lengths=None):
 
 def prefill_attention_ref(q, k, v, *, row0: int = 0, length=None,
                           obs_window: int = 0, chunk: int = 512,
-                          scale=None):
+                          scale=None, den_f64: bool = False):
     """Causal prompt attention with kv-head column sums (the model's
     contract, `core/attention.py::chunked_causal_attention` and
     `prefill_chunk_attend` of the reference), one block of `chunk` query
@@ -151,7 +151,10 @@ def prefill_attention_ref(q, k, v, *, row0: int = 0, length=None,
     Logits are f32 products of the storage-dtype values (q is cast to K's
     dtype first), and the probabilities are rounded to V's dtype before
     the value product and the column sums, as the reference's bf16
-    matmuls with f32 accumulation do."""
+    matmuls with f32 accumulation do. `den_f64` sums each softmax
+    denominator in f64 and rounds it to f32 (the exact sum's rounding,
+    whatever the order): the denominator the kernel's latent route gives
+    its exact rows."""
     b, hq, c, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     g = hq // hk
@@ -178,7 +181,9 @@ def prefill_attention_ref(q, k, v, *, row0: int = 0, length=None,
                              torch.full_like(logits, NEG_INF))
         m = logits.amax(dim=-1, keepdim=True)
         e = torch.exp(logits - m)
-        probs = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        den = (e.sum(dim=-1, keepdim=True, dtype=torch.float64).float()
+               if den_f64 else e.sum(dim=-1, keepdim=True))
+        probs = e / torch.clamp(den, min=1e-30)
         p_g = probs.to(v.dtype).float()                          # [B,Hk,g,T,N]
         out_c = torch.matmul(p_g.reshape(b, hk, g * t, n), vf)
         outs.append(out_c.reshape(b, hq, t, -1))

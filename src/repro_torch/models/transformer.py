@@ -1,14 +1,18 @@
 """The model — the port of `repro/models/transformer.py` for the dense
 family (RMS norm or LayerNorm; SwiGLU, tanh-GELU or relu²; an optional qkv
-bias; the vision frontend stub) and the MoE family (routed experts in every
-block, `models/moe.py`). MLA, SSM, hybrid and enc-dec models, sinusoidal
-positions and multi-token prediction are not ported yet: `Model` refuses
-them.
+bias; the vision frontend stub), the MoE family (routed experts in every
+block, `models/moe.py`) and the mla_moe family (deepseek-v3: MLA latent
+attention, `models/mla.py`, over dense-FFN blocks then MoE blocks). SSM,
+hybrid and enc-dec models and sinusoidal positions are not ported yet:
+`Model` refuses them. A multi-token-prediction head (`mtp_depth > 0`) is
+built with the reference's tree, and nothing on the serving path reads it
+(its forward belongs to training).
 
 `Model` keeps the reference's functional surface: parameters are nested
 dicts of tensors with the reference's key names (`embed`, `final_norm`,
-`lm_head`, `frontend_adapter`, and one segment `seg0_dense` or `seg0_moe`
-stacked on a leading layer axis), and
+`lm_head`, `frontend_adapter`, `mtp`, and the segments — `seg0_dense`,
+`seg0_moe`, or `seg0_mla_dense` and `seg1_mla_moe` — stacked on a leading
+layer axis), and
 
   prefill(params, batch)           → (last-valid-position logits, state)
   prefill_one / prefill_group      → the same for one request / a padded
@@ -38,6 +42,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention_layer import (attention_decode,
                                                 attention_prefill,
                                                 attention_prefill_chunk)
+from repro_torch.models.mla import init_mla, mla_decode, mla_prefill
 from repro_torch.models.moe import apply_moe, init_moe
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -46,7 +51,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclass
 class DecodeState:
-    kv: KVCache                      # stacked [L, B, Hk, S, ·]
+    kv: KVCache                      # stacked [L, B, Hk, S, ·] (MLA: the
+    #                                  latent, Hk = 1, no V)
 
 
 @dataclass
@@ -112,18 +118,17 @@ def layer_params(params_seg, li: int):
 
 
 class Model:
-    """Model facade for the dense and MoE families (functional: params are
-    passed in)."""
+    """Model facade for the dense, MoE and mla_moe families (functional:
+    params are passed in)."""
 
     def __init__(self, cfg: ModelConfig, prune: PruneConfig, device="cuda"):
         unsupported = [name for name, bad in (
-            ("family", cfg.family not in ("dense", "moe")),
-            ("pos", cfg.pos not in ("rope", "none")),
-            ("mtp_depth", cfg.mtp_depth > 0)) if bad]
+            ("family", cfg.family not in ("dense", "moe", "mla_moe")),
+            ("pos", cfg.pos not in ("rope", "none"))) if bad]
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unsupported)} not ported yet "
-                "(the port serves the dense and MoE families)")
+                "(the port serves the dense, MoE and mla_moe families)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prune = prune
@@ -135,17 +140,25 @@ class Model:
     # -- segments -----------------------------------------------------------
 
     def _segments(self):
-        """[(kind, n_layers)] of the stack: one segment of `dense` or `moe`
-        blocks, as in the reference."""
-        return [(self.cfg.family, self.cfg.num_layers)]
+        """[(kind, n_layers)] of the stack, as in the reference: one
+        segment of `dense` or `moe` blocks, or for mla_moe the first
+        `dense_first_k` blocks as `mla_dense` and the rest as `mla_moe`."""
+        cfg = self.cfg
+        if cfg.family == "mla_moe":
+            k = cfg.moe.dense_first_k
+            return [("mla_dense", k), ("mla_moe", cfg.num_layers - k)]
+        return [(cfg.family, cfg.num_layers)]
 
     def _layers(self, params):
-        """(global layer index, that layer's parameters) over the stack."""
+        """(global layer index, block kind, that layer's parameters) over
+        the stack."""
         li = 0
         for i, (kind, n) in enumerate(self._segments()):
+            if n == 0:
+                continue
             seg = params[f"seg{i}_{kind}"]
             for j in range(n):
-                yield li, layer_params(seg, j)
+                yield li, kind, layer_params(seg, j)
                 li += 1
 
     # -- init ---------------------------------------------------------------
@@ -154,7 +167,8 @@ class Model:
         """Random weights from `seed`, made on the model's device, with the
         reference's distributions (N(0, 1/d_in) projections, N(0, 0.02²)
         embeddings, unit norms, zero biases; the MoE router in f32) and its
-        tree. The reference's JAX draws differ; use
+        tree, the `mtp` head's (`proj`, `norm`, one unstacked block)
+        included. The reference's JAX draws differ; use
         `params.from_reference` to run the same weights on both sides."""
         cfg = self.cfg
         dt = DTYPES[cfg.param_dtype]
@@ -167,48 +181,67 @@ class Model:
             "final_norm": L.norm_init(cfg.norm, d, dt, dev),
         }
         for i, (kind, n) in enumerate(self._segments()):
-            params[f"seg{i}_{kind}"] = self._init_block(gen, kind, n, dt)
+            if n:
+                params[f"seg{i}_{kind}"] = self._init_block(gen, kind, dt,
+                                                            (n,))
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, d, cfg.vocab_size, dt, dev)
         if cfg.frontend != "none":
             params["frontend_adapter"] = L.dense_init(gen, d, d, dt, dev)
+        if cfg.mtp_depth > 0:
+            params["mtp"] = {
+                "proj": L.dense_init(gen, 2 * d, d, dt, dev),
+                "norm": L.norm_init(cfg.norm, d, dt, dev),
+                "block": self._init_block(
+                    gen, "mla_dense" if cfg.mla else "dense", dt, ())}
         return params
 
-    def _init_block(self, gen: torch.Generator, kind: str, n: int, dt):
-        """`n` residual blocks of `kind` (dense | moe), stacked on a leading
-        layer axis."""
+    def _init_block(self, gen: torch.Generator, kind: str, dt, lead):
+        """Residual blocks of `kind` (dense | moe | mla_dense | mla_moe),
+        stacked on the leading axes `lead` (`()`: one block). The dense
+        blocks of a MoE config take its `d_ff_dense`."""
         cfg = self.cfg
-        dev, d, lead = self.device, cfg.d_model, (n,)
+        dev, d, lead = self.device, cfg.d_model, tuple(lead)
 
         def dense(d_in, d_out):
             return L.dense_init(gen, d_in, d_out, dt, dev, lead=lead)
 
         def zeros(width):
-            return torch.zeros((n, width), dtype=dt, device=dev)
+            return torch.zeros(lead + (width,), dtype=dt, device=dev)
 
-        attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
-                "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
-                        bv=zeros(cfg.kv_dim))
+        if kind.startswith("mla"):
+            attn = init_mla(gen, cfg, dt, dev, lead)
+        else:
+            attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+                    "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+            if cfg.qkv_bias:
+                attn.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
+                            bv=zeros(cfg.kv_dim))
         block = {"ln1": L.norm_init(cfg.norm, d, dt, dev, lead),
                  "ln2": L.norm_init(cfg.norm, d, dt, dev, lead),
                  "attn": attn}
-        if kind == "moe":
+        if kind.endswith("moe"):
             block["moe"] = init_moe(gen, cfg, dt, dev, lead)
         else:
-            block["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.act, dt, dev,
-                                      lead)
+            d_ff = cfg.d_ff if cfg.moe is None else cfg.moe.d_ff_dense
+            block["mlp"] = L.mlp_init(gen, d, d_ff or cfg.d_ff, cfg.act, dt,
+                                      dev, lead)
         return block
 
     # -- state --------------------------------------------------------------
 
     def init_decode_state(self, batch_size: int) -> DecodeState:
+        """An empty layer-stacked cache: per kv-head K/V, or for MLA the
+        latent (Hk = 1, width `latent_dim`, no V)."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            heads, width = 1, cfg.mla.latent_dim
+        else:
+            heads, width = cfg.n_kv_heads, cfg.head_dim
         return DecodeState(kv=init_cache(
-            batch_size, cfg.n_kv_heads, cfg.head_dim, self.prune.slots,
-            self.prune, self.dtype, device=self.device,
-            layers=cfg.num_layers))
+            batch_size, heads, width, self.prune.slots, self.prune,
+            self.dtype, device=self.device, layers=cfg.num_layers,
+            latent=cfg.mla is not None))
 
     # -- shared pieces ------------------------------------------------------
 
@@ -270,10 +303,12 @@ class Model:
         eff_len = None if length is None else length + n_front
         pos = torch.arange(x.shape[1], device=self.device)[None]
         state = self.init_decode_state(b)
-        for li, p in self._layers(params):
+        for li, kind, p in self._layers(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
-            a, filled = attention_prefill(p["attn"], h, cfg, pos, self.prune,
-                                          state.kv.layer(li), length=eff_len)
+            attend = mla_prefill if kind.startswith("mla") \
+                else attention_prefill
+            a, filled = attend(p["attn"], h, cfg, pos, self.prune,
+                               state.kv.layer(li), length=eff_len)
             _store_layer(state, li, filled)
             x = x + a
             x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
@@ -316,7 +351,8 @@ class Model:
 
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill covers the plain attention stacks (dense and
-        MoE); a frontend model admits its prompt whole."""
+        MoE); an MLA model and a frontend model admit their prompts whole,
+        as in the reference."""
         cfg = self.cfg
         return (cfg.family in ("dense", "moe") and cfg.mla is None
                 and cfg.frontend == "none")
@@ -368,7 +404,7 @@ class Model:
         row0 = int(row0)
         x = self._embed(params, tokens_c)
         pos = row0 + torch.arange(tokens_c.shape[1], device=self.device)[None]
-        for li, p in self._layers(params):
+        for li, _, p in self._layers(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             a, _, _, _ = attention_prefill_chunk(
                 p["attn"], h, cfg, pos, self.prune, pstate.k[li],
@@ -408,10 +444,12 @@ class Model:
         cfg = self.cfg
         token = torch.as_tensor(token, device=self.device)
         x = self._embed(params, token)
-        for li, p in self._layers(params):
+        for li, kind, p in self._layers(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
-            a = attention_decode(p["attn"], h, cfg, state.kv.layer(li),
-                                 self.prune, active)
+            attend = mla_decode if kind.startswith("mla") \
+                else attention_decode
+            a = attend(p["attn"], h, cfg, state.kv.layer(li), self.prune,
+                       active)
             x = x + a
             x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         return self._logits(params, x), state

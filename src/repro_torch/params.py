@@ -2,13 +2,16 @@
 `Model.init` into the port's parameters.
 
 The tree comes as nested dicts (and lists) of numpy arrays
-(`jax.tree.map(np.asarray, params)`) for any model the port builds, dense
-or MoE. The key names stay (`embed`, `final_norm`, `lm_head`,
-`frontend_adapter`, and `seg0_dense` or `seg0_moe` stacked on the layer
-axis with `ln1`, `attn.{wq,wk,wv,wo}` and the optional `attn.{bq,bk,bv}`,
-`ln2`, and `mlp.{wi,wg,wo}` or `moe.{router,wi,wg,wo,shared}`), and so does
-the layout: the reference's projections are [d_in, d_out] and the port
-applies them as `x @ W` too.
+(`jax.tree.map(np.asarray, params)`) for any model the port builds, dense,
+MoE or mla_moe. The key names stay (`embed`, `final_norm`, `lm_head`,
+`frontend_adapter`, and the segments `seg0_dense`, `seg0_moe`, or
+`seg0_mla_dense` and `seg1_mla_moe`, stacked on the layer axis with `ln1`,
+`attn.{wq,wk,wv,wo}` and the optional `attn.{bq,bk,bv}` — MLA's
+`attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}` —, `ln2`, and
+`mlp.{wi,wg,wo}` or `moe.{router,wi,wg,wo,shared}`; deepseek's `mtp` head
+with `proj`, `norm` and one unstacked `block`), and so does the layout: the
+reference's projections are [d_in, d_out] and the port applies them as
+`x @ W` too.
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@
   `repro.models.layers` on seeded inputs with non-trivial weights and
   biases;
 - the port builds every registered config of the reference except the
-  families it does not serve yet, with the reference's parameter tree
-  (key names, shapes, dtypes: the MoE router in f32 under bf16 weights),
-  and `params.from_reference` keeps that tree;
+  families it does not serve yet (SSM, hybrid, enc-dec; deepseek-v3's
+  mla_moe is built), with the reference's parameter tree (key names,
+  shapes, dtypes: the MoE router in f32 under bf16 weights), and
+  `params.from_reference` keeps that tree;
 - G = 12 query rows per kv-head (reduced starcoder2-3b with 12 heads over
   one kv-head): teacher-forced decode logits to 1e-4 and greedy tokens
   exactly, fused and composed, bf16 and int8 KV;
@@ -46,7 +47,7 @@ jax.config.update("jax_platform_name", "cpu")
 UNICAIM = dict(heavy=24, reserve=8, select_k=8, sink_tokens=2,
                recent_window=8)
 # the reference's registered configs the port does not build yet
-UNPORTED = {"deepseek-v3-671b", "mamba2-1.3b", "zamba2-7b", "whisper-base"}
+UNPORTED = {"mamba2-1.3b", "zamba2-7b", "whisper-base"}
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +119,7 @@ def test_port_builds_every_config_but_the_unported_families():
     assert refused == UNPORTED
     assert {"phi3-medium-14b", "starcoder2-3b", "minitron-8b",
             "llava-next-mistral-7b", "grok-1-314b", "longchat-7b",
-            "granite-3-2b"} <= built
+            "granite-3-2b", "deepseek-v3-671b"} <= built
     assert built <= set(a for a in tbase.list_archs() if a[0] != "_")
 
 

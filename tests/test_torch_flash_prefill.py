@@ -23,9 +23,14 @@
   below `EXACT_BELOW` kept at the plain logits, logit noise in all other
   rows leaves out within 1e-3, and those rows' probabilities are small
   enough that a bf16 flip moves out by 2^-13 |v| at most;
+- the latent route's algorithm (dv != d, V a view of K's first dv
+  columns, all q-heads over one latent) through the bf16 route's
+  emulation, held to the plain version and chunked equal to whole; the
+  plain version's `den_f64` denominators;
 - on a card only, the kernel against its plain version, both contracts
-  and both routes, chunked against whole prompt bit for bit, and the
-  exact rows changing no other row.
+  and all three routes (the latent one at MLA's d = 576, dv = 512, 128
+  q-heads), chunked against whole prompt bit for bit, the exact rows
+  changing no other row, and the latent route's refusals.
 """
 import math
 
@@ -209,16 +214,16 @@ def _emulate(q, k, v, lengths, acc, *, group, acc_group, row0, obs_window,
     normalised p of each tile, whose column sums and value product come
     from `tile_step(p, counts [BH,BQ], v_tile) -> (cs [BH,BK], out
     increment [BH,BQ,d])`; then the fold of the per-block partials into
-    acc (+= in place) in q-block, then head order. q [BH,C,d], k/v
-    [BH/group,N,d], lengths [BH] → out [BH,C,d] f32."""
+    acc (+= in place) in q-block, then head order. q [BH,C,d], k
+    [BH/group,N,d], v [BH/group,N,dv], lengths [BH] → out [BH,C,dv] f32."""
     bh, c, d = q.shape
-    n = k.shape[1]
+    n, dv = k.shape[1], v.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     nqb = math.ceil(c / BQ)
     kx = k.float()[torch.arange(bh) // group]
     vx = v.float()[torch.arange(bh) // group]
     part = torch.zeros((bh, nqb, n))
-    out = torch.zeros((bh, c, d))
+    out = torch.zeros((bh, c, dv))
     lengths = lengths.long()
     for qb in range(nqb):
         r_lo = qb * BQ
@@ -235,7 +240,7 @@ def _emulate(q, k, v, lengths, acc, *, group, acc_group, row0, obs_window,
         def tile(kt):
             col = kt * BK + torch.arange(BK)
             nv = min(BK, n - kt * BK)
-            kt_, vt_ = torch.zeros((bh, BK, d)), torch.zeros((bh, BK, d))
+            kt_, vt_ = torch.zeros((bh, BK, d)), torch.zeros((bh, BK, dv))
             kt_[:, :nv] = kx[:, kt * BK:kt * BK + nv]
             vt_[:, :nv] = vx[:, kt * BK:kt * BK + nv]
             s = torch.matmul(qt, kt_.transpose(1, 2)) * scale
@@ -251,7 +256,7 @@ def _emulate(q, k, v, lengths, acc, *, group, acc_group, row0, obs_window,
                 s - m_new[..., None]).sum(-1)
             m = m_new
         den = torch.clamp(l_, min=1e-30)
-        o = torch.zeros((bh, BQ, d))
+        o = torch.zeros((bh, BQ, dv))
         for kt in range(ntiles):                       # sweep 2
             s, vt_, nv = tile(kt)
             p = torch.exp(s - m[..., None]) / den[..., None]
@@ -567,6 +572,55 @@ def test_rows_past_exact_below_keep_probabilities_small(scale):
 
 
 # ---------------------------------------------------------------------------
+def test_f64_denominators_are_the_exact_sums_rounding():
+    """`den_f64` divides by the f32 rounding of each softmax denominator's
+    f64 sum: out equals an f64 computation's to f32 precision and the f32
+    sums' to within their order's rounding."""
+    q, k, v = _model_inputs(2, 4, 1, 300, 32, 17)
+    ln = torch.as_tensor([300, 171], dtype=torch.int32)
+    out, acc = ref.prefill_attention_ref(q, k, v, length=ln, den_f64=True)
+    out32, acc32 = ref.prefill_attention_ref(q, k, v, length=ln)
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(32)
+    causal = torch.ones((300, 300), dtype=torch.bool).tril()
+    p = torch.softmax(s.masked_fill(~causal, -torch.inf), dim=-1)
+    torch.testing.assert_close(out.double(), p @ v.double(), rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(out, out32, rtol=0, atol=1e-6)
+    torch.testing.assert_close(acc, acc32, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_tc_emulation_at_a_latent_shape(c):
+    """The latent route's algorithm is the bf16 route's with dv != d: 16
+    q-heads over one latent (d = 40), V a view of its first 32 columns,
+    scale 1/sqrt(24). Held to the plain version at the card's tolerances,
+    and chunks of `c` rows equal the whole prompt bit for bit (the latent
+    kernel's slice-0 CTAs write the partials the fold adds)."""
+    b, hq, n, d, dv = 2, 16, 200, 40, 32
+    scale = 1.0 / math.sqrt(24)
+    q, u, _ = _model_inputs(b, hq, 1, n, d, 21, torch.bfloat16)
+    v = u[..., :dv]
+    ln = torch.as_tensor([n, 131], dtype=torch.int32)
+    lens = ln.repeat_interleave(hq)
+    qf, uf, vf = q.reshape(b * hq, n, d), u.reshape(b, n, d), \
+        v.reshape(b, n, dv)
+    acc = torch.zeros((b, n))
+    out = emulate_tc_kernel(qf, uf, vf, lens, acc, group=hq, acc_group=hq,
+                            scale=scale)
+    want, want_acc = ref.prefill_attention_ref(q, u, v, length=ln,
+                                               scale=scale, chunk=64)
+    torch.testing.assert_close(out.reshape(b, hq, n, dv), want, rtol=0,
+                               atol=TC_OUT_ATOL)
+    torch.testing.assert_close(acc.reshape(b, 1, n), want_acc,
+                               rtol=TC_MODEL_ACC_RTOL, atol=0)
+    acc_c = torch.zeros_like(acc)
+    outs = [emulate_tc_kernel(qf[:, r0:r0 + c].contiguous(), uf, vf, lens,
+                              acc_c, group=hq, acc_group=hq, row0=r0,
+                              scale=scale) for r0 in range(0, n, c)]
+    assert torch.equal(acc_c, acc)
+    assert torch.equal(torch.cat(outs, dim=1), out)
+
+
 # on a card: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -721,3 +775,90 @@ def test_exact_rows_change_only_their_rows_on_card():
     far = l_ > below * 1.01
     assert far.any() and (l_ < below * 0.99).any()
     assert torch.equal(out[far], out_tc[far])
+
+
+# MLA's absorbed prompt pass: 128 q-heads over one latent of d = 576, V its
+# first 512 columns (a view of the latent), scale 1/sqrt(qk_nope + qk_rope)
+LATENT_D, LATENT_DV = flash_mod.LATENT
+LATENT_SCALE = 1.0 / math.sqrt(192)
+
+
+def _latent_inputs(b, hq, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, hq, n, LATENT_D), generator=gen, device="cuda")
+    u = torch.randn((b, 1, n, LATENT_D), generator=gen, device="cuda")
+    u = u.to(torch.bfloat16)
+    return q.to(torch.bfloat16), u, u[..., :LATENT_DV]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("obs", [0, 32])
+def test_latent_route_matches_plain_version_on_card(obs):
+    """The latent route against the plain version with its f64 softmax
+    denominators: ragged lengths and a ragged N, out within 1e-3 of
+    max|v|, the column sums within the bf16-flip tolerance, no mass past a
+    length, one launch, and v read as the latent's view (no copy of
+    it)."""
+    _needs_card()
+    b, hq, n = 2, 128, 700
+    q, u, v = _latent_inputs(b, hq, n, obs + 1)
+    assert not v.is_contiguous()
+    ln = torch.as_tensor([n, 431], dtype=torch.int32, device="cuda")
+    before = flash_mod.LAUNCHES["flash_prefill"]
+    out, acc = ops.prefill_attention(q, u, v, length=ln, obs_window=obs,
+                                     scale=LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert flash_mod.LAUNCHES["flash_prefill"] == before + 1
+    want, want_acc = ref.prefill_attention_ref(q, u, v, length=ln,
+                                               obs_window=obs,
+                                               scale=LATENT_SCALE,
+                                               den_f64=True)
+    assert out.shape == (b, hq, n, LATENT_DV) and acc.shape == (b, 1, n)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=TC_OUT_ATOL * float(v.abs().max()))
+    torch.testing.assert_close(acc, want_acc, rtol=TC_MODEL_ACC_RTOL, atol=0)
+    for bi in range(b):
+        assert not acc[bi, :, int(ln[bi]):].any()
+
+
+@pytest.mark.gpu
+def test_latent_route_chunked_equals_whole_on_card():
+    """Chunks of 256 rows into one acc give the whole prompt's column sums
+    and outputs bit for bit on the latent route too."""
+    _needs_card()
+    b, hq, n, c = 1, 128, 768, 256
+    q, u, v = _latent_inputs(b, hq, n, 5)
+    ln = torch.as_tensor([n - 9], dtype=torch.int32, device="cuda")
+    acc_w = torch.zeros((b, 1, n), device="cuda")
+    out_w, _ = ops.prefill_attention(q, u, v, acc_w, length=ln,
+                                     scale=LATENT_SCALE)
+    acc_c = torch.zeros_like(acc_w)
+    outs = [ops.prefill_attention(q[:, :, r0:r0 + c], u, v, acc_c, row0=r0,
+                                  length=ln, scale=LATENT_SCALE)[0]
+            for r0 in range(0, n, c)]
+    torch.cuda.synchronize()
+    assert torch.equal(acc_c, acc_w)
+    assert torch.equal(torch.cat(outs, dim=2), out_w)
+
+
+@pytest.mark.gpu
+def test_latent_route_refuses_what_it_does_not_take_on_card():
+    _needs_card()
+    q, u, v = _latent_inputs(1, 4, 64, 2)
+    qf, kf = q.reshape(4, 64, LATENT_D), u.reshape(1, 64, LATENT_D)
+    vf = v.reshape(1, 64, LATENT_DV)
+    lens = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+    acc = torch.zeros((1, 64), device="cuda")
+    with pytest.raises(ValueError, match="model's contract"):
+        flash_mod.flash_prefill(qf, kf, vf, lens, torch.zeros((4, 64),
+                                                              device="cuda"),
+                                group=4, acc_group=1, model=False)
+    with pytest.raises(ValueError, match="latent route"):
+        flash_mod.flash_prefill(qf.float(), kf.float(),
+                                kf.float()[..., :LATENT_DV], lens, acc,
+                                group=4, acc_group=4)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_mod.flash_prefill(qf[..., :128].contiguous(),
+                                kf[..., :128].contiguous(),
+                                kf[..., :64].contiguous(), lens, acc,
+                                group=4, acc_group=4)

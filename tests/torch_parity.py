@@ -30,16 +30,20 @@ def prune_pair(policy: str = "unicaim", **kw):
             getattr(baselines, policy)(**kw))
 
 
-# leaves the reference initialises to zeros (LayerNorm's `b`, the qkv bias
-# `bq`/`bk`/`bv`): a port that never added them would match on those
-# weights, so `model_pair` overwrites them with seeded noise of this scale
+# leaves the reference initialises to constants: zeros (LayerNorm's `b`,
+# the qkv bias `bq`/`bk`/`bv`) and ones (MLA's `q_norm`/`kv_norm`). A port
+# that never added a bias, or skipped an RMS norm's weight, would match on
+# those weights, so `model_pair` replaces them with seeded noise of this
+# scale around their constant
 ZERO_INIT_LEAVES = ("b", "bq", "bk", "bv")
+ONE_INIT_LEAVES = ("q_norm", "kv_norm")
 BIAS_NOISE = 0.1
 
 
-def noisy_zero_leaves(tree, seed: int):
+def noisy_const_leaves(tree, seed: int):
     """The numpy tree with every zero-initialised leaf replaced by seeded
-    N(0, BIAS_NOISE²) noise of its shape and dtype (in tree order)."""
+    N(0, BIAS_NOISE²) noise of its shape and dtype, and every
+    one-initialised leaf by 1 + that noise (in tree order)."""
     rng = np.random.default_rng(seed)
 
     def walk(t, key=""):
@@ -47,9 +51,11 @@ def noisy_zero_leaves(tree, seed: int):
             return {k: walk(v, k) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return [walk(v, key) for v in t]
-        if key not in ZERO_INIT_LEAVES:
+        if key not in ZERO_INIT_LEAVES + ONE_INIT_LEAVES:
             return t
         noise = rng.standard_normal(np.shape(t)) * BIAS_NOISE
+        if key in ONE_INIT_LEAVES:
+            noise = noise + 1.0
         return noise.astype(np.asarray(t).dtype)
 
     return walk(tree)
@@ -60,7 +66,7 @@ def model_pair(arch: str, policy: str = "unicaim", seed: int = 0,
     """(jax model, jax params, port model, port params) for the reduced
     `arch` (f32; `cfg_kw` overrides config fields on both sides, `moe_kw`
     fields of their MoEConfig): the reference's weights with
-    `noisy_zero_leaves` on both sides (a no-op for an arch without such
+    `noisy_const_leaves` on both sides (a no-op for an arch without such
     leaves), the port's converted from them."""
     jprune, tprune = prune_pair(policy, **kw)
     cfg_kw = cfg_kw or {}
@@ -72,7 +78,7 @@ def model_pair(arch: str, policy: str = "unicaim", seed: int = 0,
         return c
 
     jm = JaxModel(cfg(jax_reduced(jax_get_config(arch), **cfg_kw)), jprune)
-    tree = noisy_zero_leaves(
+    tree = noisy_const_leaves(
         jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed))), seed)
     jp = jax.tree.map(jnp.asarray, tree)
     tm = Model(cfg(reduced(get_config(arch), **cfg_kw)), tprune,
