@@ -12,10 +12,12 @@ Phases, in order (no failure is caught: any one exits non-zero):
                (spills) of the prompt kernel's routes and the HMMA
                (tensor-core) instructions in their SASS (cuobjdump);
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at longchat-7b, granite-like (GQA), starcoder2-3b (G = 12)
-               and grok-1-314b (G = 6, ragged_decode) decode shapes, bf16
-               and int8 K/V (the decode kernels' G = 12 times with L2 cold
-               beside the served shape's), flash_prefill with group 12,
+               at longchat-7b, granite-like (GQA), starcoder2-3b (G = 12),
+               grok-1-314b (G = 6, ragged_decode) and zamba2-7b (d = 112)
+               decode shapes, bf16 and int8 K/V (the decode kernels' G = 12
+               and d = 112 times with L2 cold beside the served shape's),
+               flash_prefill with group 12 and at d = 112 (timed at
+               zamba2-7b's 4 x 2048 prompt shape),
                and flash_prefill at the served prompt shape
                (4 x 2048, both contracts, lengths, obs_window, a row0
                chunk, chunked-vs-whole column sums bit for bit; bf16 on
@@ -137,6 +139,33 @@ Phases, in order (no failure is caught: any one exits non-zero):
                agreement is printed). Printed: wall, tok/s, TTFT, the
                MoE's drops, a decode step's wall, a profiled 4 x 2048
                prompt pass, peak memory.
+ 11. ssm     — Mamba2 SSD blocks at full width and depth, random bf16
+               weights from the seed, after phase 10's model is freed:
+               mamba2-1.3b (48 blocks, no KV cache) serves phase 4's 8
+               requests on 4 lanes (exact-length whole prompts) under the
+               dense policy twice: equal greedy streams, no kernel launch
+               and no plain prompt attention on the card; a 4 x 2048
+               prompt pass and the decode of token 2048 against the prompt
+               pass over 2049 tokens (logits within CONT_ATOL, the same
+               top-1). Then zamba2-7b (81 SSD blocks and 13 applications
+               of one shared attention block, 32 heads of d = 112) under
+               unicaim(heavy=1024, reserve=64, select_k=128), bf16 and int8
+               KV, select_blocks 1 and 4: 13 ragged_decode / fused_decode
+               launches a decode step, 13 flash_prefill launches a prompt
+               pass, nothing else; the prompt pass through flash_prefill
+               and through its plain version keep the same positions in
+               each of the 13 caches (at least 99%, bf16 and int8); their
+               teacher-forced top-1 agreement over 16 steps is printed
+               under unicaim and under the dense policy, there beside its
+               noise floor (two plain versions apart only in the softmax
+               denominators' rounding, which at this depth agree on fewer
+               than 55 of 64 themselves), and so is the decode kernel's
+               against the composed path. For
+               each model: a decode step and a 4 x 2048 prompt pass
+               profiled (the SSD blocks' share by CUDA events,
+               flash_prefill's by the profiler), the prefix cache's
+               exact-hit splice of a repeated prompt (its wall and bytes,
+               SSM state apart), peak memory.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -146,6 +175,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -182,8 +212,9 @@ from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
-from repro_torch.models.transformer import (DecodeState,  # noqa: E402
-                                            Model, layer_params)
+from repro_torch.launch.prefix_cache import _tree_nbytes  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
+from repro_torch.models.transformer import Model, layer_params  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, flood  # noqa: E402
 from repro_torch.surgery import (state_lane_insert,  # noqa: E402
                                  state_lane_slice)
@@ -317,9 +348,10 @@ def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 # the served instantiations: head dim 128, bf16-rounded (model contract)
-# and f32 (TPU contract) probabilities
+# and f32 (TPU contract) probabilities; zamba2-7b's shared block at 112
 SERVED_TC = ("flash_prefill_tc_kernel<128, true>",
-             "flash_prefill_tc_kernel<128, false>")
+             "flash_prefill_tc_kernel<128, false>",
+             "flash_prefill_tc_kernel<112, true>")
 
 
 LATENT_TC = "flash_prefill_latent_kernel<576, 512>"
@@ -575,6 +607,8 @@ def phase_ragged():
         # starcoder2-3b's and grok-1-314b's served decode shapes
         ("starcoder2 G=12", 4 * 2, 12, 128, 1088, 128),
         ("grok G=6", 4 * 8, 6, 128, 1088, 128),
+        # zamba2-7b's shared attention block, served
+        ("zamba2 d=112 S=1088", 4 * 32, 1, 112, 1088, 128),
     ]
     worst = 0.0
     for (ci, (name, bh, g, d, s, k)), kv, make in itertools.product(
@@ -626,6 +660,10 @@ def phase_ragged():
         ragged_mod.ragged_decode(fl, *a, select_k=128)),
         lambda fl, *a: ref.fused_decode_ref(*a, select_k=128),
         lambda fl, a: ragged_bound(fl, a, 128))
+    timings["d112"] = d112_times("ragged_decode", lambda fl, *a: (
+        ragged_mod.ragged_decode(fl, *a, select_k=128)),
+        lambda fl, *a: ref.fused_decode_ref(*a, select_k=128),
+        lambda fl, a: ragged_bound(fl, a, 128))
     return worst, timings
 
 
@@ -639,13 +677,30 @@ def g12_times(name, call, plain, bound_of):
     and int8 K/V: with L2 cold (enough input sets in turn to hold twice the
     L2, as many as the 8 rows' ~5 MB sets need), with its inputs in L2,
     its plain version, and the bound on the first set."""
+    return shape_times(name, "starcoder2-3b", 8, 12, 128, G12_FILLS, 40,
+                       call, plain, bound_of)
+
+
+def d112_times(name, call, plain, bound_of):
+    """The same at zamba2-7b's served decode shape: 4 lanes x 32 heads of
+    d = 112, G = 1, S = 1088, the served fills."""
+    return shape_times(name, "zamba2-7b", 128, 1, 112, MAIN_FILLS, 60, call,
+                       plain, bound_of)
+
+
+def shape_times(name, model, bh, g, d, fills, seed, call, plain, bound_of):
+    """Card times of a decode kernel at one served shape (BH rows of G
+    query rows, head dim d, S = 1088, k = 128), bf16 and int8 K/V: with L2
+    cold (at least COLD_SETS input sets in turn, enough to hold twice the
+    L2), with its inputs in L2, its plain version, and the bound on the
+    first set."""
     out = {}
     for kv in (torch.bfloat16, torch.int8):
-        first = kernel_inputs(8, 12, 128, 1088, G12_FILLS, kv, seed=40)
+        first = kernel_inputs(bh, g, d, 1088, fills, kv, seed=seed)
         nbytes = sum(a.numel() * a.element_size() for a in first[1])
         n_sets = max(COLD_SETS, math.ceil(2 * L2_BYTES / nbytes))
-        sets = [first] + [kernel_inputs(8, 12, 128, 1088, G12_FILLS, kv,
-                                        seed=40 + i)
+        sets = [first] + [kernel_inputs(bh, g, d, 1088, fills, kv,
+                                        seed=seed + i)
                           for i in range(1, n_sets)]
         fills, args = first
         warm = cuda_ms(lambda: call(fills, *args))
@@ -655,7 +710,7 @@ def g12_times(name, call, plain, bound_of):
         key = str(kv)[6:]
         out[key] = {"ms": cold, "ms_l2_warm": warm, "plain_ms": plain_ms,
                     "bound_ms": t, "bound_by": by}
-        print(f"  time starcoder2-3b shape (BH=8 G=12 d=128 S=1088 k=128 "
+        print(f"  time {model} shape (BH={bh} G={g} d={d} S=1088 k=128 "
               f"{key}) {name}: kernel {cold:.4f} ms with L2 cold ({n_sets} "
               f"input sets in turn; {warm:.4f} ms with its inputs in L2), "
               f"plain {plain_ms:.4f} ms, bound {t:.4f} ms ({by}: {nb} B)")
@@ -690,6 +745,7 @@ def phase_fused():
         ("granite-like GQA S=1088", 4 * 8, 4, 64, 1088, 128),
         ("granite-like GQA S=8256", 8, 4, 64, 8256, 128),
         ("starcoder2 G=12 S=1088", 4 * 2, 12, 128, 1088, 128),
+        ("zamba2 d=112 S=1088", 4 * 32, 1, 112, 1088, 128),
     ]
     worst = 0.0
     for (ci, (name, bh, g, d, s, k)), kv, make in itertools.product(
@@ -751,6 +807,10 @@ def phase_fused():
               "3.35 TB/s); library call: none (no single PyTorch call "
               "scores, races and attends)")
     timings["g12"] = g12_times("fused_decode nb=4", lambda fl, *a: (
+        fused_mod.fused_decode(*a, select_k=128, num_blocks=4)),
+        lambda fl, *a: ref.fused_decode_ref(*a, select_k=128, num_blocks=4),
+        lambda fl, a: fused_bound(a, 128, 4))
+    timings["d112"] = d112_times("fused_decode nb=4", lambda fl, *a: (
         fused_mod.fused_decode(*a, select_k=128, num_blocks=4)),
         lambda fl, *a: ref.fused_decode_ref(*a, select_k=128, num_blocks=4),
         lambda fl, a: fused_bound(a, 128, 4))
@@ -1181,6 +1241,32 @@ def latent_times():
     return {"served_B4": rows[LANES], "check_B2": rows[2]}
 
 
+def d112_flash_times():
+    """The tensor-core route at zamba2-7b's prompt shape (B = 4, 32 heads of
+    d = 112, N = 2048, the served lengths, model contract): kernel pair,
+    plain version, bound and F.scaled_dot_product_attention (is_causal,
+    out only) on the same inputs."""
+    q, k, v = prompt_inputs(4, 32, 32, 2048, 112, torch.bfloat16, 12)
+    ln = torch.as_tensor(LENS, dtype=torch.int32, device="cuda")
+    qf, kf, vf = (x.reshape(128, 2048, 112) for x in (q, k, v))
+    lens = torch.repeat_interleave(ln, 32)
+    acc = torch.zeros((128, 2048), device="cuda")
+    ms = cuda_ms(lambda: flash_mod.flash_prefill(qf, kf, vf, lens, acc,
+                                                 group=1, acc_group=1))
+    plain = cuda_ms(lambda: ref.prefill_attention_ref(q, k, v, length=ln))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+    t, by, flops, nbytes = flash_bound(LENS, 32, 112, 2)
+    print(f"  time zamba2-7b shape (B=4 Hq=Hk=32 N=2048 d=112 bf16, lengths "
+          f"{list(LENS)}, model contract, tensor cores): kernel pair "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: "
+          f"{flops:.4g} flop, {nbytes} B), kernel / bound {ms / t:.1f}x; "
+          f"F.scaled_dot_product_attention(is_causal=True), out only: "
+          f"{lib:.4f} ms")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": t, "bound_by": by,
+            "library_ms": lib}
+
+
 def phase_flash():
     check_division()
     out_err, acc_rel = 0.0, 0.0
@@ -1193,6 +1279,8 @@ def phase_flash():
               torch.bfloat16, gqa, 0), {}),
             (("starcoder2 group 12", 4, 24, 2, 2048, 128, torch.bfloat16,
               served, 0), {}),
+            (("zamba2 d=112", 4, 32, 32, 2048, 112, torch.bfloat16, served,
+              0), {}),
             (("f32 GQA", 2, 8, 2, 1000, 128, torch.float32, [1000, 600], 16),
              {}),
             (("served chunk", 4, 32, 32, 2048, 128, torch.bfloat16, served),
@@ -1285,6 +1373,7 @@ def phase_flash():
           f"{ms32 / t32:.1f}x; F.scaled_dot_product_attention(is_causal="
           f"True) in f32, out only: {lib32:.4f} ms")
     del q32, k32, v32, qf32, kf32, vf32
+    d112 = d112_flash_times()
     latent = latent_times()
     latent.update(max_abs_err=latent_out, acc_max_rel_err=latent_acc,
                   out_atol=f"{FLASH_OUT_ATOL} x max|v|",
@@ -1302,7 +1391,7 @@ def phase_flash():
                                "f32_route_plain_ms": plain32,
                                "f32_route_bound_ms": t32,
                                "f32_route_library_ms": lib32,
-                               "latent": latent}}
+                               "d112": d112, "latent": latent}}
 
 
 # ---------------------------------------------------------------------------
@@ -1333,19 +1422,25 @@ def watch_plain_prompt_attention():
 
 
 def phase_serve(cfg, params, kv, smi, blocks, chunk=0, n=2 * LANES,
-                new=NEW_TOKENS):
+                new=NEW_TOKENS, prune=None):
     """Serve the `n` requests (8 by default); every decode step must run
-    one kernel per layer: ragged_decode with global selection, fused_decode
-    with `blocks` > 1, and no other decode kernel; every prompt pass (a
-    whole bucket, or one chunk with `chunk` > 0) one flash_prefill per
-    layer, and no plain prompt attention on the card. Returns (decode
+    one kernel per cache layer (`attn_layer_count()`: a block, or an
+    application of the hybrid's shared block): ragged_decode with global
+    selection, fused_decode with `blocks` > 1, and no other decode kernel;
+    every prompt pass (a whole bucket or exact-length prompt, or one chunk
+    with `chunk` > 0) one flash_prefill per cache layer, and no plain prompt
+    attention on the card. A model with no cache (mamba2) launches no
+    kernel. `prune` replaces the served unicaim pruning. Returns (decode
     kernel, its launches, flash_prefill launches, model, handles, the
     loop's aggregate)."""
-    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
-                              select_k=PROMPT_LEN // 16, select_blocks=blocks,
-                              fused=True, kv_dtype=kv)
+    if prune is None:
+        prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
+                                  select_k=PROMPT_LEN // 16,
+                                  select_blocks=blocks, fused=True,
+                                  kv_dtype=kv)
     kernel = "fused_decode" if blocks > 1 else "ragged_decode"
     model = Model(cfg, prune, device="cuda")
+    layers = model.attn_layer_count()
     loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS, block=8,
                      chunk_prefill=chunk, device="cuda")
     prompts = served_prompts(cfg.vocab_size, n, new)
@@ -1372,21 +1467,22 @@ def phase_serve(cfg, params, kv, smi, blocks, chunk=0, n=2 * LANES,
               f"new={len(s.tokens)} latency={s.latency:.3f}s "
               f"ttft={s.ttft:.3f}s")
     agg = loop.aggregate()
-    print(f"  serve {cfg.name} kv={kv} fused select_blocks={blocks} "
-          f"chunk_prefill={chunk}: {len(stats)} requests on {LANES} lanes, "
-          f"{toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, p50 TTFT "
-          f"{agg['p50_ttft_s']:.3f}s; {steps} decode steps, "
-          f"{c['prefill_dispatches']} prefills, {c['chunk_dispatches']} "
-          f"chunk dispatches, {c['grouped_requests']} requests "
-          f"group-admitted; {kernel} launches {launches} = {cfg.num_layers} "
-          f"x {steps}: {launches == cfg.num_layers * steps}; flash_prefill "
-          f"launches {flash} = {cfg.num_layers} x {prompt_passes}: "
-          f"{flash == cfg.num_layers * prompt_passes}; plain prompt attention "
-          f"on the card {PLAIN_ON_CARD}; other kernels {counts}  [{smi}]")
+    print(f"  serve {cfg.name} policy={prune.policy} kv={kv} fused "
+          f"select_blocks={blocks} chunk_prefill={chunk}: {len(stats)} "
+          f"requests on {LANES} lanes, {toks} tokens in {wall:.3f}s = "
+          f"{toks / wall:.1f} tok/s, p50 TTFT {agg['p50_ttft_s']:.3f}s; "
+          f"{steps} decode steps, {c['prefill_dispatches']} prefills, "
+          f"{c['chunk_dispatches']} chunk dispatches, "
+          f"{c['grouped_requests']} requests group-admitted; {kernel} "
+          f"launches {launches} = {layers} x {steps}: "
+          f"{launches == layers * steps}; flash_prefill launches {flash} = "
+          f"{layers} x {prompt_passes}: {flash == layers * prompt_passes}; "
+          f"plain prompt attention on the card {PLAIN_ON_CARD}; other "
+          f"kernels {counts}  [{smi}]")
     assert all(h.done and len(h.tokens) == m for h, m in handles)
     assert c["nonfinite_lanes"] == 0
-    assert launches == cfg.num_layers * steps and launches > 0
-    assert flash == cfg.num_layers * prompt_passes and flash > 0
+    assert launches == layers * steps and (launches > 0) == (layers > 0)
+    assert flash == layers * prompt_passes and (flash > 0) == (layers > 0)
     assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
     assert not any(counts.values()), counts
     if chunk:
@@ -1395,25 +1491,30 @@ def phase_serve(cfg, params, kv, smi, blocks, chunk=0, n=2 * LANES,
     return kernel, launches, flash, model, [h for h, _ in handles], agg
 
 
-def phase_teacher(cfg, params, model, steps=16):
-    """Where two greedy streams part: from one prefilled state the decode
-    kernel's path and the composed plain path take the same tokens (the
-    kernel path's greedy choices) for `steps` steps. Printed: the largest
-    logit difference, how often the top-1 agrees (at least
-    TEACHER_AGREE_MIN), and where it does not, the composed path's own gap
-    between its top two logits (a near-tie that the two paths' summation
-    orders may settle either way)."""
+def served_batch(cfg):
+    """The 4 served prompts padded to the 2048 bucket, with their lengths."""
     prompts = served_prompts(cfg.vocab_size)[:LANES]
     padded = np.zeros((LANES, PROMPT_LEN), np.int64)
     for i, (p, _) in enumerate(prompts):
         padded[i, :len(p)] = p
-    logits, st = model.prefill(params, {
-        "tokens": torch.as_tensor(padded, device="cuda"),
-        "length": torch.as_tensor([len(p) for p, _ in prompts],
-                                  device="cuda")})
+    return {"tokens": torch.as_tensor(padded, device="cuda"),
+            "length": torch.as_tensor([len(p) for p, _ in prompts],
+                                      device="cuda")}
+
+
+def phase_teacher(cfg, params, model, steps=16, batch=None, hold=True):
+    """Where two greedy streams part: from one prefilled state (of `batch`,
+    by default the 4 served prompts) the decode kernel's path and the
+    composed plain path take the same tokens (the kernel path's greedy
+    choices) for `steps` steps. Printed: the largest logit difference, how
+    often the top-1 agrees (held to TEACHER_AGREE_MIN when `hold`), and
+    where it does not, the composed path's own gap between its top two
+    logits (a near-tie that the two paths' summation orders may settle
+    either way). Returns the agreement."""
+    logits, st = model.prefill(params, batch or served_batch(cfg))
     composed = Model(cfg, dataclasses.replace(model.prune, fused=False),
                      device="cuda")
-    st_c = DecodeState(kv=st.kv.clone())
+    st_c = st.clone()
     tok = torch.argmax(logits, -1)
     worst, agree, gaps = 0.0, 0, []
     for _ in range(steps):
@@ -1426,13 +1527,16 @@ def phase_teacher(cfg, params, model, steps=16):
         gaps += [round(float(x), 4) for x in (top2[:, 0] - top2[:, 1])[
             ak != ac]]
         tok = ak
-    print(f"  teacher-forced kv={model.prune.kv_dtype} select_blocks="
-          f"{model.prune.select_blocks}: {steps} steps x {LANES} lanes, the "
-          f"same tokens into both paths: logits max|d| {worst:.3g}, top-1 "
-          f"equal in {agree} of {steps * LANES}; the composed path's top-2 "
-          f"gap where they differ: {sorted(gaps)}")
+    print(f"  teacher-forced {cfg.name} kv={model.prune.kv_dtype} "
+          f"select_blocks={model.prune.select_blocks}, decode kernel vs "
+          f"composed path: {steps} steps x {LANES} lanes, the same tokens "
+          f"into both paths: logits max|d| {worst:.3g}, top-1 equal in "
+          f"{agree} of {steps * LANES}"
+          f"{'' if hold else ' (printed, not held)'}; the composed path's "
+          f"top-2 gap where they differ: {sorted(gaps)}")
     assert math.isfinite(worst)
-    assert agree >= TEACHER_AGREE_MIN, (agree, TEACHER_AGREE_MIN)
+    assert agree >= TEACHER_AGREE_MIN or not hold, (agree, TEACHER_AGREE_MIN)
+    return agree
 
 
 def phase_chunked(cfg, params, model, whole, chunked, chunk):
@@ -1979,7 +2083,10 @@ QUARANTINE = ChaosConfig(seed=3, logit_fault_rate=1.0, fault_blocks=(1,),
 FAIL_STEP = 3        # exhausted retries: lane 0's first NaN, block 1
 # a stall before block 1 as long as the deadline: the deadline passes
 # inside the stall whenever the request's prefill and block 0 end before
-# it (1.55 s on an H100 at 700 W, about 150 ms a host-bound step)
+# it (1.27-1.55 s on an H100 at 700 W, 130-150 ms a host-bound step). The
+# host sets that time, so the deadline is at least the clean loop's wall
+# in the same run (two more blocks and three more prefills than the
+# deadline loop runs before its stall)
 STALL_S = DEADLINE_S = 3.0
 FLOOD_QUEUE = 4       # the flood: 3 x FLOOD_QUEUE requests in two waves
 LADDER = ({"block": 4},)
@@ -2105,17 +2212,18 @@ def phase_faults(cfg, params, smi):
               f"loop's: {same} of {len(want)}  [{smi}]")
         assert same == len(want)
         if kv == "bf16":
-            fault_loops(run, kv, model, reqs, want, cc, smi)
+            fault_loops(run, kv, model, reqs, want, cc, c_wall, smi)
             fault_costs(model, params, quar, smi)
         del model, clean, quar
         gc.collect()
     return launches
 
 
-def fault_loops(run, kv, model, reqs, want, cc, smi):
+def fault_loops(run, kv, model, reqs, want, cc, c_wall, smi):
     """The bf16 loops past quarantine: inert chaos, exhausted retries, a
-    deadline under a stall, cancellation, a flood against `max_queue` and
-    the degrade ladder."""
+    deadline under a stall (deadline and stall both max(DEADLINE_S,
+    `c_wall`), the clean loop's wall), cancellation, a flood against
+    `max_queue` and the degrade ladder."""
     inert, i_hs, _ = run("inert chaos", kv, model, reqs, chaos=ChaosConfig())
     assert [h.tokens for h in i_hs] == want
     ic = inert.counters
@@ -2142,22 +2250,29 @@ def fault_loops(run, kv, model, reqs, want, cc, smi):
 
     # R1 samples, so R0 is prefilled alone as in the clean loop (a grouped
     # prefill may take other GEMM kernels, so other bits)
-    dl_reqs = [dict(reqs[0], max_new=64, deadline_s=DEADLINE_S), reqs[1]]
+    deadline = stall = max(DEADLINE_S, c_wall)
+    dl_reqs = [dict(reqs[0], max_new=64, deadline_s=deadline), reqs[1]]
     dead, d_hs, _ = run("deadline under a stall", kv, model, dl_reqs, timed,
-                        chaos=ChaosConfig(stall_blocks=(1,),
-                                          stall_s=STALL_S))
+                        chaos=ChaosConfig(stall_blocks=(1,), stall_s=stall))
     st = d_hs[0].stats
-    expiry = st.t_arrival + DEADLINE_S
+    expiry = st.t_arrival + deadline
     blocks = sum(expiry <= e <= st.t_done for e in ends)
-    print(f"  faults deadline kv={kv}: R0 (deadline {DEADLINE_S}s) expired "
-          f"inside the {STALL_S}s stall before block 1; its lane freed "
+    rel = [round(e - st.t_arrival, 3) for e in ends]
+    print(f"  faults deadline kv={kv}: R0 (deadline {deadline:.3f}s) expired "
+          f"inside the {stall:.3f}s stall before block 1; its lane freed "
           f"{(st.t_done - expiry) * 1e3:.1f} ms and {blocks} block(s) after "
-          f"the expiry; block ends {[round(e, 3) for e in ends]}s  [{smi}]")
-    assert d_hs[0].outcome == "deadline" and blocks == 1
-    assert d_hs[0].tokens == want[0][:16]
-    assert d_hs[1].outcome == "done" and d_hs[1].tokens == want[1]
+          f"the expiry; block ends {rel}s after R0's arrival  [{smi}]")
+    seen = (d_hs[0].outcome, blocks, len(d_hs[0].tokens), rel, deadline)
+    assert rel[0] < deadline, ("block 0 ended after the deadline", seen)
+    assert d_hs[0].outcome == "deadline" and blocks == 1, seen
+    assert d_hs[0].tokens == want[0][:16], (
+        "R0's stream parts from the clean loop's", seen,
+        next((i for i, (a, b) in enumerate(zip(d_hs[0].tokens, want[0]))
+              if a != b), None))
+    assert d_hs[1].outcome == "done" and d_hs[1].tokens == want[1], (
+        d_hs[1].outcome, len(d_hs[1].tokens))
     assert (dead.counters["deadline_expired"],
-            dead.counters["chaos_stalls"]) == (1, 1)
+            dead.counters["chaos_stalls"]) == (1, 1), dead.counters
 
     def cancel(loop, hs):
         loop.schedule()
@@ -2456,10 +2571,12 @@ def family_weights(name, smi, **cut):
                    device="cuda").init(SEED)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
+    heads = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads: G = "
+             f"{cfg.n_heads // cfg.n_kv_heads}" if cfg.n_kv_heads
+             else "no attention")
     print(f"[family] {name} ({cfg.family}, {cfg.num_layers} layers"
           f"{' cut from ' + str(get_config(name).num_layers) if cut else ''}"
-          f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads: G = "
-          f"{cfg.n_heads // cfg.n_kv_heads},"
+          f", d {cfg.d_model}, {heads},"
           f" norm {cfg.norm}, act {cfg.act}, qkv_bias {cfg.qkv_bias}, "
           f"frontend {cfg.frontend}): {n_params} random bf16 params, made "
           f"on the card in {time.monotonic() - t:.1f}s  [{smi}]")
@@ -2615,15 +2732,17 @@ MLA_LAYERS = 5        # deepseek-v3-671b's 61 layers cut to 3 mla_dense + 2
 
 
 def plain_prefill_attention(q, k, v, acc=None, *, row0=0, length=None,
-                            obs_window=0, chunk=512, scale=None):
+                            obs_window=0, chunk=512, scale=None,
+                            den_f64=True):
     """ops.prefill_attention's plain version (with the latent route's
-    f64 denominators), run on the card: the check's other prompt pass
-    (never the served path). 128 query rows at a time, so its [B, 128,
-    rows, N] f64 denominator sums fit beside the model."""
+    f64 denominators, unless `den_f64` is False), run on the card: the
+    check's other prompt pass (never the served path). 128 query rows at a
+    time, so its [B, 128, rows, N] f64 denominator sums fit beside the
+    model."""
     out, col = ref.prefill_attention_ref(q, k, v, row0=row0, length=length,
                                          obs_window=obs_window,
                                          chunk=min(chunk, 128), scale=scale,
-                                         den_f64=True)
+                                         den_f64=den_f64)
     if acc is None:
         return out, col
     acc += col
@@ -2684,35 +2803,39 @@ def mla_serve(cfg, params, kv, smi, chunk=0, **knobs):
     return flash, [h.tokens for h, _ in handles], model
 
 
-def mla_teacher(cfg, params, model, steps=16):
-    """The 4 served prompts (4 x 2048 bucket) through the kernel's prompt
-    pass and through the plain version on the card (a check only): the
-    share of each layer's kept positions the two passes agree on (the
-    worst lane), then `steps` decode steps from each state fed the same
-    tokens (the kernel side's greedy choices), the top-1 agreement over
-    steps x LANES and the plain side's top-2 gap where they part. Returns
-    (the worst layer's kept share, the top-1 agreement, a decode step's
-    wall in ms: host clock around a synchronised step)."""
-    prompts = served_prompts(cfg.vocab_size)[:LANES]
-    padded = np.zeros((LANES, PROMPT_LEN), np.int64)
-    for i, (p, _) in enumerate(prompts):
-        padded[i, :len(p)] = p
-    batch = {"tokens": torch.as_tensor(padded, device="cuda"),
-             "length": torch.as_tensor([len(p) for p, _ in prompts],
-                                       device="cuda")}
-    logits, st = model.prefill(params, batch)
+def prompt_teacher(cfg, params, model, steps=16, batch=None, side=None):
+    """`batch` (by default the 4 served prompts in the 4 x 2048 bucket)
+    through the kernel's prompt pass and through the plain version on the
+    card (a check only): the share of each cache layer's kept positions the
+    two passes agree on (the worst lane and kv-head), then `steps` decode
+    steps from each state fed the same tokens (the kernel side's greedy
+    choices), the top-1 agreement over steps x LANES and the plain side's
+    top-2 gap where they part. `side` (label, function), a stand-in for
+    ops.prefill_attention, replaces the kernel's side: with another plain
+    version it measures the check's noise floor. Returns (the worst
+    layer's kept share, the top-1 agreement, a decode step's wall in ms:
+    host clock around a synchronised step)."""
+    batch = batch or served_batch(cfg)
     served = ops.prefill_attention
-    ops.prefill_attention = plain_prefill_attention
-    try:
-        logits_p, st_p = model.prefill(params, batch)
-    finally:
-        ops.prefill_attention = served
+    label, first_side = side or ("flash_prefill", served)
+
+    def prefill(attend):
+        ops.prefill_attention = attend
+        try:
+            return model.prefill(params, batch)
+        finally:
+            ops.prefill_attention = served
+
+    logits, st = prefill(first_side)
+    logits_p, st_p = prefill(plain_prefill_attention)
     kept = []
-    for li in range(cfg.num_layers):
-        pk, pp = st.kv.pos[li, :, 0], st_p.kv.pos[li, :, 0]      # [B, S]
+    for li in range(model.attn_layer_count()):
+        pk, pp = st.kv.pos[li], st_p.kv.pos[li]              # [B, Hk, S]
         kept.append(min(
-            int(torch.isin(pk[b][pk[b] >= 0], pp[b][pp[b] >= 0]).sum())
-            / int((pk[b] >= 0).sum()) for b in range(LANES)))
+            int(torch.isin(pk[b, h][pk[b, h] >= 0],
+                           pp[b, h][pp[b, h] >= 0]).sum())
+            / int((pk[b, h] >= 0).sum())
+            for b in range(LANES) for h in range(pk.shape[1])))
     first = float((logits - logits_p).abs().max())
     tok = torch.argmax(logits, -1)
     agree, worst, walls, gaps = 0, 0.0, [], []
@@ -2731,11 +2854,13 @@ def mla_teacher(cfg, params, model, steps=16):
             ak != ap]]
         tok = ak
     step_ms = float(np.median(walls))
-    print(f"  teacher-forced {cfg.num_layers} layers, policy "
+    print(f"  teacher-forced {cfg.name}, {cfg.num_layers} layers, policy "
           f"{model.prune.policy}, kv={model.prune.kv_dtype}: the prompt pass "
-          f"through the latent kernel vs its plain version on the card: "
+          f"through {label} vs the plain version (f64 denominators) on the "
+          f"card: "
           f"kept positions agree on {[round(k, 5) for k in kept]} (worst "
-          f"lane, by layer), first-token logits max|d| {first:.3g}; "
+          f"lane and kv-head, by cache layer), first-token logits max|d| "
+          f"{first:.3g}; "
           f"{steps} steps x {LANES} lanes fed the same tokens: logits "
           f"max|d| {worst:.3g}, top-1 equal in {agree} of {steps * LANES}; "
           f"the plain side's top-2 gap where they part {sorted(gaps)}; a "
@@ -2784,7 +2909,7 @@ def phase_mla(smi):
             if first is None:
                 first = streams
                 t = time.monotonic()
-                kept, _, step_ms = mla_teacher(cfg, params, model)
+                kept, _, step_ms = prompt_teacher(cfg, params, model)
                 assert kept >= KEPT_MIN, (kept, KEPT_MIN)
                 if kv == "bf16":
                     phase_prefill_profile(cfg, params, model)
@@ -2793,13 +2918,247 @@ def phase_mla(smi):
             del model
     t = time.monotonic()
     exact = Model(cfg, baselines.dense(PROMPT_LEN + 64), device="cuda")
-    _, agree, _ = mla_teacher(cfg, params, exact)
+    _, agree, _ = prompt_teacher(cfg, params, exact)
     assert agree >= TEACHER_AGREE_MIN, (agree, TEACHER_AGREE_MIN)
     print(f"[mla] dense-policy teacher-forced {time.monotonic() - t:.1f}s")
     del exact
     family_done("deepseek-v3-671b", t_all, smi)
     print(f"[mla] phase 10 {time.monotonic() - t_all:.1f}s; a served decode "
           f"step's wall {step_ms:.2f} ms (int8, the last measured)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: Mamba2 SSD blocks, the ssm (mamba2-1.3b) and hybrid (zamba2-7b)
+# families
+# ---------------------------------------------------------------------------
+
+# prefill -> decode continuity of mamba2-1.3b on the card: the decode of
+# token t against the prompt pass over t + 1 tokens, bf16 activations
+# through 48 blocks in two orders (the chunked scan against the
+# recurrence): logits within this of each other, the same top-1
+CONT_ATOL = 0.125
+
+
+def recurrent_batch(cfg, n=PROMPT_LEN):
+    """LANES prompts of `n` tokens from the seed, every row at full length
+    (a recurrent model takes no length mask)."""
+    rng = np.random.default_rng(SEED + 11)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (LANES, n)),
+                                      device="cuda")}
+
+
+def ssm_continuity(cfg, params, model):
+    """A 4 x 2048 prompt pass then the decode of token 2048 against the
+    prompt pass over all 2049 tokens: logits within CONT_ATOL, the same
+    top-1 on every lane."""
+    toks = recurrent_batch(cfg, PROMPT_LEN + 1)["tokens"]
+    _, st = model.prefill(params, {"tokens": toks[:, :PROMPT_LEN]})
+    step, _ = model.decode_step(params, st, toks[:, PROMPT_LEN])
+    whole, _ = model.prefill(params, {"tokens": toks})
+    err = float((step - whole).abs().max())
+    same = torch.equal(torch.argmax(step, -1), torch.argmax(whole, -1))
+    top2 = torch.topk(whole, 2, dim=-1).values
+    print(f"  continuity {cfg.name}: {LANES} x {PROMPT_LEN} prompt pass + "
+          f"decode of token {PROMPT_LEN} vs the prompt pass over "
+          f"{PROMPT_LEN + 1} tokens: logits max|d| {err:.4g} (atol "
+          f"{CONT_ATOL}, max|logit| {float(whole.abs().max()):.3g}), top-1 "
+          f"equal on every lane {same} (top-2 gaps "
+          f"{[round(float(g), 4) for g in top2[:, 0] - top2[:, 1]]})")
+    assert torch.isfinite(step).all() and torch.isfinite(whole).all()
+    assert err <= CONT_ATOL and same, (err, same)
+
+
+def recurrent_prefill_profile(cfg, params, model, batch):
+    """Where one 4 x 2048 prompt pass of a recurrent model spends its time:
+    host wall (no profiler); the device time of its kernels under
+    torch.profiler and the flash_prefill pair's share; then, in another
+    pass, CUDA events around every SSD block (`ssm_prefill`), whose sum
+    over the wall is the SSM blocks' share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+
+    run()                                                # warm
+    t0 = time.monotonic()
+    run()
+    wall = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    flash = sum(dev_us(e) for e in kernels
+                if "flash_prefill" in e.key or "fold_columns" in e.key) / 1e3
+    events = []
+    served = transformer_mod.ssm_prefill
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = served(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return y
+
+    transformer_mod.ssm_prefill = timed
+    try:
+        t0 = time.monotonic()
+        run()
+        wall_ev = (time.monotonic() - t0) * 1e3
+    finally:
+        transformer_mod.ssm_prefill = served
+    ssm_ms = sum(a.elapsed_time(b) for a, b in events)
+    share = ("not measured" if busy == 0 else
+             f"{busy / wall:.1%} busy, flash_prefill pair {flash:.2f} ms = "
+             f"{flash / busy:.1%} of the kernel time")
+    print(f"  profile prompt pass {cfg.name} policy={model.prune.policy} "
+          f"kv={model.prune.kv_dtype} B={LANES} N={PROMPT_LEN}: {wall:.2f} ms "
+          f"host wall, {busy:.2f} ms of kernel time ({share}), "
+          f"{sum(e.count for e in kernels)} kernel launches; the "
+          f"{len(events)} SSD blocks {ssm_ms:.2f} ms between CUDA events = "
+          f"{ssm_ms / wall_ev:.1%} of that pass's {wall_ev:.2f} ms wall")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        print(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
+    assert len(events) == cfg.num_layers
+
+
+def recurrent_prefix_splice(cfg, params, model, smi):
+    """The prefix cache's exact hit for a recurrent model: one 2048-token
+    request, then the same prompt again; the repeat splices the cached
+    state (its SSM state, and the hybrid's pruned caches) with no prefill
+    and reproduces the stream. Printed: the splice's host wall and the
+    entry's state bytes, cache and SSM state apart. Returns the launches."""
+    loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS, block=8,
+                     prefix_cache_bytes=PREFIX_BUDGET, device="cuda")
+    prompt = served_prompts(cfg.vocab_size)[0][0]
+    torch.cuda.synchronize()
+    reset_launches()
+    first = loop.submit(Request(prompt=prompt, max_new=NEW_TOKENS // 2))
+    loop.run()
+    again = loop.submit(Request(prompt=prompt, max_new=NEW_TOKENS // 2))
+    loop.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    c = loop.counters
+    entry = loop.prefix_cache.match_state(prompt)
+    kv_b, ssm_b = _tree_nbytes(entry.state.kv), _tree_nbytes(entry.state.ssm)
+    splice_ms, insert_ms = (1e3 * loop.prefix_host_s[k]
+                            for k in ("splice_s", "insert_s"))
+    print(f"  prefix cache {cfg.name}: a repeated {len(prompt)}-token prompt "
+          f"is an exact hit {c['prefix_exact_hits']} (prefills "
+          f"{c['prefill_dispatches']}), its stream equals the first's "
+          f"{again.tokens == first.tokens}; the splice {splice_ms:.3f} ms "
+          f"host wall, the entry {entry.nbytes} B (cache {kv_b} B, SSM state "
+          f"{ssm_b} B, logits {entry.nbytes - kv_b - ssm_b} B); the "
+          f"snapshot copy {insert_ms:.3f} ms  [{smi}]")
+    assert c["prefix_exact_hits"] == 1 and c["prefill_dispatches"] == 1
+    assert again.tokens == first.tokens and len(first.tokens) > 0
+    assert ssm_b > 0
+    return counts
+
+
+def phase_ssm(smi):
+    """Phase 11: mamba2-1.3b (48 SSD blocks, full) served under the dense
+    policy twice (equal streams, no kernel launches), its prefill->decode
+    continuity, a decode step and a 4 x 2048 prompt pass profiled, a
+    prefix-cache exact hit; then zamba2-7b (81 SSD blocks and 13
+    applications of one shared attention block, full) served under unicaim
+    with bf16 and int8 KV and select_blocks 1 and 4 (13 decode-kernel
+    launches a step, 13 flash_prefill launches a prompt pass), the kernel's
+    prompt pass against the plain one (kept positions in each of the 13
+    caches >= KEPT_MIN, bf16 and int8), the teacher-forced top-1 agreement
+    under unicaim and under the dense policy beside its noise floor (two
+    plain versions apart only in the softmax denominators' rounding) and
+    the decode kernel against the composed path, all printed (the floor
+    lies below TEACHER_AGREE_MIN on this model: `PERF.md` §6), a decode
+    step and a prompt pass profiled, a prefix-cache exact hit. Returns the
+    launches of each kernel."""
+    t_all = time.monotonic()
+    launches = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    t0 = time.monotonic()
+    cfg, params = family_weights("mamba2-1.3b", smi)
+    dense = baselines.dense(PROMPT_LEN + NEW_TOKENS)
+    streams = []
+    for _ in range(2):
+        _, _, _, model, handles, _ = phase_serve(cfg, params, "bf16", smi, 1,
+                                                 prune=dense)
+        streams.append([h.tokens for h in handles])
+    print(f"[ssm] {cfg.name}: the second serve's greedy streams equal the "
+          f"first's {streams[0] == streams[1]}")
+    assert streams[0] == streams[1]
+    ssm_continuity(cfg, params, model)
+    batch = recurrent_batch(cfg)
+    logits, st = model.prefill(params, batch)
+    phase_profile(params, model, st, torch.argmax(logits, -1))
+    recurrent_prefill_profile(cfg, params, model, batch)
+    add(recurrent_prefix_splice(cfg, params, model, smi))
+    family_done(cfg.name, t0, smi)
+    del params, model, st, logits, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[ssm] after mamba2-1.3b: {held / 2 ** 30:.3f} GiB still "
+          f"allocated on the card")
+    assert held < 1 << 30, held
+
+    t0 = time.monotonic()
+    cfg, params = family_weights("zamba2-7b", smi)
+    batch = recurrent_batch(cfg)
+    served = {}
+    for blocks, kv in itertools.product((1, 4), ("bf16", "int8")):
+        t = time.monotonic()
+        kernel, n, flash, model, _, _ = phase_serve(cfg, params, kv, smi,
+                                                    blocks)
+        assert model.attn_layer_count() == 13
+        launches[kernel] += n
+        launches["flash_prefill"] += flash
+        if blocks == 1:
+            served[kv] = model
+        print(f"[ssm] {cfg.name} kv={kv} select_blocks={blocks}: "
+              f"{time.monotonic() - t:.1f}s")
+    t = time.monotonic()
+    for kv, model in served.items():
+        kept, _, step_ms = prompt_teacher(cfg, params, model, batch=batch)
+        assert kept >= KEPT_MIN, (kv, kept, KEPT_MIN)
+    phase_teacher(cfg, params, served["bf16"], batch=batch, hold=False)
+    exact = Model(cfg, baselines.dense(PROMPT_LEN + 64), device="cuda")
+    _, agree, _ = prompt_teacher(cfg, params, exact, batch=batch)
+    _, floor, _ = prompt_teacher(
+        cfg, params, exact, batch=batch,
+        side=("the plain version with f32 denominators", functools.partial(
+            plain_prefill_attention, den_f64=False)))
+    print(f"[ssm] {cfg.name} dense policy, teacher-forced top-1 of "
+          f"{16 * LANES}: kernel vs plain {agree}, plain vs plain (the "
+          f"denominators' rounding alone: the noise floor) {floor}; printed, "
+          f"not held to {TEACHER_AGREE_MIN}: at 94 bf16 blocks the floor "
+          f"itself lies below it")
+    del exact
+    print(f"[ssm] {cfg.name} teacher-forced {time.monotonic() - t:.1f}s")
+    model = served["bf16"]
+    logits, st = model.prefill(params, batch)
+    phase_profile(params, model, st, torch.argmax(logits, -1))
+    del st, logits
+    recurrent_prefill_profile(cfg, params, model, batch)
+    add(recurrent_prefix_splice(cfg, params, model, smi))
+    family_done(cfg.name, t0, smi)
+    del params, served, model
+    print(f"[ssm] phase 11 {time.monotonic() - t_all:.1f}s")
     return launches
 
 
@@ -2850,6 +3209,7 @@ def main():
                              timings[name]["int8"][:3]),
                          ms_l2_warm=timings[name]["int8 warm"][0]),
             "starcoder2_g12": timings[name]["g12"],
+            "zamba2_d112": timings[name]["d112"],
             **decode_compiled.get(name, {})}
 
     # 4 + 5. full-width longchat-7b, global then block-local selection
@@ -2951,6 +3311,21 @@ def main():
     timings["flash_prefill"]["extra"]["latent"]["launches"] = \
         mla_launches["flash_prefill"]
     print(f"[mla] phase {time.monotonic() - t:.1f}s")
+
+    # 11. Mamba2 SSD blocks: mamba2-1.3b and zamba2-7b, full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[ssm] before phase 11: {held / 2 ** 30:.3f} GiB still allocated "
+          f"on the card (phase 10's model freed)")
+    assert held < 1 << 30, held
+    t = time.monotonic()
+    ssm_launches = phase_ssm(smi)
+    for name, n in ssm_launches.items():
+        launches[name] += n
+    for name in ("ragged_decode", "fused_decode", "flash_prefill"):
+        timings[name]["extra"]["zamba2_launches"] = ssm_launches[name]
+    print(f"[ssm] phase {time.monotonic() - t:.1f}s")
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key

@@ -1133,9 +1133,12 @@ class ServeLoop:
         gp = min(1 << (g - 1).bit_length(), self.lanes)
         rows = np.concatenate([rows, np.repeat(rows[:1], gp - g, axis=0)])
         lengths = np.concatenate([lengths, np.repeat(lengths[:1], gp - g)])
+        # exact-length rows (buckets=None: a recurrent model, or asked for)
+        # need no length mask, and an SSM or hybrid model refuses one
         logits, fresh = self.model.prefill_group(
             self.params, torch.as_tensor(rows, device=self.device),
-            torch.as_tensor(lengths, device=self.device))
+            None if self.buckets is None
+            else torch.as_tensor(lengths, device=self.device))
         logits = logits[:g]
         self.counters["prefill_dispatches"] += 1
         if g > 1:
@@ -1321,7 +1324,7 @@ class ServeLoop:
         c = self.chunk_prefill
         n = len(req.prompt)
         if not (self._rows_reuse and n % c == 0
-                and c == self.model.cfg.attn_chunk):
+                and c == self.model.cfg.attn_chunk and fresh.kv is not None):
             return
         t0 = time.perf_counter()
         # the light fields are checked before k/v/acc are copied out
@@ -1490,12 +1493,13 @@ class ServeLoop:
     def _state_entry(self, req: Request, bucket: int, logits,
                      fresh: DecodeState) -> StateEntry:
         """A trie entry holding host copies of a finalized batch-1 state
-        and its logits."""
+        (its cache and SSM state, whichever it has) and its logits."""
         return StateEntry(
             length=len(req.prompt), bucket=bucket,
             logits=logits.to("cpu", copy=True),
-            state=DecodeState(kv=fresh.kv.map(
-                lambda a: a.to("cpu", copy=True))))
+            state=DecodeState(*(
+                None if x is None else x.map(lambda a: a.to("cpu", copy=True))
+                for x in (fresh.kv, fresh.ssm))))
 
     def _cache_insert_finalized(self, req: Request, logits,
                                 fresh: DecodeState, bucket: int) -> None:
@@ -1513,7 +1517,8 @@ class ServeLoop:
         c = self.chunk_prefill
         n = len(req.prompt)
         if (self._rows_reuse and n % c == 0
-                and c == self.model.cfg.attn_chunk):
+                and c == self.model.cfg.attn_chunk
+                and entry.state.kv is not None):
             rows = cache_prefix_rows(entry.state.kv, n)
             if rows is not None:
                 pc.insert_rows(req.prompt, RowsEntry(n, *rows))
@@ -1767,8 +1772,7 @@ class ServeLoop:
         st.t_done = now
         st.outcome = outcome
         st.detail = detail
-        fill = self.state.kv.fill[:, lane].float()
-        st.occupancy = float(fill.mean()) / self.state.kv.slots
+        st.occupancy = self._lane_occupancy(lane)
         self.completed.append(st)
         self._finished.add(rid)
         self._lane_rid[lane] = None
@@ -1786,6 +1790,14 @@ class ServeLoop:
                     (st.priority, st.bucket), []).append(len(st.tokens))
             else:
                 self._budget_done += 1
+
+    def _lane_occupancy(self, lane: int) -> float:
+        """The lane's mean fill over its cache layers, as a share of the
+        slots (0.0 for a model with no cache)."""
+        kv = self.state.kv
+        if kv is None:
+            return 0.0
+        return float(kv.fill[:, lane].float().mean()) / kv.slots
 
     # -- driver ----------------------------------------------------------------
 
@@ -1891,7 +1903,11 @@ class ServeLoop:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="a registered config: the dense family, "
+                         "grok-1-314b, deepseek-v3-671b, mamba2-1.3b (SSM: "
+                         "no cache, so the policy only names the run) or "
+                         "zamba2-7b (hybrid)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=64)

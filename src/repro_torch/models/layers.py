@@ -1,5 +1,5 @@
-"""Shared layers: RMS norm and LayerNorm, RoPE, the MLP (SwiGLU,
-tanh-GELU or relu²), and their inits — the port of
+"""Shared layers: RMS norm and LayerNorm, Mamba2's gated RMS norm, RoPE,
+the MLP (SwiGLU, tanh-GELU or relu²), and their inits — the port of
 `repro/models/layers.py`.
 
 Weights keep the reference layout: a projection is [d_in, d_out] and is
@@ -54,6 +54,15 @@ def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
     var = (xc * xc).mean(dim=-1, keepdim=True)
     y = xc * torch.rsqrt(var + eps)
     return (y * p["w"].float() + p["b"].float()).to(x.dtype)
+
+
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated RMS norm, norm(x * silu(z)) * w: the gate product in
+    x's dtype, the norm in f32, cast back to x's dtype."""
+    xf = (x * F.silu(z)).float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):

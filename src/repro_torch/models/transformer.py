@@ -1,9 +1,12 @@
 """The model — the port of `repro/models/transformer.py` for the dense
 family (RMS norm or LayerNorm; SwiGLU, tanh-GELU or relu²; an optional qkv
 bias; the vision frontend stub), the MoE family (routed experts in every
-block, `models/moe.py`) and the mla_moe family (deepseek-v3: MLA latent
-attention, `models/mla.py`, over dense-FFN blocks then MoE blocks). SSM,
-hybrid and enc-dec models and sinusoidal positions are not ported yet:
+block, `models/moe.py`), the mla_moe family (deepseek-v3: MLA latent
+attention, `models/mla.py`, over dense-FFN blocks then MoE blocks), the SSM
+family (mamba2: Mamba2 SSD blocks, `models/ssm.py`) and the hybrid
+(zamba2: SSD blocks with ONE shared attention block applied before every
+`attn_period` of them, its weights reused and a cache of its own at each
+application). Enc-dec models and sinusoidal positions are not ported yet:
 `Model` refuses them. A multi-token-prediction head (`mtp_depth > 0`) is
 built with the reference's tree, and nothing on the serving path reads it
 (its forward belongs to training).
@@ -11,8 +14,9 @@ built with the reference's tree, and nothing on the serving path reads it
 `Model` keeps the reference's functional surface: parameters are nested
 dicts of tensors with the reference's key names (`embed`, `final_norm`,
 `lm_head`, `frontend_adapter`, `mtp`, and the segments — `seg0_dense`,
-`seg0_moe`, or `seg0_mla_dense` and `seg1_mla_moe` — stacked on a leading
-layer axis), and
+`seg0_moe`, `seg0_ssm`, or `seg0_mla_dense` and `seg1_mla_moe` — stacked on
+a leading layer axis; the hybrid's `ssm_groups` [n_groups, attn_period,
+...], `ssm_tail` [rem, ...] and one unstacked `shared_attn` block), and
 
   prefill(params, batch)           → (last-valid-position logits, state)
   prefill_one / prefill_group      → the same for one request / a padded
@@ -22,10 +26,11 @@ layer axis), and
       prefill_finalize(...) → the static pruning and the logits after it
   decode_step(params, state, tok)  → (logits, state)
 
-The decode state's layer-stacked cache is updated in place: each layer
-writes its token through views of its slice (`KVCache.layer`), so no step
-copies the cache. Eager PyTorch needs neither the reference's layer scan nor
-its decode window: the kernel skips the dead slot blocks itself.
+The decode state's layer-stacked cache and SSM state are updated in place:
+each layer writes its token through views of its slice (`KVCache.layer`,
+`SSMState.layer`), so no step copies the state. Eager PyTorch needs neither
+the reference's layer scan nor its decode window: the kernel skips the
+dead slot blocks itself.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ from repro_torch.models.attention_layer import (attention_decode,
                                                 attention_prefill_chunk)
 from repro_torch.models.mla import init_mla, mla_decode, mla_prefill
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.ssm import (SSMState, init_ssm, init_ssm_state,
+                                    ssm_decode, ssm_prefill)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -51,8 +58,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclass
 class DecodeState:
-    kv: KVCache                      # stacked [L, B, Hk, S, ·] (MLA: the
-    #                                  latent, Hk = 1, no V)
+    kv: Optional[KVCache] = None     # stacked [L_attn, B, Hk, S, ·] (MLA:
+    #                                  the latent, Hk = 1, no V); None for
+    #                                  an SSM model
+    ssm: Optional[SSMState] = None   # stacked [L_ssm, B, ...] f32 (ssm and
+    #                                  hybrid families)
+
+    def clone(self) -> "DecodeState":
+        return DecodeState(*(None if x is None else x.clone()
+                             for x in (self.kv, self.ssm)))
 
 
 @dataclass
@@ -69,14 +83,23 @@ class PrefillChunkState:
 
 def lane_slice(state: DecodeState, lane: int) -> DecodeState:
     """One lane of a batched state as a batch-1 state (a copy)."""
-    return DecodeState(kv=kvcache.lane_slice(state.kv, lane, batch_axis=1))
+    return DecodeState(
+        kv=(None if state.kv is None
+            else kvcache.lane_slice(state.kv, lane, batch_axis=1)),
+        ssm=(None if state.ssm is None else state.ssm.map(
+            lambda a: a.narrow(1, lane, 1).clone())))
 
 
 def lane_insert(state: DecodeState, lane: int,
                 fresh: DecodeState) -> DecodeState:
     """In place: lane `lane` of `state` takes the batch-1 `fresh` state
     (e.g. from `prefill_one`, or a prefix-cache snapshot)."""
-    kvcache.lane_insert(state.kv, lane, fresh.kv, batch_axis=1)
+    if state.kv is not None:
+        kvcache.lane_insert(state.kv, lane, fresh.kv, batch_axis=1)
+    if state.ssm is not None:
+        for a, f in ((state.ssm.conv, fresh.ssm.conv),
+                     (state.ssm.ssm, fresh.ssm.ssm)):
+            a.narrow(1, lane, 1).copy_(f)
     return state
 
 
@@ -87,16 +110,29 @@ def lane_select(active: torch.Tensor, new: DecodeState,
     def sel(n, o):
         m = active.reshape((1, -1) + (1,) * (n.dim() - 2))
         return torch.where(m, n, o)
-    return DecodeState(kv=KVCache(*(
+    kv = None if new.kv is None else KVCache(*(
         None if getattr(new.kv, f) is None
         else sel(getattr(new.kv, f), getattr(old.kv, f))
-        for f in kvcache.FIELDS)))
+        for f in kvcache.FIELDS))
+    ssm = None if new.ssm is None else SSMState(
+        sel(new.ssm.conv, old.ssm.conv), sel(new.ssm.ssm, old.ssm.ssm))
+    return DecodeState(kv=kv, ssm=ssm)
 
 
 def lanes_insert(state: DecodeState, src, fresh: DecodeState) -> DecodeState:
     """In place: lane b of `state` takes row `src[b]` of the batch-G
     `fresh` state where `src[b] >= 0` (grouped admission)."""
-    kvcache.lanes_insert(state.kv, src, fresh.kv, batch_axis=1)
+    if state.kv is not None:
+        kvcache.lanes_insert(state.kv, src, fresh.kv, batch_axis=1)
+    lanes = [b for b, r in enumerate(src) if r >= 0]
+    if state.ssm is not None and lanes:
+        dev = state.ssm.ssm.device
+        dst = torch.as_tensor(lanes, dtype=torch.long, device=dev)
+        rows = torch.as_tensor([int(src[b]) for b in lanes],
+                               dtype=torch.long, device=dev)
+        for a, f in ((state.ssm.conv, fresh.ssm.conv),
+                     (state.ssm.ssm, fresh.ssm.ssm)):
+            a.index_copy_(1, dst, f.index_select(1, rows).to(a.dtype))
     return state
 
 
@@ -118,17 +154,19 @@ def layer_params(params_seg, li: int):
 
 
 class Model:
-    """Model facade for the dense, MoE and mla_moe families (functional:
-    params are passed in)."""
+    """Model facade for the dense, MoE, mla_moe, SSM and hybrid families
+    (functional: params are passed in)."""
 
     def __init__(self, cfg: ModelConfig, prune: PruneConfig, device="cuda"):
         unsupported = [name for name, bad in (
-            ("family", cfg.family not in ("dense", "moe", "mla_moe")),
+            ("family", cfg.family not in ("dense", "moe", "mla_moe", "ssm",
+                                          "hybrid")),
             ("pos", cfg.pos not in ("rope", "none"))) if bad]
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unsupported)} not ported yet "
-                "(the port serves the dense, MoE and mla_moe families)")
+                "(the port serves the dense, MoE, mla_moe, SSM and hybrid "
+                "families)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prune = prune
@@ -141,24 +179,52 @@ class Model:
 
     def _segments(self):
         """[(kind, n_layers)] of the stack, as in the reference: one
-        segment of `dense` or `moe` blocks, or for mla_moe the first
-        `dense_first_k` blocks as `mla_dense` and the rest as `mla_moe`."""
+        segment of `dense`, `moe` or `ssm` blocks, or for mla_moe the first
+        `dense_first_k` blocks as `mla_dense` and the rest as `mla_moe`
+        (the hybrid's stack is its groups, `_blocks`)."""
         cfg = self.cfg
         if cfg.family == "mla_moe":
             k = cfg.moe.dense_first_k
             return [("mla_dense", k), ("mla_moe", cfg.num_layers - k)]
         return [(cfg.family, cfg.num_layers)]
 
-    def _layers(self, params):
-        """(global layer index, block kind, that layer's parameters) over
-        the stack."""
+    def attn_layer_count(self) -> int:
+        """Layers of the decode state's KV cache: none for an SSM model, one
+        per application of the hybrid's shared block, else one a block."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return 0
+        if cfg.family == "hybrid":
+            return cfg.num_layers // cfg.attn_period
+        return cfg.num_layers
+
+    def _blocks(self, params):
+        """(block kind, its parameters, its KV-cache layer, its SSM-state
+        layer) over the stack in order; the unused index is None. The
+        hybrid's group g runs `shared_attn` on KV layer g, then its
+        `attn_period` SSD blocks on SSM layers g·period …; the tail's SSD
+        blocks follow."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            period = cfg.attn_period
+            n_groups = cfg.num_layers // period
+            for g in range(n_groups):
+                yield "dense", params["shared_attn"], g, None
+                group = layer_params(params["ssm_groups"], g)
+                for j in range(period):
+                    yield "ssm", layer_params(group, j), None, g * period + j
+            for r in range(cfg.num_layers - n_groups * period):
+                yield ("ssm", layer_params(params["ssm_tail"], r), None,
+                       n_groups * period + r)
+            return
         li = 0
         for i, (kind, n) in enumerate(self._segments()):
             if n == 0:
                 continue
             seg = params[f"seg{i}_{kind}"]
             for j in range(n):
-                yield li, kind, layer_params(seg, j)
+                ai, si = (None, li) if kind == "ssm" else (li, None)
+                yield kind, layer_params(seg, j), ai, si
                 li += 1
 
     # -- init ---------------------------------------------------------------
@@ -180,10 +246,20 @@ class Model:
             "embed": L.embed_init(gen, cfg.vocab_size, d, dt, dev),
             "final_norm": L.norm_init(cfg.norm, d, dt, dev),
         }
-        for i, (kind, n) in enumerate(self._segments()):
-            if n:
-                params[f"seg{i}_{kind}"] = self._init_block(gen, kind, dt,
-                                                            (n,))
+        if cfg.family == "hybrid":
+            period = cfg.attn_period
+            n_groups = cfg.num_layers // period
+            rem = cfg.num_layers - n_groups * period
+            params["ssm_groups"] = self._init_block(gen, "ssm", dt,
+                                                    (n_groups, period))
+            if rem:
+                params["ssm_tail"] = self._init_block(gen, "ssm", dt, (rem,))
+            params["shared_attn"] = self._init_block(gen, "dense", dt, ())
+        else:
+            for i, (kind, n) in enumerate(self._segments()):
+                if n:
+                    params[f"seg{i}_{kind}"] = self._init_block(gen, kind, dt,
+                                                                (n,))
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, d, cfg.vocab_size, dt, dev)
         if cfg.frontend != "none":
@@ -197,11 +273,14 @@ class Model:
         return params
 
     def _init_block(self, gen: torch.Generator, kind: str, dt, lead):
-        """Residual blocks of `kind` (dense | moe | mla_dense | mla_moe),
-        stacked on the leading axes `lead` (`()`: one block). The dense
-        blocks of a MoE config take its `d_ff_dense`."""
+        """Residual blocks of `kind` (dense | moe | mla_dense | mla_moe |
+        ssm), stacked on the leading axes `lead` (`()`: one block). The
+        dense blocks of a MoE config take its `d_ff_dense`."""
         cfg = self.cfg
         dev, d, lead = self.device, cfg.d_model, tuple(lead)
+        if kind == "ssm":
+            return {"norm": L.norm_init(cfg.norm, d, dt, dev, lead),
+                    "ssm": init_ssm(gen, cfg, dt, dev, lead)}
 
         def dense(d_in, d_out):
             return L.dense_init(gen, d_in, d_out, dt, dev, lead=lead)
@@ -231,17 +310,25 @@ class Model:
     # -- state --------------------------------------------------------------
 
     def init_decode_state(self, batch_size: int) -> DecodeState:
-        """An empty layer-stacked cache: per kv-head K/V, or for MLA the
-        latent (Hk = 1, width `latent_dim`, no V)."""
+        """An empty layer-stacked state: a cache of `attn_layer_count()`
+        layers (per kv-head K/V, or for MLA the latent: Hk = 1, width
+        `latent_dim`, no V), and for the SSM and hybrid families an f32
+        SSM state a block."""
         cfg = self.cfg
-        if cfg.mla is not None:
-            heads, width = 1, cfg.mla.latent_dim
-        else:
-            heads, width = cfg.n_kv_heads, cfg.head_dim
-        return DecodeState(kv=init_cache(
-            batch_size, heads, width, self.prune.slots, self.prune,
-            self.dtype, device=self.device, layers=cfg.num_layers,
-            latent=cfg.mla is not None))
+        kv = ssm = None
+        n_attn = self.attn_layer_count()
+        if n_attn:
+            if cfg.mla is not None:
+                heads, width = 1, cfg.mla.latent_dim
+            else:
+                heads, width = cfg.n_kv_heads, cfg.head_dim
+            kv = init_cache(batch_size, heads, width, self.prune.slots,
+                            self.prune, self.dtype, device=self.device,
+                            layers=n_attn, latent=cfg.mla is not None)
+        if cfg.family in ("ssm", "hybrid"):
+            ssm = init_ssm_state(cfg, batch_size, device=self.device,
+                                 layers=cfg.num_layers)
+        return DecodeState(kv=kv, ssm=ssm)
 
     # -- shared pieces ------------------------------------------------------
 
@@ -287,13 +374,18 @@ class Model:
 
         `batch["length"]` ([B] int32, optional) marks the true lengths of
         prompts right-padded to a shared bucket: pads neither attend,
-        accumulate, nor enter the static top-k. A frontend model takes
-        `batch["<frontend>_embed"]` ([B, F, d]): its F rows sit in front
-        of the tokens and are always valid, so the cache holds F + length
-        positions."""
+        accumulate, nor enter the static top-k. The SSM and hybrid
+        families refuse it (their recurrent state would absorb the pads).
+        A frontend model takes `batch["<frontend>_embed"]` ([B, F, d]): its
+        F rows sit in front of the tokens and are always valid, so the
+        cache holds F + length positions."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         length = batch.get("length")
+        if length is not None and cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                f"bucketed prefill: {cfg.family} carries recurrent state "
+                "that right-padded tokens would pollute")
         if length is not None:
             length = torch.as_tensor(length, dtype=torch.int32,
                                      device=self.device)
@@ -303,7 +395,11 @@ class Model:
         eff_len = None if length is None else length + n_front
         pos = torch.arange(x.shape[1], device=self.device)[None]
         state = self.init_decode_state(b)
-        for li, kind, p in self._layers(params):
+        for kind, p, li, si in self._blocks(params):
+            if kind == "ssm":
+                h = L.apply_norm(p["norm"], x, cfg.norm)
+                x = x + ssm_prefill(p["ssm"], h, cfg, state.ssm.layer(si))
+                continue
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             attend = mla_prefill if kind.startswith("mla") \
                 else attention_prefill
@@ -345,14 +441,15 @@ class Model:
 
     def supports_bucketed_prefill(self) -> bool:
         """Right-padded, length-masked prefill needs an attention-only
-        prompt pass: every family the port builds (recurrent and enc-dec
-        families would absorb the pads into their state)."""
+        prompt pass: not the SSM and hybrid families (nor enc-dec), whose
+        recurrent state would absorb the pads."""
         return self.cfg.family not in ("ssm", "hybrid", "encdec")
 
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill covers the plain attention stacks (dense and
-        MoE); an MLA model and a frontend model admit their prompts whole,
-        as in the reference."""
+        MoE); an MLA model, a frontend model and the recurrent (SSM and
+        hybrid) families admit their prompts whole, as in the
+        reference."""
         cfg = self.cfg
         return (cfg.family in ("dense", "moe") and cfg.mla is None
                 and cfg.frontend == "none")
@@ -404,7 +501,7 @@ class Model:
         row0 = int(row0)
         x = self._embed(params, tokens_c)
         pos = row0 + torch.arange(tokens_c.shape[1], device=self.device)[None]
-        for li, _, p in self._layers(params):
+        for _, p, li, _ in self._blocks(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             a, _, _, _ = attention_prefill_chunk(
                 p["attn"], h, cfg, pos, self.prune, pstate.k[li],
@@ -424,7 +521,7 @@ class Model:
                                  device=self.device)
         b = x_last.shape[0]
         state = self.init_decode_state(b)
-        for li in range(self.cfg.num_layers):
+        for li in range(self.attn_layer_count()):
             _store_layer(state, li, kvcache.prefill_fill(
                 state.kv.layer(li), pstate.k[li], pstate.v[li],
                 pstate.acc[li], self.prune, length=length))
@@ -440,11 +537,16 @@ class Model:
         """token: [B] → (logits [B, V] f32, state updated in place).
 
         `active` ([B] bool, optional) freezes the other lanes' cache rows
-        (finished lanes of a serving block)."""
+        and SSM state (finished lanes of a serving block)."""
         cfg = self.cfg
         token = torch.as_tensor(token, device=self.device)
         x = self._embed(params, token)
-        for li, kind, p in self._layers(params):
+        for kind, p, li, si in self._blocks(params):
+            if kind == "ssm":
+                h = L.apply_norm(p["norm"], x, cfg.norm)
+                x = x + ssm_decode(p["ssm"], h, cfg, state.ssm.layer(si),
+                                   active)
+                continue
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             attend = mla_decode if kind.startswith("mla") \
                 else attention_decode

@@ -3,15 +3,18 @@
 
 The tree comes as nested dicts (and lists) of numpy arrays
 (`jax.tree.map(np.asarray, params)`) for any model the port builds, dense,
-MoE or mla_moe. The key names stay (`embed`, `final_norm`, `lm_head`,
-`frontend_adapter`, and the segments `seg0_dense`, `seg0_moe`, or
-`seg0_mla_dense` and `seg1_mla_moe`, stacked on the layer axis with `ln1`,
-`attn.{wq,wk,wv,wo}` and the optional `attn.{bq,bk,bv}` — MLA's
-`attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}` —, `ln2`, and
-`mlp.{wi,wg,wo}` or `moe.{router,wi,wg,wo,shared}`; deepseek's `mtp` head
-with `proj`, `norm` and one unstacked `block`), and so does the layout: the
-reference's projections are [d_in, d_out] and the port applies them as
-`x @ W` too.
+MoE, mla_moe, SSM or hybrid. The key names stay (`embed`, `final_norm`,
+`lm_head`, `frontend_adapter`, and the segments `seg0_dense`, `seg0_moe`,
+`seg0_ssm`, or `seg0_mla_dense` and `seg1_mla_moe`, stacked on the layer
+axis with `ln1`, `attn.{wq,wk,wv,wo}` and the optional `attn.{bq,bk,bv}` —
+MLA's `attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}` —, `ln2`, and
+`mlp.{wi,wg,wo}` or `moe.{router,wi,wg,wo,shared}`; an SSD block's
+`norm.w` and `ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm_w,
+out_proj}`; the hybrid's `ssm_groups` stacked [n_groups, attn_period,
+...], `ssm_tail` [rem, ...] and one unstacked dense `shared_attn` block;
+deepseek's `mtp` head with `proj`, `norm` and one unstacked `block`), and
+so does the layout: the reference's projections are [d_in, d_out] and the
+port applies them as `x @ W` too.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ import torch
 from repro_torch.models.transformer import DTYPES
 
 # leaves the reference keeps in f32 whatever the parameter dtype
-# (`repro/models/moe.py`: the router)
-F32_LEAVES = ("router",)
+# (`repro/models/moe.py`: the router; `repro/models/ssm.py`: A_log, D and
+# dt_bias)
+F32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
 
 def from_reference(tree: Any, dtype: str = "float32", device="cpu") -> Any:

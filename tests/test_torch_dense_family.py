@@ -4,10 +4,11 @@
   `repro.models.layers` on seeded inputs with non-trivial weights and
   biases;
 - the port builds every registered config of the reference except the
-  families it does not serve yet (SSM, hybrid, enc-dec; deepseek-v3's
-  mla_moe is built), with the reference's parameter tree (key names,
-  shapes, dtypes: the MoE router in f32 under bf16 weights), and
-  `params.from_reference` keeps that tree;
+  family it does not serve yet (enc-dec; deepseek-v3's mla_moe, mamba2's
+  SSM and zamba2's hybrid are built), with the reference's parameter tree
+  (key names, shapes, dtypes: the MoE router and the SSD blocks' A_log, D
+  and dt_bias in f32 under bf16 weights), and `params.from_reference`
+  keeps that tree;
 - G = 12 query rows per kv-head (reduced starcoder2-3b with 12 heads over
   one kv-head): teacher-forced decode logits to 1e-4 and greedy tokens
   exactly, fused and composed, bf16 and int8 KV;
@@ -47,7 +48,7 @@ jax.config.update("jax_platform_name", "cpu")
 UNICAIM = dict(heavy=24, reserve=8, select_k=8, sink_tokens=2,
                recent_window=8)
 # the reference's registered configs the port does not build yet
-UNPORTED = {"mamba2-1.3b", "zamba2-7b", "whisper-base"}
+UNPORTED = {"whisper-base"}
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +120,8 @@ def test_port_builds_every_config_but_the_unported_families():
     assert refused == UNPORTED
     assert {"phi3-medium-14b", "starcoder2-3b", "minitron-8b",
             "llava-next-mistral-7b", "grok-1-314b", "longchat-7b",
-            "granite-3-2b", "deepseek-v3-671b"} <= built
+            "granite-3-2b", "deepseek-v3-671b", "mamba2-1.3b",
+            "zamba2-7b"} <= built
     assert built <= set(a for a in tbase.list_archs() if a[0] != "_")
 
 
@@ -134,13 +136,14 @@ def _tree_spec(tree):
 
 PORT_ARCHS = ["longchat-7b", "granite-3-2b", "phi3-medium-14b",
               "starcoder2-3b", "minitron-8b", "llava-next-mistral-7b",
-              "grok-1-314b"]
+              "grok-1-314b", "mamba2-1.3b", "zamba2-7b"]
 
 
 @pytest.mark.parametrize("arch", PORT_ARCHS)
 def test_init_tree_is_the_reference_tree(arch):
-    """bf16 weights: the same keys, shapes and dtypes (the router in f32),
-    from `Model.init` and through `from_reference`."""
+    """bf16 weights: the same keys, shapes and dtypes (the router and the
+    SSD blocks' A_log, D and dt_bias in f32), from `Model.init` and through
+    `from_reference`."""
     kw = dict(param_dtype="bfloat16")
     if arch == "grok-1-314b":       # shared experts: a list in the tree
         kw["moe"] = dataclasses.replace(
@@ -153,6 +156,24 @@ def test_init_tree_is_the_reference_tree(arch):
     want = _tree_spec(jtree)
     assert _tree_spec(Model(tcfg, prune, device="cpu").init(0)) == want
     assert _tree_spec(from_reference(jtree, "bfloat16")) == want
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_from_reference_keeps_the_ssm_f32_leaves(arch):
+    """Under dtype="bfloat16", A_log, D and dt_bias stay f32 with the
+    reference's values, every other SSD leaf becomes bf16."""
+    jcfg = jbase.reduced(jbase.get_config(arch), param_dtype="bfloat16")
+    jm = JaxModel(jcfg, jax_baselines.unicaim(**UNICAIM))
+    jtree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    tree = from_reference(jtree, "bfloat16")
+    seg = "seg0_ssm" if "seg0_ssm" in tree else "ssm_groups"
+    for name, want in jtree[seg]["ssm"].items():
+        got = tree[seg]["ssm"][name]
+        if name in ("A_log", "D", "dt_bias"):
+            assert got.dtype == torch.float32, name
+            np.testing.assert_array_equal(to_np(got), want)
+        else:
+            assert got.dtype == torch.bfloat16, name
 
 
 # ---------------------------------------------------------------------------

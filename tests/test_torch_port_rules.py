@@ -134,7 +134,9 @@ def test_set_inputs_name_the_winner_set():
 
 
 @pytest.mark.parametrize("nbytes,width", [(256, 16), (40, 8), (20, 4),
-                                          (6, 1), (512, 16)])
+                                          (6, 1), (512, 16),
+                                          # zamba2-7b, d = 112: bf16, int8
+                                          (224, 16), (112, 16)])
 def test_decode_kernels_copy_rows_at_their_widest_granule(nbytes, width):
     assert granule(nbytes) == width
 
@@ -178,6 +180,7 @@ def _largest_s(g, d, k, elt, nb=1):
     (1, 128, 16384, 1), (1, 128, 22528, 1),
     (12, 128, 1088, 1), (12, 128, 1088, 4),    # starcoder2-3b, served
     (6, 128, 1088, 1),                         # grok-1-314b, served
+    (1, 112, 1088, 1), (1, 112, 1088, 4),      # zamba2-7b, served
 ])
 def test_decode_shapes_fit_in_shared_memory(g, d, s, nb):
     for elt in (4, 2, 1):
@@ -187,7 +190,7 @@ def test_decode_shapes_fit_in_shared_memory(g, d, s, nb):
 @pytest.mark.parametrize("g,d,nb,floor", [
     (1, 128, 1, 22640), (1, 128, 4, 22332), (4, 64, 1, 10203),
     (4, 64, 4, 10064), (12, 128, 1, 3957), (12, 128, 4, 3900),
-    (6, 128, 1, 7354)])
+    (6, 128, 1, 7354), (1, 112, 1, 22656), (1, 112, 4, 22348)])
 def test_decode_kernels_largest_slot_count(g, d, nb, floor):
     """The largest S one CTA takes at select_k = 128 with bf16 K/V: only the
     [G + 1][S] words and two bytes a slot grow with S, and the mirror ring
@@ -355,6 +358,9 @@ def _needs_card():
     (12, 128, 1088, 128, 4, torch.bfloat16), (12, 128, 1088, 128, 4,
                                               torch.int8),
     (12, 128, 3900, 128, 4, torch.bfloat16),
+    # zamba2-7b's shared attention block: d = 112
+    (1, 112, 1088, 128, 4, torch.bfloat16), (1, 112, 1088, 128, 4,
+                                             torch.int8),
 ])
 def test_fused_kernel_matches_plain_version_on_card(g, d, s, k, nb, kv):
     _needs_card()
@@ -419,6 +425,8 @@ def test_gather_attention_kernel_matches_plain_version_on_card(g, d, kk, kv):
     (12, 128, 1088, 128, torch.bfloat16), (12, 128, 1088, 128, torch.int8),
     (12, 128, 3957, 128, torch.bfloat16), (6, 128, 1088, 128, torch.int8),
     (16, 64, 576, 64, torch.bfloat16),
+    # zamba2-7b's shared attention block: d = 112
+    (1, 112, 1088, 128, torch.bfloat16), (1, 112, 1088, 128, torch.int8),
 ])
 def test_ragged_kernel_matches_plain_version_on_card(g, d, s, k, kv):
     _needs_card()
@@ -466,6 +474,7 @@ def test_decode_smem_queries_match_the_layout_on_card():
     (1, 128, 1088, 128, torch.bfloat16), (1, 128, 1088, 128, torch.int8),
     (4, 64, 576, 64, torch.bfloat16), (4, 64, 576, 64, torch.int8),
     (12, 128, 1088, 128, torch.bfloat16), (12, 128, 1088, 128, torch.int8),
+    (1, 112, 1088, 128, torch.bfloat16), (1, 112, 1088, 128, torch.int8),
 ])
 def test_ragged_kernel_winner_set_on_card(g, d, s, k, kv):
     """Tie-heavy inputs whose out names the winner set (`_set_args`): the
@@ -491,6 +500,8 @@ def test_ragged_kernel_winner_set_on_card(g, d, s, k, kv):
     (4, 64, 576, 64, 2, torch.bfloat16), (4, 64, 576, 64, 8, torch.int8),
     (12, 128, 1088, 128, 4, torch.bfloat16),
     (12, 128, 1088, 128, 4, torch.int8),
+    (1, 112, 1088, 128, 4, torch.bfloat16), (1, 112, 1088, 128, 4,
+                                             torch.int8),
 ])
 def test_fused_kernel_winner_set_on_card(g, d, s, k, nb, kv):
     """Tie-heavy inputs whose out names the winner set (`_set_args`): each

@@ -31,12 +31,14 @@ def prune_pair(policy: str = "unicaim", **kw):
 
 
 # leaves the reference initialises to constants: zeros (LayerNorm's `b`,
-# the qkv bias `bq`/`bk`/`bv`) and ones (MLA's `q_norm`/`kv_norm`). A port
-# that never added a bias, or skipped an RMS norm's weight, would match on
-# those weights, so `model_pair` replaces them with seeded noise of this
-# scale around their constant
-ZERO_INIT_LEAVES = ("b", "bq", "bk", "bv")
-ONE_INIT_LEAVES = ("q_norm", "kv_norm")
+# the qkv bias `bq`/`bk`/`bv`, the SSD block's `A_log`, `dt_bias` and
+# `conv_b`) and ones (MLA's `q_norm`/`kv_norm`, the SSD block's `D` and its
+# gate-norm weight `norm_w`). A port that never added a bias, dropped the
+# `D` skip or skipped a norm's weight would match on those weights, so
+# `model_pair` replaces them with seeded noise of this scale around their
+# constant
+ZERO_INIT_LEAVES = ("b", "bq", "bk", "bv", "A_log", "dt_bias", "conv_b")
+ONE_INIT_LEAVES = ("q_norm", "kv_norm", "D", "norm_w")
 BIAS_NOISE = 0.1
 
 
@@ -123,3 +125,39 @@ def decode_runs(jm, jp, tm, tp, batch, teacher, greedy_steps):
     jtoks, _ = jax_greedy(jm, jp, jbatch, greedy_steps)
     ttoks, _ = greedy_generate(tm, tp, tbatch, greedy_steps, device="cpu")
     return (np.stack(jl), np.stack(tl)), (to_np(jtoks), to_np(ttoks))
+
+
+# A ServeLoop trace for the recurrent families (exact-length prefills): on
+# 2 lanes, block 4, a prefix cache, three requests (length, prompt seed,
+# max_new, priority) fill the lanes in one schedule(); then a priority-5
+# arrival preempts the lowest-priority lane, and a repeat of the 9-token
+# prompt is admitted later from the trie (an exact hit).
+TRACE_FIRST = ((16, 1, 10, 0), (12, 2, 8, 0), (9, 3, 6, 0))
+TRACE_LATER = ((16, 4, 4, 5), (9, 3, 5, 0))
+
+
+def trace_prompt(vocab: int, t: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, t)
+
+
+def drive_trace(model, params, request_cls, loop_cls, vocab, later=True,
+                **kw):
+    """Drive the trace through `loop_cls` (the reference's ServeLoop or the
+    port's, `kw` its own arguments) → (handles, loop); `later=False` leaves
+    out the later arrivals (no preemption, no hit)."""
+    loop = loop_cls(model, params, lanes=2, eos=-1, block=4,
+                    prefix_cache_bytes=64 << 20, **kw)
+
+    def submit(spec):
+        return [loop.submit(request_cls(prompt=trace_prompt(vocab, n, s),
+                                        max_new=m, priority=q))
+                for n, s, m, q in spec]
+
+    hs = submit(TRACE_FIRST)
+    loop.schedule()
+    if later:
+        hs += submit(TRACE_LATER)
+        loop.schedule()
+    loop._step_block()
+    loop.run()
+    return hs, loop
