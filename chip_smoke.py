@@ -9,8 +9,10 @@ Phases, in order (no failure is caught: any one exits non-zero):
   2. build   — every kernel of the port, built from the sources in this
                checkout (nvcc, one process per source) unless the build
                cache holds them; the registers, stack and local memory
-               (spills) of the prompt kernel's routes and the HMMA
-               (tensor-core) instructions in their SASS (cuobjdump);
+               (spills) of the prompt kernel's routes and the HMMA and
+               HGMMA (tensor-core, warpgroup) instructions in their SASS
+               (cuobjdump; the latent route must hold HGMMA and spill
+               nothing);
   3. kernels — each kernel against its plain PyTorch version on the card,
                at longchat-7b, granite-like (GQA), starcoder2-3b (G = 12),
                grok-1-314b (G = 6, ragged_decode) and zamba2-7b (d = 112)
@@ -27,7 +29,8 @@ Phases, in order (no failure is caught: any one exits non-zero):
                cores), flash_prefill's latent route at MLA's shape (128
                q-heads over one latent, d = 576, dv = 512, V a view,
                B = 2, N = 2048, lengths 2048 and 1377, obs_window 0 and
-               32; timed there and at 4 x 2048), with CUDA-event
+               32; timed there and at 4 x 2048, with and without its
+               exact rows, beside the count of exact rows), with CUDA-event
                times beside the reckoned bound (and beside the one PyTorch
                call that computes the function, where there is one);
   4. serve   — full-width longchat-7b (random bf16 weights from a seed)
@@ -138,7 +141,10 @@ Phases, in order (no failure is caught: any one exits non-zero):
                16 teacher-forced steps (under the served pruning that
                agreement is printed). Printed: wall, tok/s, TTFT, the
                MoE's drops, a decode step's wall, a profiled 4 x 2048
-               prompt pass, peak memory.
+               prompt pass, peak memory, the exact rows of every layer's
+               absorbed q and latent and the latent route's time on layer
+               0's (as served, without exact rows, the plain version).
+
  11. ssm     — Mamba2 SSD blocks at full width and depth, random bf16
                weights from the seed, after phase 10's model is freed:
                mamba2-1.3b (48 blocks, no KV cache) serves phase 4's 8
@@ -354,7 +360,7 @@ SERVED_TC = ("flash_prefill_tc_kernel<128, true>",
              "flash_prefill_tc_kernel<112, true>")
 
 
-LATENT_TC = "flash_prefill_latent_kernel<576, 512>"
+LATENT_TC = "flash_prefill_latent_kernel"
 
 
 def prompt_kernel_name(text):
@@ -363,9 +369,8 @@ def prompt_kernel_name(text):
     if m:
         return (f"flash_prefill_tc_kernel<{m.group(1)}, "
                 f"{'true' if m.group(2) == '1' else 'false'}>")
-    m = re.search(r"flash_prefill_latent_kernelILi(\d+)ELi(\d+)E", text)
-    if m:
-        return f"flash_prefill_latent_kernel<{m.group(1)}, {m.group(2)}>"
+    if "flash_prefill_latent_kernel" in text:
+        return LATENT_TC
     return "flash_prefill_f32_kernel" if "flash_prefill_f32_kernel" in text \
         else None
 
@@ -449,7 +454,7 @@ def prompt_kernel_report():
     lib = str(build.library_path("flash_prefill"))
     report = res_usage(tool, "flash_prefill", prompt_kernel_name)
     for r in report.values():
-        r["hmma"] = 0
+        r["hmma"] = r["hgmma"] = 0
     name = None
     sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -458,12 +463,14 @@ def prompt_kernel_report():
             name = prompt_kernel_name(line)
         elif name and "HMMA" in line:
             report[name]["hmma"] += 1
+        elif name and "HGMMA" in line:
+            report[name]["hgmma"] += 1
     for name in (*SERVED_TC, LATENT_TC, "flash_prefill_f32_kernel"):
         r = report.get(name, {})
         print(f"[build] {name}: {r.get('registers')} registers, "
               f"{r.get('stack_bytes')} B stack, {r.get('local_bytes')} B "
-              f"local (spills), {r.get('hmma')} HMMA instructions in its "
-              "SASS (cuobjdump)")
+              f"local (spills), {r.get('hmma')} HMMA and {r.get('hgmma')} "
+              "HGMMA (warpgroup) instructions in its SASS (cuobjdump)")
     tc = {n: r for n, r in report.items() if n.startswith("flash_prefill_tc")}
     spilled = {r["stack_bytes"] + r["local_bytes"] for r in tc.values()}
     print(f"[build] the {len(tc)} tensor-core instantiations (head dims 16 "
@@ -475,10 +482,11 @@ def prompt_kernel_report():
     for name, r in tc.items():
         assert r["hmma"] > 0, (name, "no tensor-core instruction")
         assert r["stack_bytes"] == r["local_bytes"] == 0, (name, "spills")
-    # the latent route runs on the tensor cores too; its stack and local
-    # bytes are printed and kept in the kernels line, not held to zero
-    # (its register budget is a redesign's work, ROADMAP Queue D)
-    assert report[LATENT_TC]["hmma"] > 0, LATENT_TC
+    # the latent route's products are warpgroup wgmma (HGMMA), no spill
+    latent = report[LATENT_TC]
+    assert latent["hgmma"] > 0, (LATENT_TC, "no wgmma")
+    assert latent["stack_bytes"] == latent["local_bytes"] == 0, \
+        (LATENT_TC, "spills")
     return {"compiled": {n: report[n] for n in (*SERVED_TC, LATENT_TC)}}
 
 
@@ -1083,8 +1091,42 @@ def f32_route_rounded(q, k, v, ln):
         0, 0, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), acc.data_ptr(), bh, n, n, d, d, d,
         1, 1, 0, 0, 1, ctypes.c_float(1.0 / math.sqrt(d)), ctypes.c_float(0.0),
-        torch.cuda.current_stream().cuda_stream))
+        ctypes.c_float(0.0), torch.cuda.current_stream().cuda_stream))
     return out.reshape(b, hq, n, d)
+
+
+def exact_rows(q, k, scale):
+    """The rows whose largest probability lies above 1/EXACT_BELOW (those
+    with l < EXACT_BELOW, which take exact logits) of causal attention of
+    q [B, H, N, d] over k [B, Hk, N, d] (Hk = H, or 1 for MLA's latent; q
+    cast to k's dtype first, as the kernel takes it) → (exact rows, all
+    rows). Every row counts, those at or past a length too: the kernel
+    computes them all. Logits in f32, 16 heads at a time."""
+    b, h, n, _ = q.shape
+    causal = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    count = 0
+    for bi in range(b):
+        kt = k[bi].float().transpose(-1, -2)
+        for h0 in range(0, h, 16):
+            s = torch.matmul(q[bi, h0:h0 + 16].to(k.dtype).float(),
+                             kt if kt.shape[0] == 1 else kt[h0:h0 + 16])
+            p_max = torch.softmax((s * scale).masked_fill(
+                ~causal, ref.NEG_INF), -1).amax(-1)
+            count += int((p_max > 1.0 / flash_mod.EXACT_BELOW).sum())
+            del s, p_max
+    return count, b * h * n
+
+
+def with_exact_below(value, fn, name="EXACT_BELOW"):
+    """fn() with flash_mod.EXACT_BELOW (0: no exact rows, every logit from
+    the tensor cores), or the `name` given (EXACT_P), set to `value`,
+    restored after."""
+    kept = getattr(flash_mod, name)
+    setattr(flash_mod, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(flash_mod, name, kept)
 
 
 def exact_rows_survey(seeds=range(12)):
@@ -1099,13 +1141,8 @@ def exact_rows_survey(seeds=range(12)):
         q, k, v = prompt_inputs(4, 32, 32, 2048, 128, torch.bfloat16, seed)
         want, _ = ref.prefill_attention_ref(q, k, v, length=ln)
         outs = {"served": ops.prefill_attention(q, k, v, length=ln)[0]}
-        below = flash_mod.EXACT_BELOW
-        flash_mod.EXACT_BELOW = 0.0
-        try:
-            outs["tensor-core logits only"] = ops.prefill_attention(
-                q, k, v, length=ln)[0]
-        finally:
-            flash_mod.EXACT_BELOW = below
+        outs["tensor-core logits only"] = with_exact_below(
+            0.0, lambda: ops.prefill_attention(q, k, v, length=ln)[0])
         outs["f32 route"] = f32_route_rounded(q, k, v, ln)
         line = []
         for key, out in outs.items():
@@ -1115,17 +1152,7 @@ def exact_rows_survey(seeds=range(12)):
             line.append(f"{key} {float(d_out.max()):.3g} ({n_past} past)")
         print(f"  seed {seed}, model contract max|dout|: " + ", ".join(line))
         if seed == SERVED_SEED:
-            # rows with l < EXACT_BELOW: largest probability above 1/32
-            n_exact = 0
-            causal = torch.ones((2048, 2048), dtype=torch.bool,
-                                device="cuda").tril()
-            for bi in range(4):
-                s_ = torch.matmul(q[bi].float(), k[bi].float().transpose(
-                    -1, -2)) / math.sqrt(128)
-                p_max = torch.softmax(s_.masked_fill(~causal, ref.NEG_INF),
-                                      -1).amax(-1)
-                n_exact += int((p_max > 1.0 / flash_mod.EXACT_BELOW).sum())
-                del s_, p_max
+            n_exact, _ = exact_rows(q, k, 1.0 / math.sqrt(128))
     print(f"  seeds with an output past {FLASH_OUT_ATOL}, of {len(seeds)}: "
           + ", ".join(f"{k} {v}" for k, v in past.items()) + f"; exact rows "
           f"at seed {SERVED_SEED}: {n_exact} of {4 * 32 * 2048}")
@@ -1153,91 +1180,120 @@ def latent_inputs(b, n, seed):
     return q, u, u[..., :dv]
 
 
+def latent_route_ms(q, u, v, ln, obs=0):
+    """(as served, with EXACT_BELOW = 0) card times of one latent-route
+    call (the kernel pair through its wrapper) on q [B, 128, N, 576] bf16,
+    u [B, 1, N, 576], v its view, lengths ln [B], obs_window `obs`."""
+    b, h, n, d = q.shape
+    qf, kf, vf = q.reshape(b * h, n, d), u.reshape(b, n, d), \
+        v.reshape(b, n, v.shape[-1])
+    lrep = torch.repeat_interleave(ln, h)
+    acc = torch.zeros((b, n), device="cuda")
+
+    def call():
+        flash_mod.flash_prefill(qf, kf, vf, lrep, acc, group=h, acc_group=h,
+                                obs_window=obs, scale=LATENT_SCALE)
+
+    return long_ms(call), with_exact_below(0.0, lambda: long_ms(call))
+
+
 def check_latent(obs, seed):
     """ops.prefill_attention at the latent shape (B = 2, N = 2048, lengths
     LATENT_LENS) against its plain version on the card, whose softmax
     denominators are the f32 rounding of the exact sums as the route's
     exact rows make them (`den_f64`): out within FLASH_OUT_ATOL of
     max|v|, acc within FLIP_ACC_RTOL, no mass past a length, v read as
-    the view (no copy) → (max abs error of out, max relative error of
-    acc)."""
+    the view (no copy). Held as served (sweep 2 makes an exact row's
+    logits exactly where p may reach EXACT_P) and with EXACT_P = 0 (all of
+    them exactly, the tc route's rule), both printed → the served (max abs
+    error of out, max relative error of acc)."""
     n = 2048
     q, u, v = latent_inputs(len(LATENT_LENS), n, seed)
     assert not v.is_contiguous()
     ln = torch.as_tensor(LATENT_LENS, dtype=torch.int32, device="cuda")
-    out, acc = ops.prefill_attention(q, u, v, length=ln, obs_window=obs,
-                                     scale=LATENT_SCALE)
     want, want_acc = ref.prefill_attention_ref(q, u, v, length=ln,
                                                obs_window=obs,
                                                scale=LATENT_SCALE,
                                                den_f64=True)
-    torch.cuda.synchronize()
     vmax = float(v.abs().max())
-    d_out = (out - want).abs()
-    e_out = float(d_out.max())
-    e_rel, zeros = acc_errors(acc, want_acc)
-    pads = pad_cols_zero(acc, ln)
-    print(f"  latent route B=2 Hq={LATENT_HEADS} over one latent, N={n}, "
-          f"d={q.shape[-1]}, dv={v.shape[-1]} (v a view), lengths "
-          f"{list(LATENT_LENS)}, obs={obs}, scale 1/sqrt(192), bf16: "
-          f"max|dout|={e_out:.3g} (atol {FLASH_OUT_ATOL} x max|v| "
-          f"{vmax:.3g} = {FLASH_OUT_ATOL * vmax:.3g}; "
-          f"{int((d_out > FLASH_OUT_ATOL).sum())} of {out.numel()} outputs "
-          f"past {FLASH_OUT_ATOL}), acc max rel {e_rel:.3g} (rtol "
-          f"{FLIP_ACC_RTOL:.3g}), pad columns exactly 0 {pads}")
-    assert torch.isfinite(out).all() and torch.isfinite(acc).all()
-    assert out.shape == want.shape == (2, LATENT_HEADS, n, v.shape[-1])
-    assert e_out <= FLASH_OUT_ATOL * vmax and e_rel <= FLIP_ACC_RTOL, \
-        (e_out, e_rel)
-    assert zeros and pads
-    return e_out, e_rel
+    errs = {}
+    for p_min in (flash_mod.EXACT_P, 0.0):
+        out, acc = with_exact_below(p_min, lambda: ops.prefill_attention(
+            q, u, v, length=ln, obs_window=obs, scale=LATENT_SCALE),
+            name="EXACT_P")
+        torch.cuda.synchronize()
+        d_out = (out - want).abs()
+        e_out = float(d_out.max())
+        e_rel, zeros = acc_errors(acc, want_acc)
+        pads = pad_cols_zero(acc, ln)
+        print(f"  latent route B=2 Hq={LATENT_HEADS} over one latent, N={n}, "
+              f"d={q.shape[-1]}, dv={v.shape[-1]} (v a view), lengths "
+              f"{list(LATENT_LENS)}, obs={obs}, scale 1/sqrt(192), bf16, "
+              f"exact logits where p may reach {p_min:g}: max|dout|="
+              f"{e_out:.3g} (atol {FLASH_OUT_ATOL} x max|v| {vmax:.3g} = "
+              f"{FLASH_OUT_ATOL * vmax:.3g}; "
+              f"{int((d_out > FLASH_OUT_ATOL).sum())} of {out.numel()} "
+              f"outputs past {FLASH_OUT_ATOL}), acc max rel {e_rel:.3g} "
+              f"(rtol {FLIP_ACC_RTOL:.3g}), pad columns exactly 0 {pads}")
+        assert torch.isfinite(out).all() and torch.isfinite(acc).all()
+        assert out.shape == want.shape == (2, LATENT_HEADS, n, v.shape[-1])
+        assert e_out <= FLASH_OUT_ATOL * vmax and e_rel <= FLIP_ACC_RTOL, \
+            (p_min, e_out, e_rel)
+        assert zeros and pads
+        errs[p_min] = (e_out, e_rel)
+        del out, acc
+    return errs[flash_mod.EXACT_P]
 
 
 def latent_times():
     """The latent route's times at B = 2 (LATENT_LENS) and at phase 10's
-    served prompt pass (B = 4, the served lengths), beside the bound, the
-    plain version and F.scaled_dot_product_attention (is_causal, bf16,
-    dv = 512, K and V expanded over the 128 heads, out only: no column
-    sums) on the same inputs. Returns the served shape's numbers."""
+    served prompt pass (B = 4, the served lengths), as served and with
+    EXACT_BELOW = 0 (tensor-core logits alone), beside the bound, the plain
+    version and F.scaled_dot_product_attention (is_causal, bf16, dv = 512,
+    K and V expanded over the 128 heads, out only: no column sums) on the
+    same inputs, and the exact rows of those inputs. Returns the served
+    shape's numbers."""
     d, dv = flash_mod.LATENT
     n = 2048
     rows = {}
     for b, lens in ((2, LATENT_LENS), (LANES, LENS)):
         q, u, v = latent_inputs(b, n, 9 + b)
         ln = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
-        qf, kf, vf = (q.reshape(b * LATENT_HEADS, n, d), u.reshape(b, n, d),
-                      v.reshape(b, n, dv))
-        lrep = torch.repeat_interleave(ln, LATENT_HEADS)
-        acc = torch.zeros((b, n), device="cuda")
-        ms = long_ms(lambda: flash_mod.flash_prefill(
-            qf, kf, vf, lrep, acc, group=LATENT_HEADS,
-            acc_group=LATENT_HEADS, scale=LATENT_SCALE))
+        ms, ms_tc = latent_route_ms(q, u, v, ln)
         plain = long_ms(lambda: ref.prefill_attention_ref(
             q, u, v, length=ln, scale=LATENT_SCALE, den_f64=True))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, u.expand(b, LATENT_HEADS, n, d),
             v.expand(b, LATENT_HEADS, n, dv), is_causal=True,
             scale=LATENT_SCALE), iters=5, warmup=1)
+        n_exact, n_rows = exact_rows(q, u, LATENT_SCALE)
         t, by, flops, nbytes = flash_bound(lens, LATENT_HEADS, d, 2, dv=dv,
                                            kv_heads=1)
         t_all, _, flops_all, _ = flash_bound([n] * b, LATENT_HEADS, d, 2,
                                              dv=dv, kv_heads=1)
-        # this design's tensor-core work: q.k over d made eight times (4 dv
-        # slices x 2 sweeps) and p.v once, over all N rows of every lane
-        design = b * LATENT_HEADS * n * (n + 1) / 2 * (8 * 2 * d + 2 * dv)
+        # this design's tensor-core work: q.k over d in both sweeps and p.v
+        # once, over all N rows of every lane
+        design = b * LATENT_HEADS * n * (n + 1) / 2 * (2 * 2 * d + 2 * dv)
         print(f"  time latent route B={b} N={n} lengths {list(lens)}: kernel "
-              f"pair {ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms "
-              f"({by}: {flops:.4g} flop over the rows below each length, "
+              f"pair {ms:.4f} ms, with EXACT_BELOW = 0 (tensor-core logits "
+              f"alone) {ms_tc:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} "
+              f"ms ({by}: {flops:.4g} flop over the rows below each length, "
               f"{nbytes} B; all {b} x {n} rows: {flops_all:.4g} flop, "
-              f"{t_all:.4f} ms), kernel / bound {ms / t:.1f}x; "
-              f"F.scaled_dot_product_attention(is_causal=True, K/V expanded, "
-              f"out only, no column sums): {lib:.4f} ms; this design's work "
+              f"{t_all:.4f} ms), kernel / bound {ms / t:.1f}x, kernel / "
+              f"plain {ms / plain:.3f}; F.scaled_dot_product_attention("
+              f"is_causal=True, K/V expanded, out only, no column sums): "
+              f"{lib:.4f} ms; exact rows (largest probability above "
+              f"1/{flash_mod.EXACT_BELOW:g}) {n_exact} of {n_rows} "
+              f"({n_exact / n_rows:.1%}); this design's tensor-core work "
               f"{design:.4g} flop, {design / BF16_FLOPS_PER_S * 1e3:.4f} ms "
-              f"at the bf16 peak, done at {design / ms / 1e9:.1f} TF/s")
-        rows[b] = {"ms": ms, "plain_ms": plain, "bound_ms": t,
-                   "bound_by": by, "library_ms": lib,
-                   "all_rows_bound_ms": t_all, "design_flop": design}
-        del q, u, v, qf, kf, vf
+              f"at the bf16 peak, done at {design / ms / 1e9:.1f} TF/s as "
+              f"served and {design / ms_tc / 1e9:.1f} TF/s with EXACT_BELOW "
+              f"= 0")
+        rows[b] = {"ms": ms, "no_exact_rows_ms": ms_tc, "plain_ms": plain,
+                   "bound_ms": t, "bound_by": by, "library_ms": lib,
+                   "all_rows_bound_ms": t_all, "design_flop": design,
+                   "exact_rows": n_exact, "rows": n_rows}
+        del q, u, v
     return {"served_B4": rows[LANES], "check_B2": rows[2]}
 
 
@@ -1338,13 +1394,9 @@ def phase_flash():
           f"bound {ms / t:.1f}x; library call F.scaled_dot_product_attention("
           f"is_causal=True), out only, no column sums: {lib:.4f} ms")
     # the same without exact rows: the tensor-core logits alone
-    below = flash_mod.EXACT_BELOW
-    flash_mod.EXACT_BELOW = 0.0
-    try:
-        ms_tc = cuda_ms(lambda: flash_mod.flash_prefill(
-            qf, kf, vf, lens, acc, group=1, acc_group=1))
-    finally:
-        flash_mod.EXACT_BELOW = below
+    ms_tc = with_exact_below(0.0, lambda: cuda_ms(
+        lambda: flash_mod.flash_prefill(qf, kf, vf, lens, acc, group=1,
+                                        acc_group=1)))
     print(f"  time served shape, model contract, no exact rows (every logit "
           f"on the tensor cores): kernel pair {ms_tc:.4f} ms; the exact rows "
           f"(l < {flash_mod.EXACT_BELOW:g}) add {ms - ms_tc:.4f} ms")
@@ -1377,8 +1429,11 @@ def phase_flash():
     latent = latent_times()
     latent.update(max_abs_err=latent_out, acc_max_rel_err=latent_acc,
                   out_atol=f"{FLASH_OUT_ATOL} x max|v|",
-                  design="d = 576, dv = 512, G = 128: one CTA per 128-wide "
-                         "dv slice, mma.sync m16n8k16")
+                  design="d = 576, dv = 512, G = 128: one CTA per (q-head, "
+                         "64-row q-block), two warpgroups, wgmma m64n16k16 "
+                         "(q.k) and m64n256k16 (p.v), exact logits by a "
+                         "register-tiled f32 product (sweep 2: only where p "
+                         "may reach 1/32)")
     return out_err, {"bfloat16": (ms, plain, t, by, lib),
                      "extra": {"out_atol": FLASH_OUT_ATOL,
                                "acc_max_rel_err": acc_rel,
@@ -2870,6 +2925,52 @@ def prompt_teacher(cfg, params, model, steps=16, batch=None, side=None):
     return min(kept), agree, step_ms
 
 
+def mla_latent_survey(cfg, params, model):
+    """The latent route on phase 10's own inputs: one 4 x 2048 prompt pass
+    of the served prompts with ops.prefill_attention watched, the exact
+    rows of each layer's absorbed q and latent u (`exact_rows`); then on
+    layer 0's inputs the route's time as served and with EXACT_BELOW = 0,
+    and the plain version's (f64 denominators) on the same inputs.
+    Returns those numbers."""
+    served = ops.prefill_attention
+    counts, held = [], {}
+
+    def watch(q, k, v, acc=None, **kw):
+        counts.append(exact_rows(q, k, LATENT_SCALE))
+        if not held:
+            held.update(q=q.to(k.dtype).contiguous(), u=k.contiguous(), kw=kw)
+        return served(q, k, v, acc, **kw)
+
+    ops.prefill_attention = watch
+    try:
+        model.prefill(params, served_batch(cfg))
+    finally:
+        ops.prefill_attention = served
+    torch.cuda.synchronize()
+    q, u, kw = held["q"], held["u"], held["kw"]
+    v = u[..., :flash_mod.LATENT[1]]
+    assert q.shape == (LANES, LATENT_HEADS, PROMPT_LEN, flash_mod.LATENT[0])
+    assert kw.get("row0", 0) == 0 and kw["scale"] == LATENT_SCALE, kw
+    ln = kw["length"].to(torch.int32)
+    obs = kw.get("obs_window", 0)
+    ms, ms_tc = latent_route_ms(q, u, v, ln, obs)
+    plain = long_ms(lambda: ref.prefill_attention_ref(
+        q, u, v, length=ln, obs_window=obs, scale=LATENT_SCALE,
+        den_f64=True))
+    share = [round(c / n, 5) for c, n in counts]
+    print(f"  latent route on phase 10's inputs ({cfg.name}, "
+          f"{cfg.num_layers} layers, the served prompts, lengths "
+          f"{ln.tolist()}): exact rows (largest probability above "
+          f"1/{flash_mod.EXACT_BELOW:g}) by layer {[c for c, _ in counts]} "
+          f"of {counts[0][1]} ({share}); layer 0's inputs: kernel pair "
+          f"{ms:.4f} ms, with EXACT_BELOW = 0 {ms_tc:.4f} ms, plain (f64 "
+          f"denominators) {plain:.4f} ms")
+    del held, q, u, v
+    return {"exact_rows_by_layer": [c for c, _ in counts],
+            "rows": counts[0][1], "layer0_ms": ms,
+            "layer0_no_exact_rows_ms": ms_tc, "layer0_plain_ms": plain}
+
+
 def phase_mla(smi):
     """Phase 10: deepseek-v3-671b at full width (d 7168, 128 heads, latent
     576, 256 experts of d_ff 2048 and a shared one, dense blocks of d_ff
@@ -2913,6 +3014,7 @@ def phase_mla(smi):
                 assert kept >= KEPT_MIN, (kept, KEPT_MIN)
                 if kv == "bf16":
                     phase_prefill_profile(cfg, params, model)
+                    survey = mla_latent_survey(cfg, params, model)
                 print(f"[mla] kv={kv} teacher-forced and profile "
                       f"{time.monotonic() - t:.1f}s")
             del model
@@ -2925,7 +3027,7 @@ def phase_mla(smi):
     family_done("deepseek-v3-671b", t_all, smi)
     print(f"[mla] phase 10 {time.monotonic() - t_all:.1f}s; a served decode "
           f"step's wall {step_ms:.2f} ms (int8, the last measured)")
-    return launches
+    return launches, survey
 
 
 # ---------------------------------------------------------------------------
@@ -3305,11 +3407,11 @@ def main():
           f"on the card (phase 9's models freed)")
     assert held < 1 << 30, held
     t = time.monotonic()
-    mla_launches = phase_mla(smi)
+    mla_launches, survey = phase_mla(smi)
     for name, n in mla_launches.items():
         launches[name] += n
-    timings["flash_prefill"]["extra"]["latent"]["launches"] = \
-        mla_launches["flash_prefill"]
+    timings["flash_prefill"]["extra"]["latent"].update(
+        launches=mla_launches["flash_prefill"], phase10=survey)
     print(f"[mla] phase {time.monotonic() - t:.1f}s")
 
     # 11. Mamba2 SSD blocks: mamba2-1.3b and zamba2-7b, full width and depth
@@ -3353,6 +3455,18 @@ def main():
             "launches": launches[name], "max_abs_err": worst[err], "ms": ms,
             "plain_ms": plain, "bound_ms": t_bound, "bound_by": by,
             "library_ms": lib, **timings[phase].get("extra", {})})
+    # the latent route: a kernel of its own behind the same wrapper (its
+    # launches, phase 10's, are within flash_prefill's count too)
+    lat = timings["flash_prefill"]["extra"]["latent"]
+    b4 = lat["served_B4"]
+    table.append({
+        "name": "flash_prefill_latent", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill.py:105",
+        "launches": lat["launches"], "max_abs_err": lat["max_abs_err"],
+        "ms": b4["ms"], "plain_ms": b4["plain_ms"],
+        "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+        "library_ms": b4["library_ms"]})
     print(json.dumps({"kernels": table}))
     print(f"[done] {time.monotonic() - t_all:.1f}s total")
     print(smi)

@@ -15,8 +15,9 @@ below `EXACT_BELOW` take their logits from f32 FMAs in the plain version's
 order instead of the tensor cores (the source note says why). MLA's
 absorbed prompt pass (d = 576 over the latent, dv = 512: `LATENT`) takes
 a third kernel, `flash_prefill_latent_kernel`: bf16, the model's contract,
-one CTA per 128-wide slice of dv; its V may be a view of K's first dv
-columns (rows `v.stride(1)` elements apart), so nothing is copied.
+one CTA per (q-head, 64-row q-block) with both products on warpgroup
+`wgmma`; its V is the view of K's first dv columns, which the kernel reads
+from the latent tiles it loads for K, so nothing is copied.
 
   q       [BH, C, d]        f32 | bf16   queries of absolute rows
                                          [row0, row0 + C)
@@ -48,6 +49,12 @@ KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
 # exact logits on the bf16 route, model contract; chip_smoke.py sets it to
 # 0 for a moment to time and check the tensor-core logits alone
 EXACT_BELOW = 32.0
+# the latent route's sweep 2 makes an exact row's logits exactly where its
+# probability may reach this, and takes the tensor cores' elsewhere (p below
+# it: a bf16 flip moves out by at most 2^-13 |v|); 0 makes all of them
+# exactly, as the tc route does. chip_smoke.py sets it to 0 for a moment to
+# measure the rule's error
+EXACT_P = 1.0 / 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -56,28 +63,28 @@ def _bind(lib):
     fn = lib.flash_prefill_launch
     if fn.argtypes is None:
         fn.argtypes = [_I, _I] + [_P] * 7 + [_I] * 11 \
-            + [ctypes.c_float] * 2 + [_P]
+            + [ctypes.c_float] * 3 + [_P]
         fn.restype = _I
         lib.flash_prefill_smem_bytes.argtypes = [_I, _I, _I]
         lib.flash_prefill_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def _check_v_rows(v, shape, dtype, dev) -> int:
-    """The latent route's V: `shape` and `dtype` on `dev`, each row
-    contiguous and 16-byte aligned, rows evenly spaced (a view of K's first
-    dv columns passes). Returns its row stride in elements."""
-    ld = v.stride(1)
+def _check_latent_v(v, k, shape, dtype, dev) -> int:
+    """The latent route's V: `shape` and `dtype` on `dev`, and the view of
+    K's first dv columns (the kernel reads V from the latent tiles it
+    loads for K). Returns its row stride in elements, K's row width."""
     if (tuple(v.shape) != tuple(shape) or v.dtype != dtype
             or v.device != dev):
         raise ValueError(f"flash_prefill: v is {tuple(v.shape)} {v.dtype} "
                          f"on {v.device}, expected {tuple(shape)} {dtype} "
                          f"on {dev}")
-    if v.stride(2) != 1 or ld < shape[2] or ld % 8 or (
-            v.stride(0) != shape[1] * ld and shape[0] > 1):
-        raise ValueError(f"flash_prefill: v's strides {v.stride()} are not "
-                         "evenly spaced rows of 16-byte multiples")
-    return ld
+    n, d = k.shape[1], k.shape[2]
+    if v.data_ptr() != k.data_ptr() or v.stride(1) != d or v.stride(2) != 1 \
+            or (shape[0] > 1 and v.stride(0) != n * d):
+        raise ValueError("flash_prefill: the latent route reads V from K's "
+                         "rows: v must be the view k[..., :dv]")
+    return d
 
 
 def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
@@ -92,7 +99,7 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
     run on the tensor cores, f32 inputs on the CUDA cores; (d, dv) =
     `LATENT` runs the latent route, bf16 and the model's contract only.
     Raises on a tensor that is not contiguous on the CUDA card (the latent
-    route's v: whose rows are not evenly spaced), on a bf16 tensor that
+    route's v: that is not the view k[..., :dv]), on a bf16 tensor that
     does not start 16-byte aligned (the route's cp.async copies), on a
     shape or dtype the kernel does not take, and when the launch fails."""
     bh, c, d = q.shape
@@ -104,12 +111,9 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
         "k": (k, (bh // group, n, d), q.dtype),
         "lengths": (lengths, (bh,), torch.int32),
         "acc": (acc, (bh // acc_group, n), torch.float32)}, dev)
-    if latent:
-        v_ld = _check_v_rows(v, (bh // group, n, dv), q.dtype, dev)
-    else:
+    if not latent:
         build.check_tensors("flash_prefill",
                             {"v": (v, (bh // group, n, dv), q.dtype)}, dev)
-        v_ld = dv
     if q.dtype not in KV_KIND:
         raise TypeError(f"flash_prefill: dtype {q.dtype} not in "
                         f"{list(KV_KIND)}")
@@ -119,6 +123,8 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
     if latent and (q.dtype != torch.bfloat16 or not model):
         raise ValueError(f"flash_prefill: the latent route (d, dv) = "
                          f"{LATENT} takes bf16 under the model's contract")
+    v_ld = (_check_latent_v(v, k, (bh // group, n, dv), q.dtype, dev)
+            if latent else dv)
     if not latent and (d % 16 or d > MAX_D or dv != d):
         raise ValueError(f"flash_prefill: head dims (d, dv) = ({d}, {dv}): "
                          f"d must be a multiple of 16 up to {MAX_D} with "
@@ -147,7 +153,7 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
             v.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
             acc.data_ptr(), bh, c, n, d, dv, v_ld, group, acc_group, row0,
             obs_window, round_p, ctypes.c_float(scale),
-            ctypes.c_float(EXACT_BELOW),
+            ctypes.c_float(EXACT_BELOW), ctypes.c_float(EXACT_P),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("flash_prefill", rc)
     LAUNCHES["flash_prefill"] += 1

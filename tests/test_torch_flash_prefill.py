@@ -621,6 +621,297 @@ def test_tc_emulation_at_a_latent_shape(c):
     assert torch.equal(torch.cat(outs, dim=1), out)
 
 
+# ---------------------------------------------------------------------------
+# a blocked emulation of the latent route (wgmma, one CTA per q-head and
+# q-block)
+# ---------------------------------------------------------------------------
+
+LAT_BK = 32                              # key columns per latent tile
+LAT_WG_KEYS = LAT_BK // 2                # each warpgroup's keys of a tile
+
+
+def latent_logits(qt, kx, scale):
+    """The latent kernel's two logits of q rows qt [BH, R, d] against keys
+    kx [BH, N, d] (bf16 values in f32) → (tensor-core, exact), both scaled
+    in f32. Tensor cores: the f32 rounding of the exact sum of the bf16
+    products (their order and truncation move it by a few ulps more on the
+    card). Exact: an f32 FMA chain over d in order from zero (a bf16
+    product is exact in f32, so each FMA is one f32 add)."""
+    s_tc = torch.matmul(qt.double(), kx.double().transpose(1, 2)).float()
+    s_ex = torch.zeros_like(s_tc)
+    for i in range(qt.shape[-1]):
+        s_ex = s_ex + qt[..., i, None] * kx[:, None, :, i]
+    return s_tc * scale, s_ex * scale
+
+
+def latent_exact_threshold(m, den, exact_p):
+    """The kernel's `exact_threshold`: the logit above which an exact row's
+    p = exp(x - m) / den may reach exact_p, less its margin; -1e29 (every
+    logit, no masked one) when exact_p is 0."""
+    if exact_p == 0:
+        return torch.full_like(m, -1e29)
+    log_p = float(np.float32(math.log(exact_p)))
+    return (m + torch.log(den) + log_p) - (1.0 / 64 + m.abs() / 512)
+
+
+def emulate_latent_kernel(q, k, v, lengths, acc, *, group, acc_group, row0=0,
+                          obs_window=0, scale=None, exact_below=None,
+                          exact_p=None):
+    """The latent route of `csrc/flash_prefill.cu`
+    (`flash_prefill_latent_kernel` and the column fold), tile for tile, on
+    bf16 inputs: per 64-row q-block, the 32-key tiles its last row sees.
+    Sweep 1: each warpgroup's online row statistics over its 16 keys of
+    every tile, combined in warpgroup order. Rows with l below
+    `exact_below` (default EXACT_BELOW) take the exact max of their exact
+    logits and the f64 sum of exp(x - max), rounded to f32. Sweep 2: an
+    exact row's logit is its exact one where the tensor-core logit lies at
+    or above `latent_exact_threshold` (p may reach `exact_p`, default
+    EXACT_P), else the tensor-core one, as are all logits of the other
+    rows; p = exp(s - m) / den rounded to bf16, each tile's column sums
+    per 16-row warp (`warp_column_sums`), then over the 4 warps in warp
+    order, into the q-block's partial; out += p v. The partial is zero
+    past the 32-key tiles up to the 64-column tiles' reach, and the fold
+    adds the partials into acc in q-block, then head order. The logits
+    are `latent_logits`'."""
+    assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+    bh, c, d = q.shape
+    n, dv = k.shape[1], v.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    below = flash_mod.EXACT_BELOW if exact_below is None else exact_below
+    exact_p = flash_mod.EXACT_P if exact_p is None else exact_p
+    nqb = math.ceil(c / BQ)
+    kx = k.float()[torch.arange(bh) // group]
+    vx = v.float()[torch.arange(bh) // group]
+    part = torch.zeros((bh, nqb, n))
+    out = torch.zeros((bh, c, dv))
+    lengths = lengths.long()
+    col = torch.arange(n)
+    for qb in range(nqb):
+        r_lo = qb * BQ
+        rows = min(BQ, c - r_lo)
+        qt = torch.zeros((bh, BQ, d))
+        qt[:, :rows] = q[:, r_lo:r_lo + rows].float()
+        row = row0 + r_lo + torch.arange(BQ)
+        counts = ((torch.arange(BQ) < rows)[None]
+                  & (row[None] < lengths[:, None]))
+        if obs_window > 0:
+            counts &= row[None] >= lengths[:, None] - obs_window
+        ntiles = (row0 + r_lo + rows - 1) // LAT_BK + 1
+        seen = col[None, :] <= row[:, None]
+        s_all, s_ex = (torch.where(seen, x, torch.full_like(x, NEG_INF))
+                       for x in latent_logits(qt, kx, scale))
+        m = torch.full((2, bh, BQ), NEG_INF)
+        l_ = torch.zeros((2, bh, BQ))
+        for kt in range(ntiles):                       # sweep 1
+            for w in range(2):
+                c0 = kt * LAT_BK + w * LAT_WG_KEYS
+                sw = s_all[..., c0:c0 + LAT_WG_KEYS]
+                if sw.shape[-1] < LAT_WG_KEYS:         # keys past N: masked
+                    sw = torch.cat([sw, torch.full(
+                        sw.shape[:-1] + (LAT_WG_KEYS - sw.shape[-1],),
+                        NEG_INF)], -1)
+                m_new = torch.maximum(m[w], sw.amax(-1))
+                l_[w] = l_[w] * torch.exp(m[w] - m_new) + torch.exp(
+                    sw - m_new[..., None]).sum(-1)
+                m[w] = m_new
+        mx = torch.maximum(m[0], m[1])
+        l_tc = (l_[0] * torch.exp(m[0] - mx)
+                + l_[1] * torch.exp(m[1] - mx))
+        exact = (l_tc < below) & (torch.arange(BQ) < rows)[None]
+        m_ex = s_ex.amax(-1)
+        den_ex = torch.exp(s_ex - m_ex[..., None]).sum(
+            -1, dtype=torch.float64).float()
+        mrow = torch.where(exact, m_ex, mx)
+        den = torch.clamp(torch.where(exact, den_ex, l_tc), min=1e-30)
+        thr = torch.where(exact, latent_exact_threshold(m_ex, den, exact_p),
+                          torch.full_like(m_ex, math.inf))
+        s_all = torch.where(s_all >= thr[..., None], s_ex, s_all)
+        o = torch.zeros((bh, BQ, dv))
+        for kt in range(ntiles):                       # sweep 2
+            c0 = kt * LAT_BK
+            nv = min(LAT_BK, n - c0)
+            p = (torch.exp(s_all[..., c0:c0 + nv] - mrow[..., None])
+                 / den[..., None]).to(torch.bfloat16).float()
+            pw = p * counts.float()[..., None]
+            cs = warp_column_sums(pw[:, :WARP_ROWS])
+            for wi in range(1, BQ // WARP_ROWS):       # warp order
+                cs = cs + warp_column_sums(
+                    pw[:, wi * WARP_ROWS:(wi + 1) * WARP_ROWS])
+            part[:, qb, c0:c0 + nv] = cs
+            o = o + torch.matmul(p, vx[:, c0:c0 + nv])
+        out[:, r_lo:r_lo + rows] = o[:, :rows]
+    parts = part.reshape(bh // acc_group, acc_group, nqb, n)
+    for qb in range(nqb):                              # the fold
+        reach = ((row0 + min((qb + 1) * BQ, c) - 1) // BK + 1) * BK
+        for g in range(acc_group):
+            acc[:, :reach] += parts[:, g, qb, :reach]
+    return out
+
+
+def _latent_shape_inputs(seed):
+    """The latent contract at a small shape: 16 q-heads over one latent of
+    d = 40, V the view of its first 32 columns, scale 1/sqrt(24), lengths
+    200 and 131."""
+    b, hq, n, d, dv = 2, 16, 200, 40, 32
+    q, u, _ = _model_inputs(b, hq, 1, n, d, seed, torch.bfloat16)
+    ln = torch.as_tensor([n, 131], dtype=torch.int32)
+    return q, u, u[..., :dv], ln, 1.0 / math.sqrt(24)
+
+
+@pytest.mark.parametrize("obs", [0, 24])
+def test_latent_emulation_matches_plain_version(obs):
+    """The redesigned latent route's arithmetic against its plain version
+    (f64 denominators) at the card's tolerances: out within 1e-3 of
+    max|v|, acc within 2^-7, no mass past a length; the inputs hold both
+    exact rows and rows past EXACT_BELOW."""
+    q, u, v, ln, scale = _latent_shape_inputs(21 + obs)
+    b, hq, n, d = q.shape
+    dv = v.shape[-1]
+    acc = torch.zeros((b, n))
+    out = emulate_latent_kernel(
+        q.reshape(b * hq, n, d), u.reshape(b, n, d), v.reshape(b, n, dv),
+        ln.repeat_interleave(hq), acc, group=hq, acc_group=hq,
+        obs_window=obs, scale=scale)
+    want, want_acc = ref.prefill_attention_ref(q, u, v, length=ln,
+                                               obs_window=obs, scale=scale,
+                                               chunk=64, den_f64=True)
+    torch.testing.assert_close(out.reshape(b, hq, n, dv), want, rtol=0,
+                               atol=TC_OUT_ATOL * float(v.abs().max()))
+    torch.testing.assert_close(acc.reshape(b, 1, n), want_acc,
+                               rtol=TC_MODEL_ACC_RTOL, atol=0)
+    for bi in range(b):
+        assert not acc[bi, int(ln[bi]):].any()
+    s = torch.matmul(q.float(), u.float().transpose(-1, -2)) * scale
+    causal = torch.ones((n, n), dtype=torch.bool).tril()
+    l_ = torch.softmax(s.masked_fill(~causal, NEG_INF), -1).amax(-1)
+    exact = l_ > 1.0 / flash_mod.EXACT_BELOW
+    assert exact.any() and not exact.all()
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_latent_emulation_chunked_equals_whole_bit_for_bit(c):
+    """Chunks of 64 and 128 rows, their column sums added into one acc,
+    give the whole prompt's column sums and outputs bit for bit on the
+    redesigned latent route: a q-block's tiles, statistics, exact rows and
+    column-sum order depend on its own rows alone."""
+    q, u, v, ln, scale = _latent_shape_inputs(5)
+    b, hq, n, d = q.shape
+    dv = v.shape[-1]
+    qf, uf, vf = q.reshape(b * hq, n, d), u.reshape(b, n, d), \
+        v.reshape(b, n, dv)
+    lens = ln.repeat_interleave(hq)
+    acc_w = torch.zeros((b, n))
+    out_w = emulate_latent_kernel(qf, uf, vf, lens, acc_w, group=hq,
+                                  acc_group=hq, obs_window=24, scale=scale)
+    acc_c = torch.zeros_like(acc_w)
+    outs = [emulate_latent_kernel(qf[:, r0:r0 + c].contiguous(), uf, vf,
+                                  lens, acc_c, group=hq, acc_group=hq,
+                                  row0=r0, obs_window=24, scale=scale)
+            for r0 in range(0, n, c)]
+    assert torch.equal(acc_c, acc_w)
+    assert torch.equal(torch.cat(outs, dim=1), out_w)
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.0, 2.0])
+def test_latent_sweep2_threshold_keeps_large_probabilities_exact(scale):
+    """Sweep 2 of the latent route makes an exact row's logit exactly only
+    at or above `exact_threshold`. Every probability of such a row whose
+    logit, moved by up to half the margin (far more than the tensor cores
+    move it), lies below the threshold stays below 1/32, so a bf16 flip
+    there moves out by at most 2^-13 |v|; the flagged logits per row stay
+    few (at most 32 probabilities reach 1/32)."""
+    rng = np.random.default_rng(int(4 * scale))
+    s = torch.as_tensor(rng.standard_normal((4096, 700)) * scale * 3,
+                        dtype=torch.float32)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True, dtype=torch.float64).float()
+    exact = (den < flash_mod.EXACT_BELOW)[:, 0]
+    assert exact.any()
+    s, m, den = s[exact], m[exact], den[exact]
+    thr = latent_exact_threshold(m, den, flash_mod.EXACT_P)
+    margin = 1.0 / 64 + m.abs() / 512
+    u = torch.as_tensor(rng.uniform(-0.5, 0.5, tuple(s.shape)),
+                        dtype=torch.float32)
+    moved = s + u * margin
+    p = torch.exp(s - m) / den
+    assert p[moved < thr].max() < 1.0 / 32
+    flagged = (moved >= thr).sum(-1)
+    assert flagged.min() >= 1 and flagged.max() <= 40
+
+
+@pytest.mark.parametrize("obs", [0, 24])
+def test_latent_emulation_sweep2_rule_against_all_exact_logits(obs):
+    """Sweep 2's rule as the card runs it (an exact row's logits exact only
+    where p may reach EXACT_P, tensor-core ones below) against EXACT_P = 0
+    (every logit of an exact row exact, the tc route's rule): both hold to
+    the plain version at the card's tolerances; the rule is live here (out
+    differs); an exact row's probabilities whose logit came from the
+    tensor cores all lie below EXACT_P; and out parts by at most one bf16
+    ulp of EXACT_P / 2 (2^-13) times max|v| for each probability of its
+    row that rounded another way. (Such flips are rare, a few in 6e5
+    logits taken from the tensor cores; seed 22 holds five.)"""
+    q, u, v, ln, scale = _latent_shape_inputs(22)
+    b, hq, n, d = q.shape
+    dv = v.shape[-1]
+    args = (q.reshape(b * hq, n, d), u.reshape(b, n, d), v.reshape(b, n, dv),
+            ln.repeat_interleave(hq))
+    want, want_acc = ref.prefill_attention_ref(q, u, v, length=ln,
+                                               obs_window=obs, scale=scale,
+                                               chunk=64, den_f64=True)
+    vmax = float(v.abs().max())
+    outs = {}
+    for p_min in (flash_mod.EXACT_P, 0.0):
+        acc = torch.zeros((b, n))
+        out = emulate_latent_kernel(*args, acc, group=hq, acc_group=hq,
+                                    obs_window=obs, scale=scale,
+                                    exact_p=p_min).reshape(b, hq, n, dv)
+        torch.testing.assert_close(out, want, rtol=0,
+                                   atol=TC_OUT_ATOL * vmax)
+        torch.testing.assert_close(acc.reshape(b, 1, n), want_acc,
+                                   rtol=TC_MODEL_ACC_RTOL, atol=0)
+        outs[p_min] = out
+    # the exact rows and their probabilities, as the emulation makes them
+    s_tc, s_ex = latent_logits(args[0].float(), u.reshape(b, n, d).float()
+                               .repeat_interleave(hq, 0), scale)
+    causal = torch.ones((n, n), dtype=torch.bool).tril()
+    s_tc, s_ex = (x.masked_fill(~causal, NEG_INF) for x in (s_tc, s_ex))
+    exact = torch.softmax(s_tc, -1).amax(-1) > 1.0 / flash_mod.EXACT_BELOW
+    m = s_ex.amax(-1)
+    den = torch.exp(s_ex - m[..., None]).sum(-1, dtype=torch.float64).float()
+    thr = latent_exact_threshold(m, den, flash_mod.EXACT_P)
+    p = torch.exp(s_ex - m[..., None]) / den[..., None]
+    from_tc = exact[..., None] & (s_tc < thr[..., None]) & causal
+    assert from_tc.any() and (s_tc != s_ex)[from_tc].any()
+    assert p[from_tc].max() < flash_mod.EXACT_P
+    p_tc = torch.exp(s_tc - m[..., None]) / den[..., None]
+    flips = ((p_tc.to(torch.bfloat16) != p.to(torch.bfloat16))
+             & from_tc).sum(-1).reshape(b, hq, n)
+    diff = (outs[flash_mod.EXACT_P] - outs[0.0]).abs().amax(-1)
+    assert diff.max() > 0
+    assert (diff <= flips * 2.0 ** -13 * vmax * (1 + 1e-6)).all()
+
+
+def test_latent_emulation_exact_rows_take_the_f64_denominator():
+    """With every row exact, the emulation's probabilities divide by the
+    f64 sums' rounding, as the plain version with `den_f64` does: out
+    then matches it more closely than with no exact row."""
+    q, u, v, ln, scale = _latent_shape_inputs(8)
+    b, hq, n, d = q.shape
+    dv = v.shape[-1]
+    args = (q.reshape(b * hq, n, d), u.reshape(b, n, d), v.reshape(b, n, dv),
+            ln.repeat_interleave(hq))
+    want, _ = ref.prefill_attention_ref(q, u, v, length=ln, scale=scale,
+                                        den_f64=True)
+    errs = []
+    for below in (float("inf"), 0.0):
+        out = emulate_latent_kernel(*args, torch.zeros((b, n)), group=hq,
+                                    acc_group=hq, scale=scale,
+                                    exact_below=below)
+        errs.append(float((out.reshape(b, hq, n, dv) - want).abs().max()))
+    assert errs[0] < errs[1], errs
+
+
 # on a card: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -857,6 +1148,10 @@ def test_latent_route_refuses_what_it_does_not_take_on_card():
         flash_mod.flash_prefill(qf.float(), kf.float(),
                                 kf.float()[..., :LATENT_DV], lens, acc,
                                 group=4, acc_group=4)
+    with pytest.raises(ValueError, match="latent route reads V from K's "
+                                         "rows"):
+        flash_mod.flash_prefill(qf, kf, kf[..., :LATENT_DV].contiguous(),
+                                lens, acc, group=4, acc_group=4)
     with pytest.raises(ValueError, match="head dims"):
         flash_mod.flash_prefill(qf[..., :128].contiguous(),
                                 kf[..., :128].contiguous(),

@@ -264,6 +264,84 @@ def test_latent_attend_ignores_select_mode_blocks_and_accumulate(kv):
         np.testing.assert_array_equal(tq, tl, err_msg=variant)
 
 
+def _latent_ulp_signs(shape):
+    """±1 from a numpy seed: the direction each latent value moves."""
+    return np.where(np.random.default_rng(22).random(shape) < 0.5, -1.0,
+                    1.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _perturbed(variant, kv):
+    """The prompt pass with every latent row moved by one bf16 ulp of each
+    value (2^(e - 8) for u = m 2^e, m in [0.5, 1); signs from
+    `_latent_ulp_signs`), through `_latents` in each package, then STEPS
+    steps fed the reference's clean greedy tokens (`_greedy`) → (reference
+    logits, port logits [1 + STEPS, B, V])."""
+    jm, tm = _models(variant, kv)
+    _, _, tree = _weights()
+    jp, tp = jax.tree.map(jnp.asarray, tree), from_reference(tree)
+    tokens, length = _prompts(tm.cfg.vocab_size)
+    _, _, teacher, _ = _greedy(variant, kv)
+    j_lat, t_lat = jmla._latents, mla._latents
+
+    def j_moved(*a, **kw):
+        u = j_lat(*a, **kw)
+        _, e = jnp.frexp(u)
+        return u + jnp.asarray(_latent_ulp_signs(u.shape)) * jnp.ldexp(
+            jnp.ones_like(u), e - 8)
+
+    def t_moved(*a, **kw):
+        u = t_lat(*a, **kw)
+        _, e = torch.frexp(u)
+        return u + torch.as_tensor(_latent_ulp_signs(tuple(u.shape))) * \
+            torch.ldexp(torch.ones_like(u), e - 8)
+
+    jmla._latents, mla._latents = j_moved, t_moved
+    try:                                 # a fresh trace sees the patch
+        jlog, jst = jax.jit(jm.prefill)(
+            jp, {"tokens": jnp.asarray(tokens),
+                 "length": jnp.asarray(length)})
+        tlog, tst = tm.prefill(tp, {"tokens": torch.as_tensor(tokens),
+                                    "length": torch.as_tensor(length)})
+    finally:
+        jmla._latents, mla._latents = j_lat, t_lat
+    step = _decode_step_fn(_model_key(jm))
+    jl, tl = [np.asarray(jlog)], [to_np(tlog)]
+    for tok in teacher:
+        lj, jst = step(jp, jst, jnp.asarray(tok))
+        lt, tst = tm.decode_step(tp, tst, torch.as_tensor(tok))
+        jl.append(np.asarray(lj))
+        tl.append(to_np(lt))
+    return np.stack(jl), np.stack(tl)
+
+
+@pytest.mark.parametrize("variant,kv", [("topk", "bf16"), ("topk", "int8"),
+                                        ("dense", "bf16")])
+def test_one_ulp_latent_perturbation_moves_both_packages_alike(variant, kv):
+    """Whether MLA under unicaim is as sensitive in the reference as in
+    the port: one prompt pass's latent rows moved by one bf16 ulp, then
+    the clean run's tokens fed to both states. Teacher-forced top-1 of the
+    perturbed run against the clean one agrees equally often in both
+    packages: under unicaim the 4-bit CAM race turns the moved latents
+    into other winners and other tokens in the reference as in the port,
+    under the dense policy every step agrees. So the card's 45 / 42 of 64
+    under unicaim measure the race's sensitivity, not the kernel's."""
+    jl, tl, _, _ = _greedy(variant, kv)
+    jp_, tp_ = _perturbed(variant, kv)
+    agree_j = int((jl[1:].argmax(-1) == jp_[1:].argmax(-1)).sum())
+    agree_t = int((tl[1:].argmax(-1) == tp_[1:].argmax(-1)).sum())
+    assert agree_t == agree_j
+    total = STEPS * len(LENGTHS)
+    if VARIANTS[variant][0] == "dense":
+        assert agree_j == total
+        assert np.abs(jp_ - jl).max() < 0.5
+    else:
+        assert agree_j < total
+        assert np.abs(jp_ - jl).max() > 1.0
+    if kv == "bf16":                     # the perturbed runs: one function
+        np.testing.assert_allclose(tp_, jp_, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_active_mask_freezes_a_lane_like_decode_block_masked(weights, kv):
     """Three steps with lane 1 inactive: lane 1's cache is the prefilled
