@@ -15,11 +15,12 @@ Phases, in order (no failure is caught: any one exits non-zero):
                nothing);
   3. kernels — each kernel against its plain PyTorch version on the card,
                at longchat-7b, granite-like (GQA), starcoder2-3b (G = 12),
-               grok-1-314b (G = 6, ragged_decode) and zamba2-7b (d = 112)
-               decode shapes, bf16 and int8 K/V (the decode kernels' G = 12
-               and d = 112 times with L2 cold beside the served shape's),
-               flash_prefill with group 12 and at d = 112 (timed at
-               zamba2-7b's 4 x 2048 prompt shape),
+               grok-1-314b (G = 6, ragged_decode), zamba2-7b (d = 112) and
+               whisper-base (d = 64, G = 1) decode shapes, bf16 and int8
+               K/V (the decode kernels' G = 12, d = 112 and d = 64 times
+               with L2 cold beside the served shape's), flash_prefill with
+               group 12, at d = 112 and at d = 64 (timed at zamba2-7b's and
+               whisper-base's 4 x 2048 prompt shapes),
                and flash_prefill at the served prompt shape
                (4 x 2048, both contracts, lengths, obs_window, a row0
                chunk, chunked-vs-whole column sums bit for bit; bf16 on
@@ -172,6 +173,34 @@ Phases, in order (no failure is caught: any one exits non-zero):
                flash_prefill's by the profiler), the prefix cache's
                exact-hit splice of a repeated prompt (its wall and bytes,
                SSM state apart), peak memory.
+ 12. encdec  — whisper-base (the enc-dec family: 6 encoder blocks of
+               bidirectional attention over a seeded [4, 1500, 512]
+               enc_embed, 6 decoder blocks of pruned self-attention, cross-
+               attention and MLP; 8 heads of d = 64, vocab 51,865) at full
+               width and depth, random bf16 weights from the seed, after
+               phase 11's models are freed, through the CLI's path
+               (`Model.prefill`, then 32 greedy tokens through
+               `decode_block`; `ServeLoop` admits token prompts only) under
+               unicaim(heavy=1024, reserve=64, select_k=128), bf16 and int8
+               KV, select_blocks 1 and 4, four equal prompts of 2,048 tokens
+               (the static top-k prunes) and of 448 (whisper's own decoder
+               context: the cache keeps every row). Held: flash_prefill
+               launches 6 times a prompt pass and no decode kernel,
+               ragged_decode / fused_decode 6 times a decode step and the
+               other never, no plain prompt attention on the card, every
+               lane's cache step equals its prompt length after the
+               prefill; at 2,048 tokens the prompt pass through
+               flash_prefill and through its plain version keep at least
+               KEPT_MIN of each of the 6 caches' positions (bf16 and int8;
+               at 448 both keep every row, so it is not checked there); the
+               decode kernel's path and the composed one, teacher-forced
+               from the 2,048-token state, agree on top-1 at least
+               TEACHER_AGREE_MIN of 64 times (from the 448-token states,
+               printed only). Printed: wall, tok/s, TTFT,
+               the cross K/V's bytes, a 4 x 2048 prompt pass profiled (the
+               encoder's share by CUDA events around `Model._encode`,
+               flash_prefill's by the profiler), a decode step's wall,
+               kernel time and launches, peak memory.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -213,7 +242,8 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_decode as ragged_mod  # noqa: E402
 from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
                                       ServeLoop, _next_token_lanes,
-                                      bucket_length, decode_block_lanes,
+                                      bucket_length, decode_block,
+                                      decode_block_lanes,
                                       greedy_generate, gumbel_noise)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -354,10 +384,12 @@ def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 # the served instantiations: head dim 128, bf16-rounded (model contract)
-# and f32 (TPU contract) probabilities; zamba2-7b's shared block at 112
+# and f32 (TPU contract) probabilities; zamba2-7b's shared block at 112;
+# whisper-base's decoder at 64
 SERVED_TC = ("flash_prefill_tc_kernel<128, true>",
              "flash_prefill_tc_kernel<128, false>",
-             "flash_prefill_tc_kernel<112, true>")
+             "flash_prefill_tc_kernel<112, true>",
+             "flash_prefill_tc_kernel<64, true>")
 
 
 LATENT_TC = "flash_prefill_latent_kernel"
@@ -617,6 +649,8 @@ def phase_ragged():
         ("grok G=6", 4 * 8, 6, 128, 1088, 128),
         # zamba2-7b's shared attention block, served
         ("zamba2 d=112 S=1088", 4 * 32, 1, 112, 1088, 128),
+        # whisper-base's decoder self-attention, served
+        ("whisper d=64 S=1088", 4 * 8, 1, 64, 1088, 128),
     ]
     worst = 0.0
     for (ci, (name, bh, g, d, s, k)), kv, make in itertools.product(
@@ -672,6 +706,10 @@ def phase_ragged():
         ragged_mod.ragged_decode(fl, *a, select_k=128)),
         lambda fl, *a: ref.fused_decode_ref(*a, select_k=128),
         lambda fl, a: ragged_bound(fl, a, 128))
+    timings["d64"] = d64_times("ragged_decode", lambda fl, *a: (
+        ragged_mod.ragged_decode(fl, *a, select_k=128)),
+        lambda fl, *a: ref.fused_decode_ref(*a, select_k=128),
+        lambda fl, a: ragged_bound(fl, a, 128))
     return worst, timings
 
 
@@ -694,6 +732,18 @@ def d112_times(name, call, plain, bound_of):
     d = 112, G = 1, S = 1088, the served fills."""
     return shape_times(name, "zamba2-7b", 128, 1, 112, MAIN_FILLS, 60, call,
                        plain, bound_of)
+
+
+# whisper-base's served decode: 4 lanes x 8 heads of d = 64, G = 1, four
+# equal 2,048-token prompts pruned to 1,024 rows, 16 steps in
+WHISPER_FILLS = [1040] * (4 * 8)
+
+
+def d64_times(name, call, plain, bound_of):
+    """The same at whisper-base's served decode shape: BH = 32, d = 64,
+    G = 1, S = 1088."""
+    return shape_times(name, "whisper-base", 32, 1, 64, WHISPER_FILLS, 80,
+                       call, plain, bound_of)
 
 
 def shape_times(name, model, bh, g, d, fills, seed, call, plain, bound_of):
@@ -754,6 +804,7 @@ def phase_fused():
         ("granite-like GQA S=8256", 8, 4, 64, 8256, 128),
         ("starcoder2 G=12 S=1088", 4 * 2, 12, 128, 1088, 128),
         ("zamba2 d=112 S=1088", 4 * 32, 1, 112, 1088, 128),
+        ("whisper d=64 S=1088", 4 * 8, 1, 64, 1088, 128),
     ]
     worst = 0.0
     for (ci, (name, bh, g, d, s, k)), kv, make in itertools.product(
@@ -819,6 +870,10 @@ def phase_fused():
         lambda fl, *a: ref.fused_decode_ref(*a, select_k=128, num_blocks=4),
         lambda fl, a: fused_bound(a, 128, 4))
     timings["d112"] = d112_times("fused_decode nb=4", lambda fl, *a: (
+        fused_mod.fused_decode(*a, select_k=128, num_blocks=4)),
+        lambda fl, *a: ref.fused_decode_ref(*a, select_k=128, num_blocks=4),
+        lambda fl, a: fused_bound(a, 128, 4))
+    timings["d64"] = d64_times("fused_decode nb=4", lambda fl, *a: (
         fused_mod.fused_decode(*a, select_k=128, num_blocks=4)),
         lambda fl, *a: ref.fused_decode_ref(*a, select_k=128, num_blocks=4),
         lambda fl, a: fused_bound(a, 128, 4))
@@ -1297,25 +1352,26 @@ def latent_times():
     return {"served_B4": rows[LANES], "check_B2": rows[2]}
 
 
-def d112_flash_times():
-    """The tensor-core route at zamba2-7b's prompt shape (B = 4, 32 heads of
-    d = 112, N = 2048, the served lengths, model contract): kernel pair,
-    plain version, bound and F.scaled_dot_product_attention (is_causal,
-    out only) on the same inputs."""
-    q, k, v = prompt_inputs(4, 32, 32, 2048, 112, torch.bfloat16, 12)
-    ln = torch.as_tensor(LENS, dtype=torch.int32, device="cuda")
-    qf, kf, vf = (x.reshape(128, 2048, 112) for x in (q, k, v))
-    lens = torch.repeat_interleave(ln, 32)
-    acc = torch.zeros((128, 2048), device="cuda")
+def flash_shape_times(model, heads, d, lengths, seed):
+    """The tensor-core route at a served prompt shape (B = 4, `heads`
+    heads of d over as many kv-heads, N = 2048, `lengths`, model
+    contract): kernel pair, plain version, bound and
+    F.scaled_dot_product_attention (is_causal, out only) on the same
+    inputs."""
+    q, k, v = prompt_inputs(4, heads, heads, 2048, d, torch.bfloat16, seed)
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    qf, kf, vf = (x.reshape(4 * heads, 2048, d) for x in (q, k, v))
+    lens = torch.repeat_interleave(ln, heads)
+    acc = torch.zeros((4 * heads, 2048), device="cuda")
     ms = cuda_ms(lambda: flash_mod.flash_prefill(qf, kf, vf, lens, acc,
                                                  group=1, acc_group=1))
     plain = cuda_ms(lambda: ref.prefill_attention_ref(q, k, v, length=ln))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                          is_causal=True))
-    t, by, flops, nbytes = flash_bound(LENS, 32, 112, 2)
-    print(f"  time zamba2-7b shape (B=4 Hq=Hk=32 N=2048 d=112 bf16, lengths "
-          f"{list(LENS)}, model contract, tensor cores): kernel pair "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: "
+    t, by, flops, nbytes = flash_bound(lengths, heads, d, 2)
+    print(f"  time {model} shape (B=4 Hq=Hk={heads} N=2048 d={d} bf16, "
+          f"lengths {list(lengths)}, model contract, tensor cores): kernel "
+          f"pair {ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: "
           f"{flops:.4g} flop, {nbytes} B), kernel / bound {ms / t:.1f}x; "
           f"F.scaled_dot_product_attention(is_causal=True), out only: "
           f"{lib:.4f} ms")
@@ -1337,6 +1393,8 @@ def phase_flash():
               served, 0), {}),
             (("zamba2 d=112", 4, 32, 32, 2048, 112, torch.bfloat16, served,
               0), {}),
+            (("whisper d=64", 4, 8, 8, 2048, 64, torch.bfloat16,
+              [PROMPT_LEN] * 4, 0), {}),
             (("f32 GQA", 2, 8, 2, 1000, 128, torch.float32, [1000, 600], 16),
              {}),
             (("served chunk", 4, 32, 32, 2048, 128, torch.bfloat16, served),
@@ -1425,7 +1483,8 @@ def phase_flash():
           f"{ms32 / t32:.1f}x; F.scaled_dot_product_attention(is_causal="
           f"True) in f32, out only: {lib32:.4f} ms")
     del q32, k32, v32, qf32, kf32, vf32
-    d112 = d112_flash_times()
+    d112 = flash_shape_times("zamba2-7b", 32, 112, LENS, 12)
+    d64 = flash_shape_times("whisper-base", 8, 64, (PROMPT_LEN,) * 4, 13)
     latent = latent_times()
     latent.update(max_abs_err=latent_out, acc_max_rel_err=latent_acc,
                   out_atol=f"{FLASH_OUT_ATOL} x max|v|",
@@ -1446,7 +1505,8 @@ def phase_flash():
                                "f32_route_plain_ms": plain32,
                                "f32_route_bound_ms": t32,
                                "f32_route_library_ms": lib32,
-                               "d112": d112, "latent": latent}}
+                               "d112": d112, "d64": d64,
+                               "latent": latent}}
 
 
 # ---------------------------------------------------------------------------
@@ -3072,12 +3132,14 @@ def ssm_continuity(cfg, params, model):
     assert err <= CONT_ATOL and same, (err, same)
 
 
-def recurrent_prefill_profile(cfg, params, model, batch):
-    """Where one 4 x 2048 prompt pass of a recurrent model spends its time:
-    host wall (no profiler); the device time of its kernels under
-    torch.profiler and the flash_prefill pair's share; then, in another
-    pass, CUDA events around every SSD block (`ssm_prefill`), whose sum
-    over the wall is the SSM blocks' share."""
+def part_prefill_profile(cfg, params, model, batch, owner, attr, label,
+                         calls):
+    """Where one 4 x 2048 prompt pass spends its time: host wall (no
+    profiler); the device time of its kernels under torch.profiler and the
+    flash_prefill pair's share; then, in another pass, CUDA events around
+    every call of `owner.attr` (the SSD blocks' `ssm_prefill`, or an
+    enc-dec model's `_encode`), `calls` of them, whose sum over the wall is
+    that part's (`label`) share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3102,7 +3164,8 @@ def recurrent_prefill_profile(cfg, params, model, batch):
     flash = sum(dev_us(e) for e in kernels
                 if "flash_prefill" in e.key or "fold_columns" in e.key) / 1e3
     events = []
-    served = transformer_mod.ssm_prefill
+    served = getattr(owner, attr)
+    own = attr in vars(owner)       # a module's function, not a method
 
     def timed(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -3113,14 +3176,17 @@ def recurrent_prefill_profile(cfg, params, model, batch):
         events.append((start, end))
         return y
 
-    transformer_mod.ssm_prefill = timed
+    setattr(owner, attr, timed)
     try:
         t0 = time.monotonic()
         run()
         wall_ev = (time.monotonic() - t0) * 1e3
     finally:
-        transformer_mod.ssm_prefill = served
-    ssm_ms = sum(a.elapsed_time(b) for a, b in events)
+        if own:
+            setattr(owner, attr, served)
+        else:
+            delattr(owner, attr)
+    part_ms = sum(a.elapsed_time(b) for a, b in events)
     share = ("not measured" if busy == 0 else
              f"{busy / wall:.1%} busy, flash_prefill pair {flash:.2f} ms = "
              f"{flash / busy:.1%} of the kernel time")
@@ -3128,11 +3194,12 @@ def recurrent_prefill_profile(cfg, params, model, batch):
           f"kv={model.prune.kv_dtype} B={LANES} N={PROMPT_LEN}: {wall:.2f} ms "
           f"host wall, {busy:.2f} ms of kernel time ({share}), "
           f"{sum(e.count for e in kernels)} kernel launches; the "
-          f"{len(events)} SSD blocks {ssm_ms:.2f} ms between CUDA events = "
-          f"{ssm_ms / wall_ev:.1%} of that pass's {wall_ev:.2f} ms wall")
+          f"{label} ({len(events)} calls) {part_ms:.2f} ms between CUDA "
+          f"events = {part_ms / wall_ev:.1%} of that pass's {wall_ev:.2f} ms "
+          "wall")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         print(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
-    assert len(events) == cfg.num_layers
+    assert len(events) == calls, (len(events), calls)
 
 
 def recurrent_prefix_splice(cfg, params, model, smi):
@@ -3208,7 +3275,8 @@ def phase_ssm(smi):
     batch = recurrent_batch(cfg)
     logits, st = model.prefill(params, batch)
     phase_profile(params, model, st, torch.argmax(logits, -1))
-    recurrent_prefill_profile(cfg, params, model, batch)
+    part_prefill_profile(cfg, params, model, batch, transformer_mod,
+                         "ssm_prefill", "SSD blocks", cfg.num_layers)
     add(recurrent_prefix_splice(cfg, params, model, smi))
     family_done(cfg.name, t0, smi)
     del params, model, st, logits, handles
@@ -3256,11 +3324,147 @@ def phase_ssm(smi):
     logits, st = model.prefill(params, batch)
     phase_profile(params, model, st, torch.argmax(logits, -1))
     del st, logits
-    recurrent_prefill_profile(cfg, params, model, batch)
+    part_prefill_profile(cfg, params, model, batch, transformer_mod,
+                         "ssm_prefill", "SSD blocks", cfg.num_layers)
     add(recurrent_prefix_splice(cfg, params, model, smi))
     family_done(cfg.name, t0, smi)
     del params, served, model
     print(f"[ssm] phase 11 {time.monotonic() - t_all:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the enc-dec family (whisper-base)
+# ---------------------------------------------------------------------------
+
+# the decoder's prompt lengths: the stress config's 2,048 (above heavy: the
+# static top-k prunes) and whisper's own decoder context, 448 (below the
+# budget: the cache keeps every position); four equal prompts each, as the
+# reference's enc-dec prefill takes no length
+ENCDEC_LENS = (PROMPT_LEN, 448)
+
+
+def encdec_batch(cfg, n):
+    """LANES prompts of `n` tokens and a seeded enc_embed [LANES, 1500, d]
+    (whisper's 30 s window after the conv stub), on the card."""
+    rng = np.random.default_rng(SEED + 12)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (LANES, n)),
+                                      device="cuda"),
+            "enc_embed": torch.randn((LANES, cfg.frontend_len, cfg.d_model),
+                                     generator=gen, device="cuda")}
+
+
+def encdec_serve(cfg, params, kv, blocks, n, smi):
+    """The CLI's path for an enc-dec model: `Model.prefill` of
+    `encdec_batch(cfg, n)`, then NEW_TOKENS greedy tokens through
+    `decode_block`. Held: the prompt pass launches flash_prefill once a
+    decoder layer and nothing else, and leaves every lane's cache step at
+    n; the decode launches the decode kernel (ragged_decode, or
+    fused_decode with `blocks` > 1) once a layer a step and nothing else;
+    no plain prompt attention on the card; the tokens lie in the
+    vocabulary. Printed: TTFT, wall, tok/s, the cross K/V's bytes.
+    Returns (decode kernel, its launches, flash_prefill launches,
+    model)."""
+    prune = baselines.unicaim(kv_dtype=kv, select_blocks=blocks, fused=True,
+                              **FAMILY_PRUNE)
+    kernel = "fused_decode" if blocks > 1 else "ragged_decode"
+    model = Model(cfg, prune, device="cuda")
+    layers = model.attn_layer_count()
+    batch = encdec_batch(cfg, n)
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    logits, st = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    ttft = time.monotonic() - t0
+    prompt = launch_counts()
+    flash = prompt.pop("flash_prefill")
+    steps = st.kv.step.clone()
+    cross_bytes = sum(a.numel() * a.element_size() for a in st.cross)
+    reset_launches()
+    t1 = time.monotonic()
+    st, _, toks = decode_block(model, params, st, torch.argmax(logits, -1),
+                               NEW_TOKENS)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    counts = launch_counts()
+    launches = counts.pop(kernel)
+    print(f"  {cfg.name} kv={kv} select_blocks={blocks}: {LANES} prompts of "
+          f"{n} tokens behind {cfg.frontend_len} encoder frames; a prefill "
+          f"(TTFT) {ttft:.3f}s, then {NEW_TOKENS} steps through decode_block "
+          f"{t2 - t1:.3f}s: {LANES * NEW_TOKENS} tokens in {t2 - t0:.3f}s = "
+          f"{LANES * NEW_TOKENS / (t2 - t0):.1f} tok/s; cache step after the "
+          f"prefill {sorted(set(steps.flatten().tolist()))}, fill "
+          f"{sorted(set(st.kv.fill.flatten().tolist()))} after the decode; "
+          f"cross K/V {cross_bytes} B ({st.cross[0].dtype}); flash_prefill "
+          f"launches {flash} = {layers} x 1 (prompt pass: other kernels "
+          f"{prompt}); {kernel} {launches} = {layers} x {NEW_TOKENS} (decode: "
+          f"other kernels {counts}); plain prompt attention on the card "
+          f"{PLAIN_ON_CARD}  [{smi}]")
+    assert layers == cfg.dec_layers
+    assert flash == layers and not any(prompt.values()), (flash, prompt)
+    assert torch.equal(steps, torch.full_like(steps, n)), steps
+    assert torch.isfinite(logits).all()
+    assert launches == layers * NEW_TOKENS, launches
+    assert not any(counts.values()), counts
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    assert toks.shape == (NEW_TOKENS, LANES)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert torch.equal(st.kv.step, torch.full_like(steps, n + NEW_TOKENS))
+    return kernel, launches, flash, model
+
+
+def phase_encdec(smi):
+    """Phase 12: whisper-base at full width and depth (6 + 6 blocks, d 512,
+    8 heads of d = 64, vocab 51,865), random bf16 weights from the seed:
+    `encdec_serve` at both prompt lengths, bf16 and int8 KV, select_blocks
+    1 and 4; at 2,048 tokens the kernel's prompt pass against the plain
+    one (kept positions in each of the 6 caches >= KEPT_MIN, bf16 and int8:
+    at 448 the cache keeps every row whatever the kernel computes); the
+    decode kernel's path against the composed one, teacher-forced from the
+    2,048-token state (top-1 >= TEACHER_AGREE_MIN of 64) and printed from
+    the 448-token states; a 4 x 2048 prompt pass (the encoder's share) and
+    a decode step profiled. Returns the launches of each kernel."""
+    t_all = time.monotonic()
+    cfg, params = family_weights("whisper-base", smi)
+    launches = dict.fromkeys(launch_counts(), 0)
+    served = {}
+    for n, blocks, kv in itertools.product(ENCDEC_LENS, (1, 4),
+                                           ("bf16", "int8")):
+        t = time.monotonic()
+        kernel, k_n, flash, model = encdec_serve(cfg, params, kv, blocks, n,
+                                                 smi)
+        launches[kernel] += k_n
+        launches["flash_prefill"] += flash
+        if blocks == 1:
+            served[n, kv] = model
+        print(f"[encdec] n={n} kv={kv} select_blocks={blocks}: "
+              f"{time.monotonic() - t:.1f}s")
+    t = time.monotonic()
+    for (n, kv), model in served.items():
+        if n > FAMILY_PRUNE["heavy"]:
+            kept, _, _ = prompt_teacher(cfg, params, model,
+                                        batch=encdec_batch(cfg, n))
+            assert kept >= KEPT_MIN, (n, kv, kept, KEPT_MIN)
+        else:
+            phase_teacher(cfg, params, model, batch=encdec_batch(cfg, n),
+                          hold=False)
+    model = served[PROMPT_LEN, "bf16"]
+    batch = encdec_batch(cfg, PROMPT_LEN)
+    phase_teacher(cfg, params, model, batch=batch)
+    print(f"[encdec] teacher-forced {time.monotonic() - t:.1f}s")
+    part_prefill_profile(cfg, params, model, batch, model, "_encode",
+                         "encoder", 1)
+    logits, st = model.prefill(params, batch)
+    phase_profile(params, model, st, torch.argmax(logits, -1))
+    del st, logits
+    family_done(cfg.name, t_all, smi)
+    del params, served, model
+    print(f"[encdec] phase 12 {time.monotonic() - t_all:.1f}s")
     return launches
 
 
@@ -3312,6 +3516,7 @@ def main():
                          ms_l2_warm=timings[name]["int8 warm"][0]),
             "starcoder2_g12": timings[name]["g12"],
             "zamba2_d112": timings[name]["d112"],
+            "whisper_d64": timings[name]["d64"],
             **decode_compiled.get(name, {})}
 
     # 4 + 5. full-width longchat-7b, global then block-local selection
@@ -3428,6 +3633,21 @@ def main():
     for name in ("ragged_decode", "fused_decode", "flash_prefill"):
         timings[name]["extra"]["zamba2_launches"] = ssm_launches[name]
     print(f"[ssm] phase {time.monotonic() - t:.1f}s")
+
+    # 12. the enc-dec family: whisper-base, full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[encdec] before phase 12: {held / 2 ** 30:.3f} GiB still "
+          f"allocated on the card (phase 11's models freed)")
+    assert held < 1 << 30, held
+    t = time.monotonic()
+    encdec_launches = phase_encdec(smi)
+    for name, n in encdec_launches.items():
+        launches[name] += n
+    for name in ("ragged_decode", "fused_decode", "flash_prefill"):
+        timings[name]["extra"]["whisper_launches"] = encdec_launches[name]
+    print(f"[encdec] phase {time.monotonic() - t:.1f}s")
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key

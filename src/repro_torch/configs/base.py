@@ -8,8 +8,8 @@ Configs are frozen dataclasses, as in the reference. The registry loads
 the configurations this port serves: the dense family (longchat-7b,
 granite-3-2b, phi3-medium-14b, starcoder2-3b, minitron-8b and the
 vision-frontend llava-next-mistral-7b), the MoE family (grok-1-314b),
-the mla_moe family (deepseek-v3-671b), the SSM family (mamba2-1.3b) and
-the hybrid (zamba2-7b).
+the mla_moe family (deepseek-v3-671b), the SSM family (mamba2-1.3b), the
+hybrid (zamba2-7b) and the encoder-decoder (whisper-base).
 """
 from __future__ import annotations
 
@@ -285,7 +285,7 @@ def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         deepseek_v3_671b, granite_3_2b, grok1_314b, llava_next_mistral_7b,
         longchat_7b, mamba2_1p3b, minitron_8b, phi3_medium_14b,
-        starcoder2_3b, zamba2_7b)
+        starcoder2_3b, whisper_base, zamba2_7b)
     _REGISTRY["__loaded__"] = True
 
 

@@ -178,7 +178,8 @@ def greedy_generate(model: Model, params, batch, steps: int,
     prefill logits; each later token follows `_next_token`, with noise
     from `generator` (a generator seeded 0 on the model's device when
     sampling and none is given). `batch` goes to `Model.prefill` whole:
-    its `length` and a frontend model's `<frontend>_embed` with it."""
+    its `length`, a frontend model's `<frontend>_embed` and an enc-dec
+    model's `enc_embed` with it."""
     _check_device(model, device)
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
@@ -198,7 +199,8 @@ def greedy_generate(model: Model, params, batch, steps: int,
 
 def decode_block(model: Model, params, state, tok: torch.Tensor, steps: int):
     """`steps` greedy decode steps from token `tok` [B] →
-    (state, next_tok [B], toks [steps, B]) with toks[0] == tok."""
+    (state, next_tok [B], toks [steps, B]) with toks[0] == tok. The state
+    is any family's, an enc-dec model's cross K/V included."""
     toks = []
     for _ in range(steps):
         toks.append(tok)
@@ -574,9 +576,12 @@ class ServeLoop:
                  chaos: Optional[ChaosConfig] = None, device="cuda"):
         _check_device(model, device)
         if model.cfg.frontend != "none":
+            what = ("an enc-dec model takes its encoder's frames "
+                    "(enc_embed)" if model.cfg.family == "encdec" else
+                    f"a {model.cfg.frontend}-frontend model takes its "
+                    "embeddings")
             raise ValueError(
-                f"{model.cfg.name}: ServeLoop admits token prompts; a "
-                f"{model.cfg.frontend}-frontend model takes its embeddings "
+                f"{model.cfg.name}: ServeLoop admits token prompts; {what} "
                 "through Model.prefill / greedy_generate")
         self.model = model
         self.params = params
@@ -1906,8 +1911,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="granite-3-2b",
                     help="a registered config: the dense family, "
                          "grok-1-314b, deepseek-v3-671b, mamba2-1.3b (SSM: "
-                         "no cache, so the policy only names the run) or "
-                         "zamba2-7b (hybrid)")
+                         "no cache, so the policy only names the run), "
+                         "zamba2-7b (hybrid) or whisper-base (enc-dec: "
+                         "not with --serve)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=64)
@@ -2019,7 +2025,9 @@ def main(argv=None):
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     batch = {"tokens": torch.as_tensor(prompts, device=model.device)}
     if cfg.frontend != "none":     # the stub's embeddings, from the seed
-        batch[f"{cfg.frontend}_embed"] = torch.as_tensor(
+        key = ("enc_embed" if cfg.family == "encdec"
+               else f"{cfg.frontend}_embed")
+        batch[key] = torch.as_tensor(
             rng.standard_normal((args.batch, cfg.frontend_len,
                                  cfg.d_model)).astype(np.float32),
             device=model.device)

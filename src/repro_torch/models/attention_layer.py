@@ -1,8 +1,12 @@
 """GQA attention block wired to the UniCAIM cache — the port of
-`repro/models/attention_layer.py` (prefill, chunked prefill and
-decode)."""
+`repro/models/attention_layer.py` (prefill, chunked prefill and decode),
+and the encoder-decoder's attention: the encoder's bidirectional
+attention, the cross K/V made once from the encoder output, and the
+decoder's cross-attention over it (plain PyTorch, as the reference's is
+plain XLA)."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -96,3 +100,55 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
     q, k, v = decode_qkv(p, x, cfg, cache)
     out = decode_attention(cache, q, k, v, prune, active)
     return out.reshape(x.shape[0], cfg.q_dim).to(x.dtype) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder (whisper): dense f32 attention, no cache, no pruning
+# ---------------------------------------------------------------------------
+
+
+def _dense_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Every query row over every K/V row, the reference's way: q
+    [B,Hq,T,dh] grouped onto k/v [B,Hk,S,dh], f32 logits / sqrt(dh), a
+    softmax and p·v in f32 → [B,T,q_dim] f32."""
+    b, _, t, dh = q.shape
+    qg = q.reshape(b, cfg.n_kv_heads, -1, t, dh).float()
+    logits = torch.einsum("bhgtd,bhsd->bhgts", qg,
+                          k.float()) / math.sqrt(dh)
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgts,bhsd->bhgtd", pr, v.float())
+    return out.reshape(b, cfg.n_heads, t, dh).transpose(1, 2).reshape(
+        b, t, cfg.q_dim)
+
+
+def encoder_attention(p, x: torch.Tensor, cfg: ModelConfig,
+                      positions) -> torch.Tensor:
+    """The encoder's self-attention (the reference's `attention_train(...,
+    causal=False)`): bidirectional over all T rows. x: [B,T,d] → y
+    [B,T,d]."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    return _dense_attend(q, k, v, cfg).to(x.dtype) @ p["wo"]
+
+
+def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """One decoder layer's cross K/V from the encoder output [B,S,d]: k, v
+    [B,Hk,S,dh] with their biases, in the encoder output's dtype."""
+    b, s, _ = enc_out.shape
+
+    def proj(w, bias):
+        y = enc_out @ p[w] + p[bias] if bias in p else enc_out @ p[w]
+        return y.reshape(b, s, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+
+    return proj("wk", "bk"), proj("wv", "bv")
+
+
+def cross_attention(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """Cross-attention of x [B,T,d] (a decode step's [B,1,d]) over the
+    encoder's K/V (k, v [B,Hk,S,dh]): q with its bias, no bias on wo →
+    y [B,T,d]."""
+    b, t, _ = x.shape
+    q = x @ p["wq"] + p["bq"] if "bq" in p else x @ p["wq"]
+    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    return _dense_attend(q, *enc_kv, cfg).to(x.dtype) @ p["wo"]

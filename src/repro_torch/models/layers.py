@@ -1,6 +1,6 @@
 """Shared layers: RMS norm and LayerNorm, Mamba2's gated RMS norm, RoPE,
-the MLP (SwiGLU, tanh-GELU or relu²), and their inits — the port of
-`repro/models/layers.py`.
+sinusoidal positions, the MLP (SwiGLU, tanh-GELU or relu²), and their
+inits — the port of `repro/models/layers.py`.
 
 Weights keep the reference layout: a projection is [d_in, d_out] and is
 applied as `x @ W`.
@@ -81,6 +81,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoidal position table [..., d] f32 at integer `positions`:
+    [sin, cos] of pos · 10000^(-i/half), the frequencies computed as the
+    reference computes them (f32 power, then its reciprocal)."""
+    half = d // 2
+    freq = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                           device=positions.device) / half))
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype,

@@ -6,17 +6,22 @@ attention, `models/mla.py`, over dense-FFN blocks then MoE blocks), the SSM
 family (mamba2: Mamba2 SSD blocks, `models/ssm.py`) and the hybrid
 (zamba2: SSD blocks with ONE shared attention block applied before every
 `attn_period` of them, its weights reused and a cache of its own at each
-application). Enc-dec models and sinusoidal positions are not ported yet:
-`Model` refuses them. A multi-token-prediction head (`mtp_depth > 0`) is
-built with the reference's tree, and nothing on the serving path reads it
-(its forward belongs to training).
+application) and the encoder-decoder (whisper: a bidirectional encoder over
+`batch["enc_embed"]`, then decoder blocks of pruned causal self-attention
+on the cache, cross-attention over K/V made once from the encoder output,
+and the MLP; sinusoidal positions on both stacks). A
+multi-token-prediction head (`mtp_depth > 0`) is built with the
+reference's tree, and nothing on the serving path reads it (its forward
+belongs to training).
 
 `Model` keeps the reference's functional surface: parameters are nested
 dicts of tensors with the reference's key names (`embed`, `final_norm`,
 `lm_head`, `frontend_adapter`, `mtp`, and the segments — `seg0_dense`,
-`seg0_moe`, `seg0_ssm`, or `seg0_mla_dense` and `seg1_mla_moe` — stacked on
-a leading layer axis; the hybrid's `ssm_groups` [n_groups, attn_period,
-...], `ssm_tail` [rem, ...] and one unstacked `shared_attn` block), and
+`seg0_moe`, `seg0_ssm`, `seg0_mla_dense` and `seg1_mla_moe`, or
+`seg0_encdec_enc` and `seg1_encdec_dec` (whose blocks add `ln_x` and
+`xattn`) — stacked on a leading layer axis; the hybrid's `ssm_groups`
+[n_groups, attn_period, ...], `ssm_tail` [rem, ...] and one unstacked
+`shared_attn` block), and
 
   prefill(params, batch)           → (last-valid-position logits, state)
   prefill_one / prefill_group      → the same for one request / a padded
@@ -26,7 +31,8 @@ a leading layer axis; the hybrid's `ssm_groups` [n_groups, attn_period,
       prefill_finalize(...) → the static pruning and the logits after it
   decode_step(params, state, tok)  → (logits, state)
 
-The decode state's layer-stacked cache and SSM state are updated in place:
+The decode state's layer-stacked cache and SSM state are updated in place
+(the enc-dec's cross K/V is written once, by the prefill):
 each layer writes its token through views of its slice (`KVCache.layer`,
 `SSMState.layer`), so no step copies the state. Eager PyTorch needs neither
 the reference's layer scan nor its decode window: the kernel skips the
@@ -46,7 +52,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.attention_layer import (attention_decode,
                                                 attention_prefill,
-                                                attention_prefill_chunk)
+                                                attention_prefill_chunk,
+                                                cross_attention,
+                                                encode_cross_kv,
+                                                encoder_attention)
 from repro_torch.models.mla import init_mla, mla_decode, mla_prefill
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (SSMState, init_ssm, init_ssm_state,
@@ -63,10 +72,19 @@ class DecodeState:
     #                                  an SSM model
     ssm: Optional[SSMState] = None   # stacked [L_ssm, B, ...] f32 (ssm and
     #                                  hybrid families)
+    cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    #                                  enc-dec: the decoder's cross (k, v),
+    #                                  each [L_dec, B, Hk, S_enc, dh] in the
+    #                                  compute dtype, never quantized
 
     def clone(self) -> "DecodeState":
-        return DecodeState(*(None if x is None else x.clone()
-                             for x in (self.kv, self.ssm)))
+        return DecodeState(
+            *(None if x is None else x.clone() for x in (self.kv, self.ssm)),
+            cross=_map_cross(self.cross, torch.clone))
+
+
+def _map_cross(cross, fn):
+    return None if cross is None else tuple(fn(a) for a in cross)
 
 
 @dataclass
@@ -87,7 +105,9 @@ def lane_slice(state: DecodeState, lane: int) -> DecodeState:
         kv=(None if state.kv is None
             else kvcache.lane_slice(state.kv, lane, batch_axis=1)),
         ssm=(None if state.ssm is None else state.ssm.map(
-            lambda a: a.narrow(1, lane, 1).clone())))
+            lambda a: a.narrow(1, lane, 1).clone())),
+        cross=_map_cross(state.cross,
+                         lambda a: a.narrow(1, lane, 1).clone()))
 
 
 def lane_insert(state: DecodeState, lane: int,
@@ -96,17 +116,22 @@ def lane_insert(state: DecodeState, lane: int,
     (e.g. from `prefill_one`, or a prefix-cache snapshot)."""
     if state.kv is not None:
         kvcache.lane_insert(state.kv, lane, fresh.kv, batch_axis=1)
+    pairs = []
     if state.ssm is not None:
-        for a, f in ((state.ssm.conv, fresh.ssm.conv),
-                     (state.ssm.ssm, fresh.ssm.ssm)):
-            a.narrow(1, lane, 1).copy_(f)
+        pairs += [(state.ssm.conv, fresh.ssm.conv),
+                  (state.ssm.ssm, fresh.ssm.ssm)]
+    if state.cross is not None:
+        pairs += zip(state.cross, fresh.cross)
+    for a, f in pairs:
+        a.narrow(1, lane, 1).copy_(f)
     return state
 
 
 def lane_select(active: torch.Tensor, new: DecodeState,
                 old: DecodeState) -> DecodeState:
     """Per-lane merge: lanes where `active` ([B] bool) take `new`, the rest
-    keep `old` (a new state)."""
+    keep `old` (a new state). The cross K/V is `new`'s: a decode step never
+    writes it."""
     def sel(n, o):
         m = active.reshape((1, -1) + (1,) * (n.dim() - 2))
         return torch.where(m, n, o)
@@ -116,7 +141,7 @@ def lane_select(active: torch.Tensor, new: DecodeState,
         for f in kvcache.FIELDS))
     ssm = None if new.ssm is None else SSMState(
         sel(new.ssm.conv, old.ssm.conv), sel(new.ssm.ssm, old.ssm.ssm))
-    return DecodeState(kv=kv, ssm=ssm)
+    return DecodeState(kv=kv, ssm=ssm, cross=new.cross)
 
 
 def lanes_insert(state: DecodeState, src, fresh: DecodeState) -> DecodeState:
@@ -125,13 +150,18 @@ def lanes_insert(state: DecodeState, src, fresh: DecodeState) -> DecodeState:
     if state.kv is not None:
         kvcache.lanes_insert(state.kv, src, fresh.kv, batch_axis=1)
     lanes = [b for b, r in enumerate(src) if r >= 0]
-    if state.ssm is not None and lanes:
-        dev = state.ssm.ssm.device
+    pairs = []
+    if state.ssm is not None:
+        pairs += [(state.ssm.conv, fresh.ssm.conv),
+                  (state.ssm.ssm, fresh.ssm.ssm)]
+    if state.cross is not None:
+        pairs += zip(state.cross, fresh.cross)
+    if pairs and lanes:
+        dev = pairs[0][0].device
         dst = torch.as_tensor(lanes, dtype=torch.long, device=dev)
         rows = torch.as_tensor([int(src[b]) for b in lanes],
                                dtype=torch.long, device=dev)
-        for a, f in ((state.ssm.conv, fresh.ssm.conv),
-                     (state.ssm.ssm, fresh.ssm.ssm)):
+        for a, f in pairs:
             a.index_copy_(1, dst, f.index_select(1, rows).to(a.dtype))
     return state
 
@@ -154,19 +184,19 @@ def layer_params(params_seg, li: int):
 
 
 class Model:
-    """Model facade for the dense, MoE, mla_moe, SSM and hybrid families
-    (functional: params are passed in)."""
+    """Model facade for the dense, MoE, mla_moe, SSM, hybrid and enc-dec
+    families (functional: params are passed in)."""
 
     def __init__(self, cfg: ModelConfig, prune: PruneConfig, device="cuda"):
         unsupported = [name for name, bad in (
             ("family", cfg.family not in ("dense", "moe", "mla_moe", "ssm",
-                                          "hybrid")),
-            ("pos", cfg.pos not in ("rope", "none"))) if bad]
+                                          "hybrid", "encdec")),
+            ("pos", cfg.pos not in ("rope", "sinusoidal", "none"))) if bad]
         if unsupported:
             raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unsupported)} not ported yet "
-                "(the port serves the dense, MoE, mla_moe, SSM and hybrid "
-                "families)")
+                f"{cfg.name}: {', '.join(unsupported)} not ported "
+                "(the port serves the dense, MoE, mla_moe, SSM, hybrid and "
+                "enc-dec families)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prune = prune
@@ -179,23 +209,31 @@ class Model:
 
     def _segments(self):
         """[(kind, n_layers)] of the stack, as in the reference: one
-        segment of `dense`, `moe` or `ssm` blocks, or for mla_moe the first
-        `dense_first_k` blocks as `mla_dense` and the rest as `mla_moe`
-        (the hybrid's stack is its groups, `_blocks`)."""
+        segment of `dense`, `moe` or `ssm` blocks, for mla_moe the first
+        `dense_first_k` blocks as `mla_dense` and the rest as `mla_moe`,
+        for enc-dec the encoder's `encdec_enc` blocks then the decoder's
+        `encdec_dec` blocks (the hybrid's stack is its groups,
+        `_blocks`)."""
         cfg = self.cfg
         if cfg.family == "mla_moe":
             k = cfg.moe.dense_first_k
             return [("mla_dense", k), ("mla_moe", cfg.num_layers - k)]
+        if cfg.family == "encdec":
+            return [("encdec_enc", cfg.enc_layers),
+                    ("encdec_dec", cfg.dec_layers)]
         return [(cfg.family, cfg.num_layers)]
 
     def attn_layer_count(self) -> int:
         """Layers of the decode state's KV cache: none for an SSM model, one
-        per application of the hybrid's shared block, else one a block."""
+        per application of the hybrid's shared block, one per decoder block
+        of an enc-dec model, else one a block."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return 0
         if cfg.family == "hybrid":
             return cfg.num_layers // cfg.attn_period
+        if cfg.family == "encdec":
+            return cfg.dec_layers
         return cfg.num_layers
 
     def _blocks(self, params):
@@ -203,7 +241,8 @@ class Model:
         layer) over the stack in order; the unused index is None. The
         hybrid's group g runs `shared_attn` on KV layer g, then its
         `attn_period` SSD blocks on SSM layers g·period …; the tail's SSD
-        blocks follow."""
+        blocks follow. An enc-dec model's stack is its decoder (`_encode`
+        runs the encoder)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             period = cfg.attn_period
@@ -219,7 +258,7 @@ class Model:
             return
         li = 0
         for i, (kind, n) in enumerate(self._segments()):
-            if n == 0:
+            if n == 0 or kind == "encdec_enc":
                 continue
             seg = params[f"seg{i}_{kind}"]
             for j in range(n):
@@ -233,9 +272,11 @@ class Model:
         """Random weights from `seed`, made on the model's device, with the
         reference's distributions (N(0, 1/d_in) projections, N(0, 0.02²)
         embeddings, unit norms, zero biases; the MoE router in f32) and its
-        tree, the `mtp` head's (`proj`, `norm`, one unstacked block)
-        included. The reference's JAX draws differ; use
-        `params.from_reference` to run the same weights on both sides."""
+        tree, the `mtp` head's (`proj`, `norm`, one unstacked block) and a
+        frontend model's `frontend_adapter` included (an enc-dec model
+        holds it too, and never reads it). The reference's JAX draws
+        differ; use `params.from_reference` to run the same weights on
+        both sides."""
         cfg = self.cfg
         dt = DTYPES[cfg.param_dtype]
         dev = self.device
@@ -274,8 +315,10 @@ class Model:
 
     def _init_block(self, gen: torch.Generator, kind: str, dt, lead):
         """Residual blocks of `kind` (dense | moe | mla_dense | mla_moe |
-        ssm), stacked on the leading axes `lead` (`()`: one block). The
-        dense blocks of a MoE config take its `d_ff_dense`."""
+        ssm | encdec_enc | encdec_dec), stacked on the leading axes `lead`
+        (`()`: one block). The dense blocks of a MoE config take its
+        `d_ff_dense`; a decoder block adds `ln_x` and the cross-attention
+        `xattn`."""
         cfg = self.cfg
         dev, d, lead = self.device, cfg.d_model, tuple(lead)
         if kind == "ssm":
@@ -288,17 +331,21 @@ class Model:
         def zeros(width):
             return torch.zeros(lead + (width,), dtype=dt, device=dev)
 
-        if kind.startswith("mla"):
-            attn = init_mla(gen, cfg, dt, dev, lead)
-        else:
+        def attention():
             attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
                     "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
             if cfg.qkv_bias:
                 attn.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
                             bv=zeros(cfg.kv_dim))
+            return attn
+
         block = {"ln1": L.norm_init(cfg.norm, d, dt, dev, lead),
                  "ln2": L.norm_init(cfg.norm, d, dt, dev, lead),
-                 "attn": attn}
+                 "attn": (init_mla(gen, cfg, dt, dev, lead)
+                          if kind.startswith("mla") else attention())}
+        if kind == "encdec_dec":
+            block["ln_x"] = L.norm_init(cfg.norm, d, dt, dev, lead)
+            block["xattn"] = attention()
         if kind.endswith("moe"):
             block["moe"] = init_moe(gen, cfg, dt, dev, lead)
         else:
@@ -309,13 +356,16 @@ class Model:
 
     # -- state --------------------------------------------------------------
 
-    def init_decode_state(self, batch_size: int) -> DecodeState:
+    def init_decode_state(self, batch_size: int,
+                          cross_len: int = 0) -> DecodeState:
         """An empty layer-stacked state: a cache of `attn_layer_count()`
         layers (per kv-head K/V, or for MLA the latent: Hk = 1, width
-        `latent_dim`, no V), and for the SSM and hybrid families an f32
-        SSM state a block."""
+        `latent_dim`, no V), for the SSM and hybrid families an f32 SSM
+        state a block, and for an enc-dec model with `cross_len` > 0 the
+        cross K/V over that many encoder rows, zero until `prefill`'s
+        encoder writes it."""
         cfg = self.cfg
-        kv = ssm = None
+        kv = ssm = cross = None
         n_attn = self.attn_layer_count()
         if n_attn:
             if cfg.mla is not None:
@@ -328,7 +378,12 @@ class Model:
         if cfg.family in ("ssm", "hybrid"):
             ssm = init_ssm_state(cfg, batch_size, device=self.device,
                                  layers=cfg.num_layers)
-        return DecodeState(kv=kv, ssm=ssm)
+        if cfg.family == "encdec" and cross_len > 0:
+            shape = (cfg.dec_layers, batch_size, cfg.n_kv_heads, cross_len,
+                     cfg.head_dim)
+            cross = tuple(torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device) for _ in range(2))
+        return DecodeState(kv=kv, ssm=ssm, cross=cross)
 
     # -- shared pieces ------------------------------------------------------
 
@@ -341,11 +396,19 @@ class Model:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(self.dtype)
 
+    def _add_positions(self, x: torch.Tensor, pos) -> torch.Tensor:
+        """x plus the sinusoidal table at `pos` for a sinusoidal config (a
+        RoPE config rotates q and k in the attention instead)."""
+        if self.cfg.pos != "sinusoidal":
+            return x
+        return x + L.sinusoidal(pos, self.cfg.d_model).to(x.dtype)
+
     def _prepend_frontend(self, params, batch, x: torch.Tensor):
         """The frontend stub: batch["<frontend>_embed"] [B, F, d] through
-        the adapter, in front of the token embeddings → (x, F)."""
+        the adapter, in front of the token embeddings → (x, F). An enc-dec
+        model's frontend feeds its encoder instead (`_encode`)."""
         cfg = self.cfg
-        if cfg.frontend == "none":
+        if cfg.frontend == "none" or cfg.family == "encdec":
             return x, 0
         key = f"{cfg.frontend}_embed"
         if batch.get(key) is None:
@@ -366,6 +429,40 @@ class Model:
             return y.reshape(h.shape)
         return L.apply_mlp(p["mlp"], h, self.cfg.act)
 
+    def _encode(self, params, batch, cross) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+        """The enc-dec's encoder over batch["enc_embed"] ([B, S, d], the
+        frontend stub's frames) plus its sinusoidal positions: LayerNorm →
+        bidirectional attention → LayerNorm → MLP a block; then each
+        decoder layer's cross K/V from the output, written into `cross`
+        ((k, v), each [L_dec, B, Hk, S, dh] in the compute dtype: a state's,
+        from `init_decode_state(B, cross_len=S)`) → `cross`."""
+        cfg = self.cfg
+        enc = torch.as_tensor(batch["enc_embed"],
+                              device=self.device).to(self.dtype)
+        pos = torch.arange(enc.shape[1], device=self.device)[None]
+        enc = enc + L.sinusoidal(pos, cfg.d_model).to(enc.dtype)
+        for j in range(cfg.enc_layers):
+            p = layer_params(params["seg0_encdec_enc"], j)
+            enc = enc + encoder_attention(
+                p["attn"], L.apply_norm(p["ln1"], enc, cfg.norm), cfg, pos)
+            enc = enc + self._ffn(p, L.apply_norm(p["ln2"], enc, cfg.norm))
+        dec = params["seg1_encdec_dec"]
+        for j in range(cfg.dec_layers):
+            cross[0][j], cross[1][j] = encode_cross_kv(
+                layer_params(dec, j)["xattn"], enc, cfg)
+        return cross
+
+    def _cross_attend(self, p, x: torch.Tensor, cross, li: int
+                      ) -> torch.Tensor:
+        """A decoder block's cross-attention sublayer on x ([B, T, d], or a
+        decode step's [B, d]) over layer `li` of the cross K/V: the
+        residual's increment."""
+        h = L.apply_norm(p["ln_x"], x, self.cfg.norm)
+        y = cross_attention(p["xattn"], h if h.dim() == 3 else h[:, None],
+                            (cross[0][li], cross[1][li]), self.cfg)
+        return y.reshape(x.shape)
+
     # -- prefill --------------------------------------------------------------
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, DecodeState]:
@@ -378,10 +475,20 @@ class Model:
         families refuse it (their recurrent state would absorb the pads).
         A frontend model takes `batch["<frontend>_embed"]` ([B, F, d]): its
         F rows sit in front of the tokens and are always valid, so the
-        cache holds F + length positions."""
+        cache holds F + length positions. An enc-dec model takes
+        `batch["enc_embed"]` ([B, S, d]) for its encoder, refuses a
+        `length`, and its state carries the cross K/V."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         length = batch.get("length")
+        cross_len = 0
+        if cfg.family == "encdec":
+            if length is not None:
+                raise ValueError("bucketed prefill: encdec unsupported")
+            if batch.get("enc_embed") is None:
+                raise ValueError(f"{cfg.name} takes batch['enc_embed'] (its "
+                                 "encoder's input frames)")
+            cross_len = batch["enc_embed"].shape[1]
         if length is not None and cfg.family in ("ssm", "hybrid"):
             raise ValueError(
                 f"bucketed prefill: {cfg.family} carries recurrent state "
@@ -394,7 +501,10 @@ class Model:
                                             self._embed(params, tokens))
         eff_len = None if length is None else length + n_front
         pos = torch.arange(x.shape[1], device=self.device)[None]
-        state = self.init_decode_state(b)
+        x = self._add_positions(x, pos)
+        state = self.init_decode_state(b, cross_len=cross_len)
+        if cross_len:
+            self._encode(params, batch, state.cross)
         for kind, p, li, si in self._blocks(params):
             if kind == "ssm":
                 h = L.apply_norm(p["norm"], x, cfg.norm)
@@ -407,6 +517,8 @@ class Model:
                                state.kv.layer(li), length=eff_len)
             _store_layer(state, li, filled)
             x = x + a
+            if kind == "encdec_dec":
+                x = x + self._cross_attend(p, x, state.cross, li)
             x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         if length is None:
             x_last = x[:, -1]
@@ -499,8 +611,8 @@ class Model:
         length = torch.as_tensor(length, dtype=torch.int32,
                                  device=self.device)
         row0 = int(row0)
-        x = self._embed(params, tokens_c)
         pos = row0 + torch.arange(tokens_c.shape[1], device=self.device)[None]
+        x = self._add_positions(self._embed(params, tokens_c), pos)
         for _, p, li, _ in self._blocks(params):
             h = L.apply_norm(p["ln1"], x, cfg.norm)
             a, _, _, _ = attention_prefill_chunk(
@@ -537,10 +649,14 @@ class Model:
         """token: [B] → (logits [B, V] f32, state updated in place).
 
         `active` ([B] bool, optional) freezes the other lanes' cache rows
-        and SSM state (finished lanes of a serving block)."""
+        and SSM state (finished lanes of a serving block). A sinusoidal
+        config adds the table at each lane's position, layer 0's
+        `kv.step`."""
         cfg = self.cfg
         token = torch.as_tensor(token, device=self.device)
         x = self._embed(params, token)
+        if state.kv is not None:
+            x = self._add_positions(x, state.kv.step[0])
         for kind, p, li, si in self._blocks(params):
             if kind == "ssm":
                 h = L.apply_norm(p["norm"], x, cfg.norm)
@@ -553,5 +669,7 @@ class Model:
             a = attend(p["attn"], h, cfg, state.kv.layer(li), self.prune,
                        active)
             x = x + a
+            if kind == "encdec_dec":
+                x = x + self._cross_attend(p, x, state.cross, li)
             x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         return self._logits(params, x), state

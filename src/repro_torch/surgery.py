@@ -30,8 +30,9 @@ Not here, by design:
       (multi-GPU serving is not ported yet).
 
 The inserts copy every cache field in place — the int8/quantized mirrors,
-their scales and the accumulated eviction scores included — so per-lane
-pruning state stays exact across surgery; the slices and snapshots are
+their scales and the accumulated eviction scores included — and the SSM
+state and an enc-dec model's cross K/V with them (batch axis 1 too), so
+per-lane state stays exact across surgery; the slices and snapshots are
 copies, so later writes to the live state never reach them.
 """
 from __future__ import annotations

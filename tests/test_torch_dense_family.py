@@ -3,12 +3,12 @@
 - LayerNorm, tanh-GELU and relu² (and SwiGLU) against
   `repro.models.layers` on seeded inputs with non-trivial weights and
   biases;
-- the port builds every registered config of the reference except the
-  family it does not serve yet (enc-dec; deepseek-v3's mla_moe, mamba2's
-  SSM and zamba2's hybrid are built), with the reference's parameter tree
-  (key names, shapes, dtypes: the MoE router and the SSD blocks' A_log, D
-  and dt_bias in f32 under bf16 weights), and `params.from_reference`
-  keeps that tree;
+- the port builds every registered config of the reference (deepseek-v3's
+  mla_moe, mamba2's SSM, zamba2's hybrid and whisper's enc-dec among
+  them), with the reference's parameter tree (key names, shapes, dtypes:
+  the MoE router and the SSD blocks' A_log, D and dt_bias in f32 under
+  bf16 weights; whisper's encoder and decoder segments, `ln_x`, `xattn`
+  and `frontend_adapter`), and `params.from_reference` keeps that tree;
 - G = 12 query rows per kv-head (reduced starcoder2-3b with 12 heads over
   one kv-head): teacher-forced decode logits to 1e-4 and greedy tokens
   exactly, fused and composed, bf16 and int8 KV;
@@ -47,8 +47,8 @@ jax.config.update("jax_platform_name", "cpu")
 
 UNICAIM = dict(heavy=24, reserve=8, select_k=8, sink_tokens=2,
                recent_window=8)
-# the reference's registered configs the port does not build yet
-UNPORTED = {"whisper-base"}
+# the reference's registered configs the port does not build: none
+UNPORTED = set()
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +121,7 @@ def test_port_builds_every_config_but_the_unported_families():
     assert {"phi3-medium-14b", "starcoder2-3b", "minitron-8b",
             "llava-next-mistral-7b", "grok-1-314b", "longchat-7b",
             "granite-3-2b", "deepseek-v3-671b", "mamba2-1.3b",
-            "zamba2-7b"} <= built
+            "zamba2-7b", "whisper-base"} <= built
     assert built <= set(a for a in tbase.list_archs() if a[0] != "_")
 
 
@@ -136,7 +136,7 @@ def _tree_spec(tree):
 
 PORT_ARCHS = ["longchat-7b", "granite-3-2b", "phi3-medium-14b",
               "starcoder2-3b", "minitron-8b", "llava-next-mistral-7b",
-              "grok-1-314b", "mamba2-1.3b", "zamba2-7b"]
+              "grok-1-314b", "mamba2-1.3b", "zamba2-7b", "whisper-base"]
 
 
 @pytest.mark.parametrize("arch", PORT_ARCHS)

@@ -69,11 +69,14 @@ LENGTHS, WIDTH, STEPS = (9, 26), 26, 8
 @functools.lru_cache(maxsize=None)
 def _weights():
     """(reference config, port config, the noised numpy tree): one init for
-    the whole file."""
+    the whole file. The norms' `w` stay at one: with them noised too, the
+    one-ulp perturbation meets a near-tie under the dense policy (15 of 16
+    steps agree) and leaves the int8 race's winners in place, in both
+    packages alike."""
     jcfg = jbase.reduced(jbase.get_config(ARCH))
     tree = jax.tree.map(np.asarray, JaxModel(
         jcfg, jax_baselines.unicaim(**UNICAIM)).init(jax.random.PRNGKey(0)))
-    return jcfg, port_cfg(jcfg), noisy_const_leaves(tree, 0)
+    return jcfg, port_cfg(jcfg), noisy_const_leaves(tree, 0, norm_w=False)
 
 
 @pytest.fixture(scope="module")

@@ -32,31 +32,35 @@ def prune_pair(policy: str = "unicaim", **kw):
 
 # leaves the reference initialises to constants: zeros (LayerNorm's `b`,
 # the qkv bias `bq`/`bk`/`bv`, the SSD block's `A_log`, `dt_bias` and
-# `conv_b`) and ones (MLA's `q_norm`/`kv_norm`, the SSD block's `D` and its
-# gate-norm weight `norm_w`). A port that never added a bias, dropped the
-# `D` skip or skipped a norm's weight would match on those weights, so
-# `model_pair` replaces them with seeded noise of this scale around their
-# constant
+# `conv_b`) and ones (a norm's weight `w`, MLA's `q_norm`/`kv_norm`, the SSD
+# block's `D` and its gate-norm weight `norm_w`). A port that never added a
+# bias, dropped the `D` skip, skipped a norm's weight or swapped two norms
+# would match on those weights, so `model_pair` replaces them with seeded
+# noise of this scale around their constant. `norm_w=False` leaves the
+# norms' `w` at one: the MLA tests' one-ulp sensitivity claims were made on
+# those weights
 ZERO_INIT_LEAVES = ("b", "bq", "bk", "bv", "A_log", "dt_bias", "conv_b")
 ONE_INIT_LEAVES = ("q_norm", "kv_norm", "D", "norm_w")
 BIAS_NOISE = 0.1
 
 
-def noisy_const_leaves(tree, seed: int):
+def noisy_const_leaves(tree, seed: int, norm_w: bool = True):
     """The numpy tree with every zero-initialised leaf replaced by seeded
     N(0, BIAS_NOISE²) noise of its shape and dtype, and every
-    one-initialised leaf by 1 + that noise (in tree order)."""
+    one-initialised leaf (the norms' `w` too unless `norm_w` is False) by
+    1 + that noise (in tree order)."""
     rng = np.random.default_rng(seed)
+    ones = ONE_INIT_LEAVES + (("w",) if norm_w else ())
 
     def walk(t, key=""):
         if isinstance(t, dict):
             return {k: walk(v, k) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return [walk(v, key) for v in t]
-        if key not in ZERO_INIT_LEAVES + ONE_INIT_LEAVES:
+        if key not in ZERO_INIT_LEAVES + ones:
             return t
         noise = rng.standard_normal(np.shape(t)) * BIAS_NOISE
-        if key in ONE_INIT_LEAVES:
+        if key in ones:
             noise = noise + 1.0
         return noise.astype(np.asarray(t).dtype)
 
@@ -68,8 +72,7 @@ def model_pair(arch: str, policy: str = "unicaim", seed: int = 0,
     """(jax model, jax params, port model, port params) for the reduced
     `arch` (f32; `cfg_kw` overrides config fields on both sides, `moe_kw`
     fields of their MoEConfig): the reference's weights with
-    `noisy_const_leaves` on both sides (a no-op for an arch without such
-    leaves), the port's converted from them."""
+    `noisy_const_leaves` on both sides, the port's converted from them."""
     jprune, tprune = prune_pair(policy, **kw)
     cfg_kw = cfg_kw or {}
 
