@@ -201,6 +201,33 @@ Phases, in order (no failure is caught: any one exits non-zero):
                encoder's share by CUDA events around `Model._encode`,
                flash_prefill's by the profiler), a decode step's wall,
                kernel time and launches, peak memory.
+ 13. train   — training, after phase 12's model is freed: the attention
+               backward kernel (flash_prefill_bwd) against its plain
+               version at the five shapes the training path gives it (4 x
+               2048 rows; granite-3-2b d 64 G 4, longchat-7b d 128,
+               starcoder2-3b d 128 G 12, zamba2-7b's shared block d 112,
+               whisper-base d 64; bf16, and f32 at a reduced shape): each
+               gradient element within one bf16 ulp of itself plus one of
+               its row's largest (f32: 1e-5), two
+               launches bit-equal, CUDA-event times beside the bound, the
+               plain version and SDPA's backward; then granite-3-2b at full
+               width and depth (random bf16 weights from the seed) through
+               `launch/train.py`'s functions at the CLI's settings (--batch
+               8 --seq 256 --lr 1e-3) with int8 moments, 10 steps straight
+               and 10 through `fault.run_training` (a checkpoint every 4
+               steps, a RuntimeError before step 9): held, restarts 1, the
+               final opt.step, the resumed losses bit-equal to the
+               straight run's, flash_prefill and flash_prefill_bwd 40
+               launches a forward and a backward pass, no plain attention
+               on the card; granite-3-2b cut to REMAT_LAYERS layers: the
+               gradients under remat 'nothing' and 'dots' bit-equal to
+               those without remat (flash_prefill 2 x layers under
+               remat); one step at 4 x 2048 tokens (f32 moments,
+               remat: flash_prefill 2 x 40, flash_prefill_bwd 40) with its
+               wall, tokens/s, peak memory and the backward kernel's share
+               of its kernel time (torch.profiler); whisper-base at full
+               width and depth for 3 steps (448 decoder tokens behind a
+               seeded [4, 1500, 512] enc_embed; 6 launches of each a step).
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -216,6 +243,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -235,7 +263,10 @@ from repro_torch.core.attention import decode_attention  # noqa: E402
 from repro_torch.core.cache import (FIELDS,  # noqa: E402
                                     protected_mask, write_token)
 from repro_torch.kernels import approx_score as approx_mod  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
 from repro_torch.kernels import flash_prefill as flash_mod  # noqa: E402
+from repro_torch.kernels import flash_prefill_bwd as bwd_mod  # noqa: E402
 from repro_torch.kernels import fused_decode as fused_mod  # noqa: E402
 from repro_torch.kernels import gather_attention as gather_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -248,10 +279,14 @@ from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.prefix_cache import _tree_nbytes  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import Model, layer_params  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import fault  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, flood  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.surgery import (state_lane_insert,  # noqa: E402
                                  state_lane_slice)
 
@@ -277,7 +312,7 @@ KEPT_MIN = 0.99                    # chunked vs whole: kept slots agreeing
 # four more near-ties room
 TEACHER_AGREE_MIN = 55
 COUNTERS = (ragged_mod.LAUNCHES, fused_mod.LAUNCHES, approx_mod.LAUNCHES,
-            gather_mod.LAUNCHES, flash_mod.LAUNCHES)
+            gather_mod.LAUNCHES, flash_mod.LAUNCHES, bwd_mod.LAUNCHES)
 SEED = 0
 # the CLI's --prompt-len 2048 --new-tokens 32 --serve workload
 PROMPT_LEN, NEW_TOKENS, LANES = 2048, 32, 4
@@ -1520,9 +1555,11 @@ def served_prompts(vocab, n=2 * LANES, new=NEW_TOKENS):
              new // (1 + i % 2)) for i in range(n)]
 
 
-# the plain prompt-attention versions, watched: a call on a CUDA tensor
-# during a serve run would mean the prompt pass left the kernel
-PLAIN_ON_CARD = {"prefill_attention_ref": 0, "flash_prefill_ref": 0}
+# the plain prompt-attention versions (and the attention backward's),
+# watched: a call on a CUDA tensor during a serve or training run would
+# mean the pass left the kernel
+PLAIN_ON_CARD = {"prefill_attention_ref": 0, "flash_prefill_ref": 0,
+                 "flash_prefill_bwd_ref": 0}
 
 
 def watch_plain_prompt_attention():
@@ -3468,6 +3505,402 @@ def phase_encdec(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+# the backward kernel's shapes on the training path, at B x N = 4 x 2048:
+# (model, q-heads, kv-heads, head dim)
+BWD_SHAPES = (("granite-3-2b", 32, 8, 64), ("longchat-7b", 32, 32, 128),
+              ("starcoder2-3b", 24, 2, 128), ("zamba2-7b", 32, 32, 112),
+              ("whisper-base", 8, 8, 64))
+# kernel vs plain, bf16: both round the same f32 sums, taken in other
+# orders, to bf16 (dP, dq, dk, dv). Each element is held to one bf16 ulp
+# of itself plus one of the largest gradient of its row (dq: its query
+# row; dk, dv: its key row), as the gradients shrink about as
+# 1/sqrt(row) along the sequence
+BWD_TOL = 2.0 ** -7
+BWD_F32_ATOL = 1e-5                # f32: the sum order alone
+# granite-3-2b through the training CLI's settings (--batch 8 --seq 256
+# --lr 1e-3; warmup 100 of the schedule), int8 moments (--quantized-opt:
+# a checkpoint is about 10 GB where f32 moments make it 25 GB); a
+# checkpoint every 4 steps and a RuntimeError injected before step 9,
+# after the second one
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 8, 256, 1e-3
+CKPT_EVERY, FAIL_AT = 4, 9
+# the resumed losses must equal the uninterrupted run's bit for bit: the
+# restored state is the checkpoint's bits and every kernel of the step is
+# deterministic
+CKPT_DIR = ROOT / "build" / "train_ckpt"
+WHISPER_TRAIN = (4, 448, 3)        # batch, decoder tokens, steps
+REMAT_LAYERS = 4                   # granite-3-2b's depth for the remat check
+
+
+def bwd_bound(b, hq, hk, n, d):
+    """(bound_ms, bound_by, flop, bytes) of the attention backward: five
+    products over the causal triangle at the bf16 peak; q, k, v, dq, dk,
+    dv in bf16 and dout in f32, each moved once."""
+    flop = 5 * 2 * b * hq * (n * (n + 1) // 2) * d
+    nbytes = 2 * (2 * b * hq * n * d + 4 * b * hk * n * d) + 4 * b * hq * n * d
+    t, by = bound(nbytes, bf16_flops=flop)
+    return t, by, flop, nbytes
+
+
+def bwd_check(model, hq, hk, d, seed, b=4, n=2048, dtype=torch.bfloat16):
+    """The kernel against its plain version on seeded q, k, v and dout:
+    errors against the largest gradient, two launches bit-equal; CUDA-event
+    times of the kernel, the plain version and SDPA's backward (K/V
+    expanded over the q-heads)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(
+        dtype) for h in (hq, hk, hk))
+    dout = torch.randn((b, hq, n, d), generator=gen, device="cuda")
+    got = bwd_mod.flash_prefill_bwd(q, k, v, dout)
+    again = bwd_mod.flash_prefill_bwd(q, k, v, dout)
+    want = ref.flash_prefill_bwd_ref(q, k, v, dout)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    errs = {}
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        top = float(w.float().abs().max())
+        diff = (x.float() - w.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.bfloat16:
+            a = w.float().abs()
+            reading = float((diff / (BWD_TOL * (a + a.amax(-1, True))
+                                     ).clamp_min(1e-30)).max())
+        else:
+            reading = err / BWD_F32_ATOL
+        assert reading <= 1.0, (model, name, err, reading)
+        errs[name] = (err, top, reading)
+        del diff
+    assert same, (model, "two launches differ")
+    del got, again, want
+    out = {"errors": errs, "bit_equal": same}
+    if dtype == torch.bfloat16:
+        t, by, flop, nbytes = bwd_bound(b, hq, hk, n, d)
+        ms = cuda_ms(lambda: bwd_mod.flash_prefill_bwd(q, k, v, dout), 5, 1)
+        plain = long_ms(lambda: ref.flash_prefill_bwd_ref(q, k, v, dout), 2)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (
+            q, k.repeat_interleave(hq // hk, dim=1),
+            v.repeat_interleave(hq // hk, dim=1)))
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        do16 = dout.to(dtype)
+        lib = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do16,
+                                                  retain_graph=True), 5, 1)
+        out.update(ms=ms, plain_ms=plain, bound_ms=t, bound_by=by,
+                   library_ms=lib, flop=flop, bytes=nbytes)
+        del qg, kg, vg, o
+    print(f"[train] flash_prefill_bwd {model} (B={b} Hq={hq} Hk={hk} N={n} "
+          f"d={d} {str(dtype)[6:]}): max|err|/max|grad| "
+          + ", ".join(f"{k} {e:.3g}/{m:.3g}" for k, (e, m, _) in
+                      errs.items())
+          + "; worst |err| / limit "
+          + ", ".join(f"{k} {r:.3g}" for k, (_, _, r) in errs.items())
+          + f" (limit {BWD_TOL:.4g} x (|grad| + max|grad| of its row) in "
+          f"bf16, {BWD_F32_ATOL} in f32); two launches bit-equal: {same}"
+          + ("" if dtype != torch.bfloat16 else
+             f"; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+             f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+             f"{out['flop']:.4g} flop, {out['bytes']} B), kernel / bound "
+             f"{out['ms'] / out['bound_ms']:.1f}x; SDPA backward (K/V "
+             f"expanded) {out['library_ms']:.4f} ms"))
+    return out
+
+
+def train_batch_fn(cfg, b, t, seed=SEED):
+    src = SyntheticSource(cfg.vocab_size, t, seed=seed)
+
+    def data_iter(step):
+        batch = {"tokens": src.batch(step, b),
+                 **train_mod.frontend_inputs(cfg, step, b, seed)}
+        return {k: torch.as_tensor(v, device="cuda") for k, v in
+                batch.items()}
+    return data_iter
+
+
+def train_run(model, opt_cfg, data_iter, steps, fail_at=None, ckpt=None):
+    """`steps` steps of the training CLI's step function from the seed's
+    state: straight (no checkpoint), or through `fault.run_training` with
+    a checkpoint every CKPT_EVERY and a RuntimeError injected once before
+    `fail_at`. Returns ({step: [losses]}, stats, launches, wall s)."""
+    state = train_mod.init_train_state(model, opt_cfg, SEED)
+    step_fn = train_mod.make_train_step(model, opt_cfg, steps,
+                                        peak_lr=TRAIN_LR)
+    losses = {}
+
+    def on_metrics(i, m):
+        losses.setdefault(i, []).append(float(m["loss"]))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    PLAIN_ON_CARD.update(dict.fromkeys(PLAIN_ON_CARD, 0))
+    t0 = time.monotonic()
+    if ckpt is None:
+        stats = None
+        for i in range(steps):
+            state, m = step_fn(state, data_iter(i))
+            on_metrics(i, m)
+    else:
+        failed = []
+
+        def inject(i):
+            if i == fail_at and not failed:
+                failed.append(i)
+                raise RuntimeError(f"injected failure before step {i}")
+        state, stats = fault.run_training(
+            step_fn, state, data_iter, steps, ckpt,
+            fault.FaultConfig(ckpt_every=CKPT_EVERY, max_restarts=1),
+            inject_failure=inject, on_metrics=on_metrics)
+        assert int(state.opt.step) == steps, int(state.opt.step)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    del state
+    return losses, stats, counts, wall
+
+
+def remat_check(cfg, prune):
+    """The gradients of one loss (granite-3-2b at full width, cut to
+    REMAT_LAYERS layers, one TRAIN_BATCH x TRAIN_SEQ batch) under remat
+    'nothing' and 'dots' against those without remat, bit for bit, with
+    each run's launches: the selective checkpoint of 'dots' wraps a ctypes
+    launch the dispatcher never sees, so its recomputation must still run
+    the kernel."""
+    cfg = dataclasses.replace(cfg, num_layers=REMAT_LAYERS)
+    params = Model(cfg, prune, device="cuda").init(SEED)
+    batch = train_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ)(0)
+    grads, counts = {}, {}
+    for remat, policy in ((False, "nothing"), (True, "nothing"),
+                          (True, "dots")):
+        model = Model(cfg, prune, device="cuda", remat=remat,
+                      remat_policy=policy)
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        torch.cuda.synchronize()
+        reset_launches()
+        loss, _ = train_mod.make_loss_fn(model)(live, batch)
+        g = torch.autograd.grad(loss, leaves(live), allow_unused=True)
+        torch.cuda.synchronize()
+        key = policy if remat else "none"
+        grads[key], counts[key] = g, launch_counts()
+        del live, loss
+    want_fwd = {"none": 1, "nothing": 2, "dots": 2}
+    for key, c in counts.items():
+        assert c["flash_prefill"] == want_fwd[key] * REMAT_LAYERS, (key, c)
+        assert c["flash_prefill_bwd"] == REMAT_LAYERS, (key, c)
+    same = {}
+    for key in ("nothing", "dots"):
+        same[key] = all((a is None and b is None) or torch.equal(a, b)
+                        for a, b in zip(grads["none"], grads[key]))
+        assert same[key], key
+    print(f"[train] remat: granite-3-2b cut to {REMAT_LAYERS} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: gradients under 'nothing' "
+          f"and 'dots' bit-equal to those without remat: "
+          f"{same['nothing']} / {same['dots']}; flash_prefill launches "
+          + " / ".join(f"{k} {c['flash_prefill']}" for k, c in counts.items())
+          + ", flash_prefill_bwd "
+          + " / ".join(f"{k} {c['flash_prefill_bwd']}"
+                       for k, c in counts.items()))
+    del grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in counts.values())
+            for k in ("flash_prefill", "flash_prefill_bwd")}
+
+
+def train_step_profile(model, opt_cfg, batch):
+    """One training step at `batch` from the seed's state: wall, tokens/s,
+    peak memory, its launches; then one under torch.profiler: the backward
+    kernels' share of the step's kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = train_mod.init_train_state(model, opt_cfg, SEED)
+    step_fn = train_mod.make_train_step(model, opt_cfg, 10, peak_lr=TRAIN_LR)
+    state, _ = step_fn(state, batch)                       # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    bwd = sum(dev_us(e) for e in kernels if "bwd_dq_kernel" in e.key
+              or "bwd_dkv_kernel" in e.key) / 1e3
+    fwd = sum(dev_us(e) for e in kernels if "flash_prefill_" in e.key
+              and "bwd" not in e.key or "fold_columns" in e.key) / 1e3
+    del state
+    return {"wall_s": wall, "loss": float(m["loss"]), "peak": peak,
+            "launches": counts, "busy_ms": busy, "bwd_ms": bwd,
+            "fwd_ms": fwd, "n_kernels": sum(e.count for e in kernels)}
+
+
+def phase_train(smi):
+    """Phase 13: the attention backward kernel against its plain version at
+    the training path's five shapes, then granite-3-2b (full width and
+    depth) through the training CLI's functions, uninterrupted and with a
+    failure and a resume, a profiled step at 4 x 2048 under remat, and
+    whisper-base (full) for a few steps. Returns (the backward kernel's
+    row, the launches of the main-path runs)."""
+    t_all = time.monotonic()
+    checks = {}
+    for i, (name, hq, hk, d) in enumerate(BWD_SHAPES):
+        checks[name] = bwd_check(name, hq, hk, d, seed=SEED + 130 + i)
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks["f32"] = bwd_check("reduced (f32)", 4, 2, 16, SEED + 139, b=2,
+                              n=300, dtype=torch.float32)
+    print(f"[train] kernel checks {time.monotonic() - t_all:.1f}s")
+    launches = dict.fromkeys(launch_counts(), 0)
+
+    # granite-3-2b: the uninterrupted run, then the faulted one
+    t = time.monotonic()
+    cfg = get_config("granite-3-2b")
+    model = Model(cfg, baselines.unicaim(heavy=min(448, TRAIN_SEQ),
+                                         reserve=64, select_k=64),
+                  device="cuda")
+    opt_q = adamw.AdamWConfig(lr=TRAIN_LR, quantized_state=True)
+    data = train_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    clean, _, c_clean, w_clean = train_run(model, opt_q, data, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    assert c_clean["flash_prefill"] == layers * TRAIN_STEPS, c_clean
+    assert c_clean["flash_prefill_bwd"] == layers * TRAIN_STEPS, c_clean
+    print(f"[train] granite-3-2b (40 layers, d 2048, 32/8 heads of 64, "
+          f"2.53e9 params, bf16, int8 moments) {TRAIN_STEPS} steps at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR}: "
+          f"{w_clean:.2f}s ({w_clean / TRAIN_STEPS * 1e3:.1f} ms a step, "
+          f"{TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / w_clean:.0f} tokens/s); "
+          f"losses {[round(clean[i][0], 4) for i in range(TRAIN_STEPS)]}; "
+          f"flash_prefill {c_clean['flash_prefill']} and flash_prefill_bwd "
+          f"{c_clean['flash_prefill_bwd']} launches (40 x {TRAIN_STEPS}); "
+          f"peak {peak / 2 ** 30:.2f} GiB  [{smi}]")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ckpt = CheckpointManager(str(CKPT_DIR), keep=1)
+    faulted, stats, c_f, w_f = train_run(model, opt_q, data, TRAIN_STEPS,
+                                         fail_at=FAIL_AT, ckpt=ckpt)
+    last = ckpt.latest_step()
+    ckpt_bytes = sum(f.stat().st_size for f in CKPT_DIR.rglob("*")
+                     if f.is_file())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    passes = stats.steps                  # forward + backward passes run
+    assert stats.restarts == 1 and last == TRAIN_STEPS, (stats, last)
+    resumed = 2 * CKPT_EVERY              # the replay starts there
+    assert passes == TRAIN_STEPS + (FAIL_AT - resumed), stats
+    assert c_f["flash_prefill"] == layers * passes, c_f
+    assert c_f["flash_prefill_bwd"] == layers * passes, c_f
+    assert [len(faulted[i]) for i in range(TRAIN_STEPS)] == [
+        1 + (resumed <= i < FAIL_AT) for i in range(TRAIN_STEPS)]
+    bit_equal = all(faulted[i][-1] == clean[i][0] for i in range(TRAIN_STEPS))
+    assert bit_equal, (clean, faulted)
+    print(f"[train] granite-3-2b through fault.run_training (a checkpoint "
+          f"every {CKPT_EVERY} steps, keep 1, {ckpt_bytes} B each on disk; "
+          f"a RuntimeError before step {FAIL_AT}): {w_f:.2f}s, restarts "
+          f"{stats.restarts}, final opt.step {TRAIN_STEPS}, {passes} passes; "
+          f"resumed losses bit-equal to the uninterrupted ones: "
+          f"{bit_equal}; launches "
+          f"{c_f['flash_prefill']} / {c_f['flash_prefill_bwd']} (40 x "
+          f"{passes})  [{smi}]")
+    for k in ("flash_prefill", "flash_prefill_bwd"):
+        launches[k] += c_clean[k] + c_f[k]
+    print(f"[train] granite-3-2b runs {time.monotonic() - t:.1f}s")
+
+    # remat 'nothing' and 'dots' at a cut depth
+    t = time.monotonic()
+    for k, n in remat_check(cfg, model.prune).items():
+        launches[k] += n
+    print(f"[train] remat check {time.monotonic() - t:.1f}s")
+
+    # one step at 4 x 2048 tokens, f32 moments, remat
+    t = time.monotonic()
+    model = Model(cfg, model.prune, device="cuda", remat=True)
+    big = {"tokens": torch.as_tensor(SyntheticSource(
+        cfg.vocab_size, PROMPT_LEN, seed=SEED).batch(0, LANES),
+        device="cuda")}
+    prof = train_step_profile(model, adamw.AdamWConfig(lr=TRAIN_LR), big)
+    assert prof["launches"]["flash_prefill"] == 2 * layers, prof
+    assert prof["launches"]["flash_prefill_bwd"] == layers, prof
+    share = ("not measured" if prof["busy_ms"] == 0 else
+             f"{prof['bwd_ms'] / prof['busy_ms']:.1%}")
+    print(f"[train] granite-3-2b one step at {LANES} x {PROMPT_LEN} tokens "
+          f"(f32 moments, remat 'nothing'): {prof['wall_s'] * 1e3:.1f} ms "
+          f"wall, {LANES * PROMPT_LEN / prof['wall_s']:.0f} tokens/s, loss "
+          f"{prof['loss']:.4f}, peak {prof['peak'] / 2 ** 30:.2f} GiB; "
+          f"launches flash_prefill {prof['launches']['flash_prefill']} (40 x "
+          f"2: remat), flash_prefill_bwd "
+          f"{prof['launches']['flash_prefill_bwd']}; profiled: "
+          f"{prof['busy_ms']:.1f} ms of kernel time in "
+          f"{prof['n_kernels']} kernels, flash_prefill_bwd "
+          f"{prof['bwd_ms']:.1f} ms ({share}), flash_prefill "
+          f"{prof['fwd_ms']:.1f} ms  [{smi}]")
+    for k in ("flash_prefill", "flash_prefill_bwd"):
+        launches[k] += prof["launches"][k]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] 4 x 2048 step {time.monotonic() - t:.1f}s")
+
+    # whisper-base, full width and depth
+    t = time.monotonic()
+    wcfg = get_config("whisper-base")
+    wb, wt, ws = WHISPER_TRAIN
+    wmodel = Model(wcfg, baselines.unicaim(**FAMILY_PRUNE), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    wl, _, c_w, w_w = train_run(wmodel, adamw.AdamWConfig(lr=TRAIN_LR),
+                                train_batch_fn(wcfg, wb, wt), ws)
+    assert c_w["flash_prefill"] == wcfg.dec_layers * ws, c_w
+    assert c_w["flash_prefill_bwd"] == wcfg.dec_layers * ws, c_w
+    assert all(math.isfinite(wl[i][0]) for i in range(ws)), wl
+    print(f"[train] whisper-base (6 + 6 blocks, d 512, 8 heads of 64, "
+          f"[{wb}, {wcfg.frontend_len}, {wcfg.d_model}] enc_embed, {wt} "
+          f"decoder tokens) {ws} steps, f32 moments: {w_w:.2f}s, losses "
+          f"{[round(wl[i][0], 4) for i in range(ws)]}, launches "
+          f"{c_w['flash_prefill']} / {c_w['flash_prefill_bwd']} (6 x {ws}), "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  "
+          f"[{smi}]")
+    for k in ("flash_prefill", "flash_prefill_bwd"):
+        launches[k] += c_w[k]
+    del wmodel
+    print(f"[train] phase 13 {time.monotonic() - t_all:.1f}s")
+
+    g = checks["granite-3-2b"]
+    worst_err = max(e for c in checks.values() for e, _, _ in
+                    c["errors"].values())
+    row = {
+        "name": "flash_prefill_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+        "replaces": ("none: the reference differentiates plain XLA "
+                     "(src/repro/core/attention.py:490 under "
+                     "jax.value_and_grad at src/repro/launch/train.py:95)"),
+        "launches": launches["flash_prefill_bwd"],
+        "max_abs_err": worst_err, "ms": g["ms"], "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+        "library_ms": g["library_ms"],
+        "shapes": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms") if f in c}
+                   for k, c in checks.items()},
+        "granite_step_4x2048": {"wall_ms": prof["wall_s"] * 1e3,
+                                "kernel_ms": prof["busy_ms"],
+                                "bwd_ms": prof["bwd_ms"],
+                                "peak_gib": prof["peak"] / 2 ** 30}}
+    return row, launches
+
+
 def main():
     t_all = time.monotonic()
     # 1. device
@@ -3490,7 +3923,6 @@ def main():
     print(f"[build] {secs} ({time.monotonic() - t:.1f}s wall)")
     compiled = prompt_kernel_report()
     decode_compiled = decode_kernel_report()
-
     # 3. kernels
     worst, timings = {}, {}
     for name, phase in (("ragged_decode", phase_ragged),
@@ -3648,6 +4080,20 @@ def main():
     for name in ("ragged_decode", "fused_decode", "flash_prefill"):
         timings[name]["extra"]["whisper_launches"] = encdec_launches[name]
     print(f"[encdec] phase {time.monotonic() - t:.1f}s")
+
+    # 13. training: the attention backward kernel, granite-3-2b and
+    # whisper-base at full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[train] before phase 13: {held / 2 ** 30:.3f} GiB still "
+          f"allocated on the card (phase 12's model freed)")
+    assert held < 1 << 30, held
+    bwd_row, train_launches = phase_train(smi)
+    for name, n in train_launches.items():
+        launches[name] += n
+    timings["flash_prefill"]["extra"]["train_launches"] = train_launches[
+        "flash_prefill"]
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key
@@ -3687,6 +4133,7 @@ def main():
         "ms": b4["ms"], "plain_ms": b4["plain_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
         "library_ms": b4["library_ms"]})
+    table.append(bwd_row)
     print(json.dumps({"kernels": table}))
     print(f"[done] {time.monotonic() - t_all:.1f}s total")
     print(smi)

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {name: CSRC / f"{name}.cu" for name in (
     "ragged_decode", "fused_decode", "approx_score", "gather_attention",
-    "flash_prefill")}
+    "flash_prefill", "flash_prefill_bwd")}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 

@@ -16,6 +16,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.approx_score import approx_score as _approx_kernel
 from repro_torch.kernels.flash_prefill import (
     LATENT, flash_prefill as _flash_kernel)
+from repro_torch.kernels.flash_prefill_bwd import (
+    flash_prefill_bwd as _flash_bwd_kernel)
 from repro_torch.kernels.fused_decode import fused_decode as _fused_kernel
 from repro_torch.kernels.gather_attention import (
     gather_attention as _gather_kernel)
@@ -150,3 +152,49 @@ def prefill_attention(q, k, v, acc=None, *, row0: int = 0, length=None,
         acc.view(b * hk, n), group=hq // hk, acc_group=hq // hk,
         row0=row0, obs_window=obs_window, model=True, scale=scale)
     return out.reshape(b, hq, c, -1), acc
+
+
+def prefill_attention_bwd(q, k, v, dout, *, scale=None, chunk: int = 512):
+    """The backward of `prefill_attention`'s out over a whole prompt (row0
+    0, every row live): q [B,Hq,N,d], k/v [B,Hk,N,d], dout [B,Hq,N,dv] →
+    (dq, dk, dv) (`ref.flash_prefill_bwd_ref`). On the card the
+    `flash_prefill_bwd` kernel, with q cast to K's dtype and dout to f32,
+    all made contiguous (copies where they are not); `chunk` only shapes
+    the plain version's loop."""
+    if not _on_card(q, "flash_prefill_bwd"):
+        return ref.flash_prefill_bwd_ref(q, k, v, dout, scale=scale,
+                                         chunk=chunk)
+    dq, dk, dv = _flash_bwd_kernel(
+        q.to(k.dtype).contiguous(), k.contiguous(), v.contiguous(),
+        dout.to(torch.float32).contiguous(), scale=scale)
+    return dq.to(q.dtype), dk, dv
+
+
+class _CausalAttention(torch.autograd.Function):
+    """Differentiable causal prompt attention: `prefill_attention`'s out
+    forward (its column sums dropped), `prefill_attention_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, chunk):
+        out, _ = prefill_attention(q, k, v, chunk=chunk, scale=scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.chunk = scale, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = prefill_attention_bwd(q, k, v, dout, scale=ctx.scale,
+                                           chunk=ctx.chunk)
+        return dq, dk, dv, None, None
+
+
+def causal_attention(q, k, v, scale=None, chunk: int = 512):
+    """Causal attention over a whole prompt with a gradient, the training
+    forward's (the reference's `chunked_causal_attention` out under
+    `jax.value_and_grad`): q [B,Hq,N,d], k/v [B,Hk,N,d] → out
+    [B,Hq,N,dv] f32. The forward is `prefill_attention` (the
+    `flash_prefill` kernel on the card, its plain version on the CPU),
+    the backward `prefill_attention_bwd` (the `flash_prefill_bwd` kernel,
+    or `ref.flash_prefill_bwd_ref`)."""
+    return _CausalAttention.apply(q, k, v, scale, chunk)

@@ -193,3 +193,63 @@ def prefill_attention_ref(q, k, v, *, row0: int = 0, length=None,
         w = live.float()[:, None, None, :, None]
         acc += (p_g * w).sum(dim=(2, 3))
     return torch.cat(outs, dim=2), acc
+
+
+def flash_prefill_bwd_ref(q, k, v, dout, *, scale=None, chunk: int = 512):
+    """The backward of causal prompt attention, the plain version of the
+    `flash_prefill_bwd` kernel: the gradient of the out that
+    `prefill_attention_ref` computes (the reference's
+    `chunked_causal_attention` under `jax.vjp`), its column sums getting
+    no cotangent. q [B,Hq,N,d], k/v [B,Hk,N,d], dout [B,Hq,N,dv] (out's
+    cotangent) → (dq in q's dtype, dk, dv in K's and V's dtypes, each
+    summed over the Hq / Hk q-heads of its group), written out step by
+    step, `chunk` query rows at a time.
+
+    It rounds where the reference's vjp rounds: the cotangent of a bf16
+    operand of an f32-accumulating product is bf16, so dP = dout·vᵀ is
+    rounded to V's dtype before the softmax backward, dq to K's dtype (q
+    is cast to it in the forward) and then to q's, and dk and dv to their
+    dtypes; the rows' sums are f32, rounded once. dv takes the
+    probabilities rounded to V's dtype, the operand of the forward's p·v;
+    the softmax backward takes them in f32. (With more rows than the
+    reference's 512-row chunk, the reference rounds each chunk's dk and dv
+    to bf16 and sums those in bf16; this version and the kernel sum every
+    row in f32.)"""
+    b, hq, n, d = q.shape
+    hk = k.shape[1]
+    g = hq // hk
+    dv_dim = v.shape[-1]
+    chunk = min(chunk, n)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qs = q.to(k.dtype).float()
+    kf, vf = k.float(), v.float()
+    do = dout.float()
+    col = torch.arange(n, device=dev)
+    dk = torch.zeros((b, hk, n, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, hk, n, dv_dim), dtype=torch.float32, device=dev)
+    dqs = []
+    for r0 in range(0, n, chunk):
+        t = min(chunk, n - r0)
+        row = torch.arange(r0, r0 + t, device=dev)
+        q_g = qs[:, :, r0:r0 + t].reshape(b, hk, g * t, d)
+        do_g = do[:, :, r0:r0 + t].reshape(b, hk, g * t, dv_dim)
+        logits = torch.matmul(q_g, kf.transpose(-1, -2)).reshape(
+            b, hk, g, t, n)
+        causal = row[:, None] >= col[None, :]
+        logits = torch.where(causal, logits * scale,
+                             torch.full_like(logits, NEG_INF))
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+        p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        p_round = p.to(v.dtype).float().reshape(b, hk, g * t, n)
+        dv += torch.matmul(p_round.transpose(-1, -2), do_g)
+        dp = torch.matmul(do_g, vf.transpose(-1, -2)).to(v.dtype).float()
+        dp = dp.reshape(b, hk, g, t, n)
+        dd = (p * dp).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - dd) * scale).reshape(b, hk, g * t, n)
+        dqs.append(torch.matmul(ds, kf).to(k.dtype).reshape(b, hq, t, d))
+        dk += torch.matmul(ds.transpose(-1, -2), q_g)
+    dq = torch.cat(dqs, dim=2).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

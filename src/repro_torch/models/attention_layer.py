@@ -1,6 +1,6 @@
 """GQA attention block wired to the UniCAIM cache — the port of
-`repro/models/attention_layer.py` (prefill, chunked prefill and decode),
-and the encoder-decoder's attention: the encoder's bidirectional
+`repro/models/attention_layer.py` (training, prefill, chunked prefill and
+decode), and the encoder-decoder's attention: the encoder's bidirectional
 attention, the cross K/V made once from the encoder output, and the
 decoder's cross-attention over it (plain PyTorch, as the reference's is
 plain XLA)."""
@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig, PruneConfig
 from repro_torch.core.attention import decode_attention, prefill_chunk_attend
 from repro_torch.core.cache import KVCache
 from repro_torch.core.pruning import prefill_and_prune
+from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 
 
@@ -36,6 +37,24 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def attention_train(p, x: torch.Tensor, cfg: ModelConfig, positions,
+                    causal: bool = True, chunk: int = 0) -> torch.Tensor:
+    """Full-sequence attention with a gradient (training, or the encoder).
+    x: [B,T,d] → y [B,T,d]. A causal call runs `ops.causal_attention` (the
+    `flash_prefill` kernel forward and the `flash_prefill_bwd` kernel
+    backward on the card); a non-causal one the encoder's dense f32
+    bidirectional attention, plain PyTorch as the reference's is plain
+    XLA."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if not causal:
+        return _dense_attend(q, k, v, cfg).to(x.dtype) @ p["wo"]
+    chunk = chunk or cfg.attn_chunk
+    out = ops.causal_attention(q, k, v, chunk=min(chunk, t))
+    out = out.transpose(1, 2).reshape(b, t, cfg.q_dim).to(x.dtype)
+    return out @ p["wo"]
 
 
 def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions,
@@ -120,15 +139,6 @@ def _dense_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhgts,bhsd->bhgtd", pr, v.float())
     return out.reshape(b, cfg.n_heads, t, dh).transpose(1, 2).reshape(
         b, t, cfg.q_dim)
-
-
-def encoder_attention(p, x: torch.Tensor, cfg: ModelConfig,
-                      positions) -> torch.Tensor:
-    """The encoder's self-attention (the reference's `attention_train(...,
-    causal=False)`): bidirectional over all T rows. x: [B,T,d] → y
-    [B,T,d]."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    return _dense_attend(q, k, v, cfg).to(x.dtype) @ p["wo"]
 
 
 def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):

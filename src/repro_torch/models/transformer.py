@@ -11,8 +11,8 @@ application) and the encoder-decoder (whisper: a bidirectional encoder over
 on the cache, cross-attention over K/V made once from the encoder output,
 and the MLP; sinusoidal positions on both stacks). A
 multi-token-prediction head (`mtp_depth > 0`) is built with the
-reference's tree, and nothing on the serving path reads it (its forward
-belongs to training).
+reference's tree, and nothing reads it yet (its forward belongs to MLA's
+training, ROADMAP.md Queue A item 12b).
 
 `Model` keeps the reference's functional surface: parameters are nested
 dicts of tensors with the reference's key names (`embed`, `final_norm`,
@@ -30,6 +30,9 @@ dicts of tensors with the reference's key names (`embed`, `final_norm`,
       time-sliced prefill into a `PrefillChunkState` workspace;
       prefill_finalize(...) → the static pruning and the logits after it
   decode_step(params, state, tok)  → (logits, state)
+  train_hidden / train_logits / train_outputs(params, batch)
+                                   → the training forward with a gradient
+                                     (every family but mla_moe)
 
 The decode state's layer-stacked cache and SSM state are updated in place
 (the enc-dec's cross K/V is written once, by the prefill):
@@ -40,10 +43,12 @@ dead slot blocks itself.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig, PruneConfig
 from repro_torch.core import cache as kvcache
@@ -53,13 +58,13 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention_layer import (attention_decode,
                                                 attention_prefill,
                                                 attention_prefill_chunk,
+                                                attention_train,
                                                 cross_attention,
-                                                encode_cross_kv,
-                                                encoder_attention)
+                                                encode_cross_kv)
 from repro_torch.models.mla import init_mla, mla_decode, mla_prefill
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (SSMState, init_ssm, init_ssm_state,
-                                    ssm_decode, ssm_prefill)
+                                    ssm_decode, ssm_prefill, ssm_train)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -183,11 +188,58 @@ def layer_params(params_seg, li: int):
     return params_seg[li]
 
 
+def _block_train(p, x: torch.Tensor, cfg: ModelConfig, positions, kind: str,
+                 cross_kv=None, causal: bool = True):
+    """One residual block over the whole sequence, with a gradient →
+    (x, aux): an SSD block (`ssm`), or attention (causal through the
+    kernels' op, `causal=False` for the encoder), the decoder's
+    cross-attention over `cross_kv` (`encdec_dec`), and the MLP or the
+    routed experts, whose load-balancing loss is the aux (a zero f32
+    scalar elsewhere)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssm":
+        return x + ssm_train(p["ssm"], L.apply_norm(p["norm"], x, cfg.norm),
+                             cfg), aux
+    x = x + attention_train(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                            cfg, positions, causal=causal)
+    if kind == "encdec_dec":
+        x = x + cross_attention(p["xattn"],
+                                L.apply_norm(p["ln_x"], x, cfg.norm),
+                                cross_kv, cfg)
+    h = L.apply_norm(p["ln2"], x, cfg.norm)
+    if "moe" in p:
+        y, aux = apply_moe(p["moe"], h, cfg)
+    else:
+        y = L.apply_mlp(p["mlp"], h, cfg.act)
+    return x + y, aux
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of `remat_policy="dots"`: keep the
+    matrix products' outputs, recompute the rest (the reference's
+    `dots_with_no_batch_dims_saveable`)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _depth(tree) -> int:
+    """The leading (layer) axis of a stacked segment."""
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree.shape[0]
+
+
 class Model:
     """Model facade for the dense, MoE, mla_moe, SSM, hybrid and enc-dec
-    families (functional: params are passed in)."""
+    families (functional: params are passed in). `remat` recomputes each
+    block's activations in the backward (training only): `remat_policy`
+    "nothing" keeps none of them, "dots" keeps the matrix products'
+    outputs."""
 
-    def __init__(self, cfg: ModelConfig, prune: PruneConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, prune: PruneConfig, device="cuda",
+                 remat: bool = False, remat_policy: str = "nothing"):
         unsupported = [name for name, bad in (
             ("family", cfg.family not in ("dense", "moe", "mla_moe", "ssm",
                                           "hybrid", "encdec")),
@@ -197,9 +249,14 @@ class Model:
                 f"{cfg.name}: {', '.join(unsupported)} not ported "
                 "(the port serves the dense, MoE, mla_moe, SSM, hybrid and "
                 "enc-dec families)")
+        if remat_policy not in ("nothing", "dots"):
+            raise ValueError(f"remat_policy {remat_policy!r}: 'nothing' or "
+                             "'dots'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prune = prune
+        self.remat = remat
+        self.remat_policy = remat_policy
 
     @property
     def dtype(self) -> torch.dtype:
@@ -437,21 +494,24 @@ class Model:
         decoder layer's cross K/V from the output, written into `cross`
         ((k, v), each [L_dec, B, Hk, S, dh] in the compute dtype: a state's,
         from `init_decode_state(B, cross_len=S)`) → `cross`."""
+        enc, _ = self._encoder(params, batch)
+        dec = params["seg1_encdec_dec"]
+        for j in range(self.cfg.dec_layers):
+            cross[0][j], cross[1][j] = encode_cross_kv(
+                layer_params(dec, j)["xattn"], enc, self.cfg)
+        return cross
+
+    def _encoder(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The enc-dec's encoder blocks over batch["enc_embed"] plus its
+        sinusoidal positions → (its output [B, S, d], the blocks' aux, a
+        zero f32 scalar)."""
         cfg = self.cfg
         enc = torch.as_tensor(batch["enc_embed"],
                               device=self.device).to(self.dtype)
         pos = torch.arange(enc.shape[1], device=self.device)[None]
         enc = enc + L.sinusoidal(pos, cfg.d_model).to(enc.dtype)
-        for j in range(cfg.enc_layers):
-            p = layer_params(params["seg0_encdec_enc"], j)
-            enc = enc + encoder_attention(
-                p["attn"], L.apply_norm(p["ln1"], enc, cfg.norm), cfg, pos)
-            enc = enc + self._ffn(p, L.apply_norm(p["ln2"], enc, cfg.norm))
-        dec = params["seg1_encdec_dec"]
-        for j in range(cfg.dec_layers):
-            cross[0][j], cross[1][j] = encode_cross_kv(
-                layer_params(dec, j)["xattn"], enc, cfg)
-        return cross
+        return self._scan_train(params["seg0_encdec_enc"], enc, pos,
+                                "encdec_enc", causal=False)
 
     def _cross_attend(self, p, x: torch.Tensor, cross, li: int
                       ) -> torch.Tensor:
@@ -673,3 +733,116 @@ class Model:
                 x = x + self._cross_attend(p, x, state.cross, li)
             x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
         return self._logits(params, x), state
+
+    # -- train ----------------------------------------------------------------
+
+    def _train_block(self, p, x: torch.Tensor, positions, kind: str,
+                     cross_kv=None, causal: bool = True):
+        """`_block_train`, recomputed in the backward under `remat`."""
+        if not self.remat:
+            return _block_train(p, x, self.cfg, positions, kind, cross_kv,
+                                causal)
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _save_products)
+        return torch_checkpoint.checkpoint(
+            _block_train, p, x, self.cfg, positions, kind, cross_kv, causal,
+            use_reentrant=False, **kw)
+
+    def _scan_train(self, stacked, x: torch.Tensor, positions, kind: str,
+                    cross_kv=None, causal: bool = True):
+        """The blocks of a stacked segment in order (the reference's layer
+        scan as a loop; `cross_kv`: a list of each decoder layer's (k, v))
+        → (x, the sum of their aux losses)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for li in range(_depth(stacked)):
+            x, a = self._train_block(
+                layer_params(stacked, li), x, positions, kind,
+                None if cross_kv is None else cross_kv[li], causal)
+            aux = aux + a
+        return x, aux
+
+    def _hybrid_train(self, params, x: torch.Tensor, positions):
+        """The hybrid's stack: the shared attention block before each group
+        of `attn_period` SSD blocks, then the tail's SSD blocks → (x, a
+        zero aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        groups = params["ssm_groups"]
+        for g in range(_depth(groups)):
+            x, _ = self._train_block(params["shared_attn"], x, positions,
+                                     "dense")
+            x, _ = self._scan_train(layer_params(groups, g), x, positions,
+                                    "ssm")
+        if "ssm_tail" in params:
+            x, _ = self._scan_train(params["ssm_tail"], x, positions, "ssm")
+        return x, aux
+
+    def head_matrix(self, params) -> torch.Tensor:
+        """The vocabulary projection [d, V]: the tied embedding's transpose,
+        or `lm_head`."""
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+
+    def _check_trainable(self, params) -> None:
+        cfg = self.cfg
+        if cfg.mla is not None or (cfg.mtp_depth > 0 and "mtp" in params):
+            raise NotImplementedError(
+                f"{cfg.name}: training MLA (mla_train, its latent-width "
+                "attention backward) and the MTP head's forward and loss is "
+                "not ported yet: ROADMAP.md Queue A item 12b")
+
+    def train_hidden(self, params, batch) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """The backbone over a batch of whole sequences, with a gradient →
+        (post-final-norm hidden [B, T, d], the summed aux loss, an f32
+        scalar). `batch`: `tokens` [B, T]; a frontend model's
+        `<frontend>_embed` [B, F, d] (its F rows are cut from the output);
+        an enc-dec model's `enc_embed` [B, S, d] for its encoder, whose
+        output gives each decoder layer's cross K/V. Raises for an MLA
+        model (ROADMAP.md Queue A item 12b)."""
+        self._check_trainable(params)
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
+        cross = None
+        if cfg.family == "encdec":
+            if batch.get("enc_embed") is None:
+                raise ValueError(f"{cfg.name} takes batch['enc_embed'] (its "
+                                 "encoder's input frames)")
+            enc, aux = self._encoder(params, batch)
+            aux_total = aux_total + aux
+            dec = params["seg1_encdec_dec"]
+            cross = [encode_cross_kv(layer_params(dec, j)["xattn"], enc, cfg)
+                     for j in range(cfg.dec_layers)]
+        x, n_front = self._prepend_frontend(params, batch,
+                                            self._embed(params, tokens))
+        pos = torch.arange(x.shape[1], device=self.device)[None]
+        x = self._add_positions(x, pos)
+        if cfg.family == "hybrid":
+            x, aux = self._hybrid_train(params, x, pos)
+            aux_total = aux_total + aux
+        else:
+            for i, (kind, n) in enumerate(self._segments()):
+                if n == 0 or kind == "encdec_enc":
+                    continue
+                x, aux = self._scan_train(params[f"seg{i}_{kind}"], x, pos,
+                                          kind, cross_kv=cross)
+                aux_total = aux_total + aux
+        if n_front:
+            x = x[:, n_front:]
+        return L.apply_norm(params["final_norm"], x, cfg.norm), aux_total
+
+    def train_logits(self, params, batch) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """→ (logits [B, T, V] f32, aux)."""
+        h, aux = self.train_hidden(params, batch)
+        return h.float() @ self.head_matrix(params).float(), aux
+
+    def train_outputs(self, params, batch) -> Dict[str, torch.Tensor]:
+        """→ {"logits", "aux"} from one backbone pass. An MLA model (whose
+        MTP head adds "mtp_logits" in the reference) raises
+        NotImplementedError: ROADMAP.md Queue A item 12b."""
+        logits, aux = self.train_logits(params, batch)
+        return {"logits": logits, "aux": aux}

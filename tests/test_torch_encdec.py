@@ -147,15 +147,15 @@ def test_encoder_and_cross_attention_match_reference():
     want = jattn.attention_train(jax.tree.map(lambda a: a[0], enc),
                                  jnp.asarray(x), jcfg, jnp.asarray(pos),
                                  causal=False)
-    got = tattn.encoder_attention(penc, torch.as_tensor(x), cfg,
-                                  torch.as_tensor(pos))
+    got = tattn.attention_train(penc, torch.as_tensor(x), cfg,
+                                torch.as_tensor(pos), causal=False)
     np.testing.assert_allclose(to_np(got), np.asarray(want),
                                atol=FIELD_ATOL, rtol=0)
     # bidirectional: the first row sees the last
     x2 = x.copy()
     x2[:, -1] += 1.0
-    moved = tattn.encoder_attention(penc, torch.as_tensor(x2), cfg,
-                                    torch.as_tensor(pos)) - got
+    moved = tattn.attention_train(penc, torch.as_tensor(x2), cfg,
+                                  torch.as_tensor(pos), causal=False) - got
     assert float(moved[:, 0].abs().max()) > 1e-3
 
     xattn = _layer(jp, "seg1_encdec_dec")["xattn"]
