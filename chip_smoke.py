@@ -206,11 +206,16 @@ Phases, in order (no failure is caught: any one exits non-zero):
                version at the five shapes the training path gives it (4 x
                2048 rows; granite-3-2b d 64 G 4, longchat-7b d 128,
                starcoder2-3b d 128 G 12, zamba2-7b's shared block d 112,
-               whisper-base d 64; bf16, and f32 at a reduced shape): each
+               whisper-base d 64; bf16 with a bf16 dout, the model's
+               cotangent, and with an f32 one, split into bf16 hi and lo;
+               f32 at a reduced shape): each
                gradient element within one bf16 ulp of itself plus one of
                its row's largest (f32: 1e-5), two
-               launches bit-equal, CUDA-event times beside the bound, the
-               plain version and SDPA's backward; then granite-3-2b at full
+               launches bit-equal, CUDA-event times of both cotangents
+               beside the bound, the plain version and SDPA's backward;
+               the registers, spills and HGMMA count of every backward
+               kernel instantiation (cuobjdump: each bf16 one must hold
+               HGMMA and spill nothing); then granite-3-2b at full
                width and depth (random bf16 weights from the seed) through
                `launch/train.py`'s functions at the CLI's settings (--batch
                8 --seq 256 --lr 1e-3) with int8 moments, 10 steps straight
@@ -219,7 +224,11 @@ Phases, in order (no failure is caught: any one exits non-zero):
                final opt.step, the resumed losses bit-equal to the
                straight run's, flash_prefill and flash_prefill_bwd 40
                launches a forward and a backward pass, no plain attention
-               on the card; granite-3-2b cut to REMAT_LAYERS layers: the
+               on the card; the straight run once more, its last step's
+               backward kernel against its plain version on the model's
+               own inputs beside the plain version with dP summed on the
+               tensor cores (printed: V's common vector makes dq
+               ill-conditioned in dP's bf16 rounding); granite-3-2b cut to REMAT_LAYERS layers: the
                gradients under remat 'nothing' and 'dots' bit-equal to
                those without remat (flash_prefill 2 x layers under
                remat); one step at 4 x 2048 tokens (f32 moments,
@@ -3536,25 +3545,91 @@ WHISPER_TRAIN = (4, 448, 3)        # batch, decoder tokens, steps
 REMAT_LAYERS = 4                   # granite-3-2b's depth for the remat check
 
 
-def bwd_bound(b, hq, hk, n, d):
+def bwd_bound(b, hq, hk, n, d, dout_bytes=4):
     """(bound_ms, bound_by, flop, bytes) of the attention backward: five
     products over the causal triangle at the bf16 peak; q, k, v, dq, dk,
-    dv in bf16 and dout in f32, each moved once."""
+    dv in bf16 and dout in f32 (4 bytes) or bf16 (2), each moved once."""
     flop = 5 * 2 * b * hq * (n * (n + 1) // 2) * d
-    nbytes = 2 * (2 * b * hq * n * d + 4 * b * hk * n * d) + 4 * b * hq * n * d
+    nbytes = (2 * (2 * b * hq * n * d + 4 * b * hk * n * d)
+              + dout_bytes * b * hq * n * d)
     t, by = bound(nbytes, bf16_flops=flop)
     return t, by, flop, nbytes
 
 
-def bwd_check(model, hq, hk, d, seed, b=4, n=2048, dtype=torch.bfloat16):
-    """The kernel against its plain version on seeded q, k, v and dout:
-    errors against the largest gradient, two launches bit-equal; CUDA-event
-    times of the kernel, the plain version and SDPA's backward (K/V
-    expanded over the q-heads)."""
+def bwd_kernel_name(text):
+    """`bwd_dq_tc_kernel<64, bf16 dout>` for a mangled backward kernel name
+    (the bf16 route's template arguments: head dim, dout split from f32;
+    the f32 route's: float, head dim), or None."""
+    m = re.search(r"(bwd_dq_tc_kernel|bwd_dkv_tc_kernel)ILi(\d+)ELb([01])E",
+                  text)
+    if m:
+        return (f"{m.group(1)}<{m.group(2)}, "
+                f"{'f32' if m.group(3) == '1' else 'bf16'} dout>")
+    m = re.search(r"(bwd_dq_kernel|bwd_dkv_kernel)IfLi(\d+)E", text)
+    return f"{m.group(1)}<float, {m.group(2)}>" if m else None
+
+
+def bwd_kernel_report():
+    """Registers, stack and local memory (spills) and HGMMA (warpgroup
+    product) instructions of every backward kernel instantiation, read by
+    cuobjdump from the built library and printed; fails unless every bf16
+    (wgmma) instantiation holds HGMMA and spills nothing. Returns the
+    served head dims' numbers."""
+    tool = cuobjdump()
+    if tool is None:
+        print("[train] cuobjdump not found: the backward kernels' registers, "
+              "spills and HGMMA count not measured")
+        return {"compiled": "not measured"}
+    lib = str(build.library_path("flash_prefill_bwd"))
+    report = res_usage(tool, "flash_prefill_bwd", bwd_kernel_name)
+    for r in report.values():
+        r["hgmma"] = 0
+    name = None
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = bwd_kernel_name(line)
+        elif name and "HGMMA" in line:
+            report[name]["hgmma"] += 1
+    tc = {n: r for n, r in report.items() if "_tc_" in n}
+    served = sorted(n for n in tc if any(f"<{d}," in n
+                                         for d in (64, 112, 128)))
+    for n in served:
+        r = report[n]
+        print(f"[train] {n}: {r['registers']} registers, {r['stack_bytes']} "
+              f"B stack, {r['local_bytes']} B local (spills), {r['hgmma']} "
+              "HGMMA instructions in its SASS (cuobjdump)")
+    f32 = {n: r for n, r in report.items() if n not in tc}
+    for name, group in (("bf16 (wgmma)", tc), ("f32 (CUDA-core)", f32)):
+        rs = group.values()
+        print(f"[train] the {len(group)} {name} backward instantiations "
+              "(head dims 16 to 128): registers "
+              f"{sorted({r['registers'] for r in rs})}, HGMMA counts "
+              f"{sorted({r['hgmma'] for r in rs})}, stack + local bytes "
+              f"{sorted({r['stack_bytes'] + r['local_bytes'] for r in rs})}")
+    want = {f"{k}<{d}, {dt} dout>" for k in ("bwd_dq_tc_kernel",
+                                             "bwd_dkv_tc_kernel")
+            for d in range(16, 129, 16) for dt in ("f32", "bf16")}
+    assert want <= set(tc), sorted(want - set(tc))
+    for n, r in tc.items():
+        assert r["hgmma"] > 0, (n, "no wgmma")
+        assert r["stack_bytes"] == r["local_bytes"] == 0, (n, "spills")
+    return {"compiled": {n: tc[n] for n in served}}
+
+
+def bwd_check(model, hq, hk, d, seed, b=4, n=2048, dtype=torch.bfloat16,
+              dout_dtype=torch.float32, yardsticks=False):
+    """The kernel against its plain version on seeded q, k, v and dout (in
+    `dout_dtype`): each element's error against its limit, two launches
+    bit-equal; on bf16 inputs the kernel's CUDA-event time beside the
+    bound and, with `yardsticks`, the plain version's and SDPA's backward
+    (K/V expanded over the q-heads)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(
         dtype) for h in (hq, hk, hk))
-    dout = torch.randn((b, hq, n, d), generator=gen, device="cuda")
+    dout = torch.randn((b, hq, n, d), generator=gen,
+                       device="cuda").to(dout_dtype)
     got = bwd_mod.flash_prefill_bwd(q, k, v, dout)
     again = bwd_mod.flash_prefill_bwd(q, k, v, dout)
     want = ref.flash_prefill_bwd_ref(q, k, v, dout)
@@ -3577,9 +3652,16 @@ def bwd_check(model, hq, hk, d, seed, b=4, n=2048, dtype=torch.bfloat16):
     assert same, (model, "two launches differ")
     del got, again, want
     out = {"errors": errs, "bit_equal": same}
+    tag = f"{str(dtype)[6:]}, dout {str(dout_dtype)[6:]}"
+    line = ""
     if dtype == torch.bfloat16:
-        t, by, flop, nbytes = bwd_bound(b, hq, hk, n, d)
-        ms = cuda_ms(lambda: bwd_mod.flash_prefill_bwd(q, k, v, dout), 5, 1)
+        t, by, flop, nbytes = bwd_bound(b, hq, hk, n, d,
+                                        dout.element_size())
+        ms = cuda_ms(lambda: bwd_mod.flash_prefill_bwd(q, k, v, dout))
+        out.update(ms=ms, bound_ms=t, bound_by=by, flop=flop, bytes=nbytes)
+        line = (f"; kernel {ms:.4f} ms, bound {t:.4f} ms ({by}: {flop:.4g} "
+                f"flop, {nbytes} B), kernel / bound {ms / t:.1f}x")
+    if dtype == torch.bfloat16 and yardsticks:
         plain = long_ms(lambda: ref.flash_prefill_bwd_ref(q, k, v, dout), 2)
         qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (
             q, k.repeat_interleave(hq // hk, dim=1),
@@ -3588,24 +3670,119 @@ def bwd_check(model, hq, hk, d, seed, b=4, n=2048, dtype=torch.bfloat16):
         do16 = dout.to(dtype)
         lib = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do16,
                                                   retain_graph=True), 5, 1)
-        out.update(ms=ms, plain_ms=plain, bound_ms=t, bound_by=by,
-                   library_ms=lib, flop=flop, bytes=nbytes)
+        out.update(plain_ms=plain, library_ms=lib)
+        line += (f"; plain {plain:.4f} ms; SDPA backward (K/V expanded) "
+                 f"{lib:.4f} ms")
         del qg, kg, vg, o
     print(f"[train] flash_prefill_bwd {model} (B={b} Hq={hq} Hk={hk} N={n} "
-          f"d={d} {str(dtype)[6:]}): max|err|/max|grad| "
+          f"d={d} {tag}): max|err|/max|grad| "
           + ", ".join(f"{k} {e:.3g}/{m:.3g}" for k, (e, m, _) in
                       errs.items())
           + "; worst |err| / limit "
           + ", ".join(f"{k} {r:.3g}" for k, (_, _, r) in errs.items())
           + f" (limit {BWD_TOL:.4g} x (|grad| + max|grad| of its row) in "
           f"bf16, {BWD_F32_ATOL} in f32); two launches bit-equal: {same}"
-          + ("" if dtype != torch.bfloat16 else
-             f"; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-             f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
-             f"{out['flop']:.4g} flop, {out['bytes']} B), kernel / bound "
-             f"{out['ms'] / out['bound_ms']:.1f}x; SDPA backward (K/V "
-             f"expanded) {out['library_ms']:.4f} ms"))
+          + line)
     return out
+
+
+def plain_bwd_one_chunk(q, k, v, dout, scale, tc_dp):
+    """`ref.flash_prefill_bwd_ref`'s arithmetic over one chunk (N <= its
+    512 rows), with `tc_dp` its one product dP = dout v^T summed by a bf16
+    GEMM on the tensor cores (cuBLAS) instead of in f32: a change of that
+    sum's order alone, as any other implementation makes one."""
+    b, hq, n, d = q.shape
+    hk = k.shape[1]
+    g = hq // hk
+    qg = q.to(k.dtype).float().reshape(b, hk, g * n, d)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, hk, g * n, d)
+    row = torch.arange(n, device=q.device)
+    logits = torch.matmul(qg, kf.transpose(-1, -2)).reshape(b, hk, g, n, n)
+    logits = torch.where(row[:, None] >= row[None, :], logits * scale,
+                         torch.full_like(logits, ref.NEG_INF))
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    p_round = p.to(v.dtype).float().reshape(b, hk, g * n, n)
+    dv = torch.matmul(p_round.transpose(-1, -2), do)
+    if tc_dp:
+        dp = torch.matmul(do.to(v.dtype), v.transpose(-1, -2)).float()
+    else:
+        dp = torch.matmul(do, vf.transpose(-1, -2)).to(v.dtype).float()
+    dp = dp.reshape(b, hk, g, n, n)
+    dd = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - dd) * scale).reshape(b, hk, g * n, n)
+    dq = torch.matmul(ds, kf).to(k.dtype).reshape(b, hq, n, d)
+    dk = torch.matmul(ds.transpose(-1, -2), qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_reading(x, w):
+    """(worst |err| / limit over every row, over the rows with a gradient:
+    a row whose largest |w| is above 1e-3 of the tensor's), the limit
+    BWD_TOL x (|w| + max|w| of its row)."""
+    a = w.float().abs()
+    top = a.amax(-1, True)
+    r = (x.float() - w.float()).abs() / (BWD_TOL * (a + top)).clamp_min(
+        1e-30)
+    return float(r.max()), float((r * (top > 1e-3 * a.max())).max())
+
+
+def bwd_model_inputs(model, opt_cfg, data_iter):
+    """The backward kernel on granite-3-2b's own attention inputs: the
+    straight run again (deterministic: the same inputs), and on its last
+    step's 40 backward calls (bf16 dout, 8 x 256 rows) the kernel against
+    its plain version, beside the plain version with only dP summed on the
+    tensor cores against itself. Printed, not held to BWD_TOL: the model's
+    V rows share a large common vector, so dP - D cancels and a one-ulp
+    change of the bf16 dP that the plain version rounds moves dq past the
+    limit. Returns the worst readings (all rows, rows with a gradient)."""
+    kernel = ops._flash_bwd_kernel
+    first = (TRAIN_STEPS - 1) * model.cfg.num_layers
+    seen, got = [0], {"kernel": [], "plain, dP on the tensor cores": []}
+
+    def measured(q, k, v, dout, scale=None):
+        out = kernel(q, k, v, dout, scale=scale)
+        if seen[0] >= first:
+            sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+            want = plain_bwd_one_chunk(q, k, v, dout, sc, tc_dp=False)
+            if seen[0] == first:            # the copy is the plain version
+                assert all(torch.equal(x, y) for x, y in zip(
+                    want, ref.flash_prefill_bwd_ref(q, k, v, dout,
+                                                    scale=scale)))
+            tc = plain_bwd_one_chunk(q, k, v, dout, sc, tc_dp=True)
+            got["kernel"].append([bwd_reading(x, w)
+                                  for x, w in zip(out, want)])
+            got["plain, dP on the tensor cores"].append(
+                [bwd_reading(x, w) for x, w in zip(tc, want)])
+        seen[0] += 1
+        return out
+
+    state = train_mod.init_train_state(model, opt_cfg, SEED)
+    step_fn = train_mod.make_train_step(model, opt_cfg, TRAIN_STEPS,
+                                        peak_lr=TRAIN_LR)
+    held = dict(PLAIN_ON_CARD)          # the comparisons are no main path
+    ops._flash_bwd_kernel = measured
+    try:
+        for i in range(TRAIN_STEPS):
+            state, _ = step_fn(state, data_iter(i))
+        torch.cuda.synchronize()
+    finally:
+        ops._flash_bwd_kernel = kernel
+        PLAIN_ON_CARD.update(held)
+    del state
+    worst = {k: [[max(c[j][h] for c in v) for h in (0, 1)]
+                 for j in range(3)] for k, v in got.items()}
+    print(f"[train] flash_prefill_bwd on granite-3-2b's own inputs (the "
+          f"straight run's step {TRAIN_STEPS - 1}, {len(got['kernel'])} "
+          f"layers, {TRAIN_BATCH} x {TRAIN_SEQ} rows, bf16 dout), worst "
+          "|err| / limit for dq, dk, dv, all rows (rows with a gradient): "
+          + "; ".join(f"{k} " + ", ".join(f"{a:.3g} ({b:.3g})"
+                                          for a, b in w)
+                      for k, w in worst.items())
+          + " (printed, not held: V's common vector makes dq "
+          "ill-conditioned in dP's rounding)")
+    return worst
 
 
 def train_batch_fn(cfg, b, t, seed=SEED):
@@ -3739,8 +3916,8 @@ def train_step_profile(model, opt_cfg, batch):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
-    bwd = sum(dev_us(e) for e in kernels if "bwd_dq_kernel" in e.key
-              or "bwd_dkv_kernel" in e.key) / 1e3
+    bwd = sum(dev_us(e) for e in kernels if "bwd_dq" in e.key
+              or "bwd_dkv" in e.key) / 1e3
     fwd = sum(dev_us(e) for e in kernels if "flash_prefill_" in e.key
               and "bwd" not in e.key or "fold_columns" in e.key) / 1e3
     del state
@@ -3753,13 +3930,19 @@ def phase_train(smi):
     """Phase 13: the attention backward kernel against its plain version at
     the training path's five shapes, then granite-3-2b (full width and
     depth) through the training CLI's functions, uninterrupted and with a
-    failure and a resume, a profiled step at 4 x 2048 under remat, and
-    whisper-base (full) for a few steps. Returns (the backward kernel's
+    failure and a resume, the kernel on its own inputs, a profiled step at
+    4 x 2048 under remat, and whisper-base (full) for a few steps. Returns (the backward kernel's
     row, the launches of the main-path runs)."""
     t_all = time.monotonic()
+    compiled = bwd_kernel_report()
     checks = {}
     for i, (name, hq, hk, d) in enumerate(BWD_SHAPES):
-        checks[name] = bwd_check(name, hq, hk, d, seed=SEED + 130 + i)
+        # the model's cotangent is bf16 (its out is cast to bf16); an f32
+        # one takes the hi + lo split
+        checks[name] = bwd_check(name, hq, hk, d, seed=SEED + 130 + i,
+                                 dout_dtype=torch.bfloat16, yardsticks=True)
+        checks[name]["f32_dout"] = bwd_check(name, hq, hk, d,
+                                             seed=SEED + 130 + i)
         gc.collect()
         torch.cuda.empty_cache()
     checks["f32"] = bwd_check("reduced (f32)", 4, 2, 16, SEED + 139, b=2,
@@ -3819,6 +4002,9 @@ def phase_train(smi):
     for k in ("flash_prefill", "flash_prefill_bwd"):
         launches[k] += c_clean[k] + c_f[k]
     print(f"[train] granite-3-2b runs {time.monotonic() - t:.1f}s")
+    t = time.monotonic()
+    own = bwd_model_inputs(model, opt_q, data)
+    print(f"[train] own-input check {time.monotonic() - t:.1f}s")
 
     # remat 'nothing' and 'dots' at a cut depth
     t = time.monotonic()
@@ -3879,8 +4065,9 @@ def phase_train(smi):
     print(f"[train] phase 13 {time.monotonic() - t_all:.1f}s")
 
     g = checks["granite-3-2b"]
-    worst_err = max(e for c in checks.values() for e, _, _ in
-                    c["errors"].values())
+    worst_err = max(e for c in checks.values()
+                    for x in (c, c.get("f32_dout", c))
+                    for e, _, _ in x["errors"].values())
     row = {
         "name": "flash_prefill_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
@@ -3891,9 +4078,14 @@ def phase_train(smi):
         "max_abs_err": worst_err, "ms": g["ms"], "plain_ms": g["plain_ms"],
         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
         "library_ms": g["library_ms"],
-        "shapes": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms") if f in c}
+        "ms_f32_dout": g["f32_dout"]["ms"],
+        "granite_own_inputs_worst_reading": own,
+        "shapes": {k: {**{f: c[f] for f in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms") if f in c},
+                       **({"ms_f32_dout": c["f32_dout"]["ms"]}
+                          if "f32_dout" in c else {})}
                    for k, c in checks.items()},
+        **compiled,
         "granite_step_4x2048": {"wall_ms": prof["wall_s"] * 1e3,
                                 "kernel_ms": prof["busy_ms"],
                                 "bwd_ms": prof["bwd_ms"],

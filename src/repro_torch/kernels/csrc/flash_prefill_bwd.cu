@@ -10,9 +10,11 @@
 // cotangent: training discards them).
 //
 //   q    [B, Hq, N, d]  T       k, v [B, Hk, N, d]  T (T = f32 or bf16)
-//   dout [B, Hq, N, d]  f32     the cotangent of out (out is f32)
+//   dout [B, Hq, N, d]  f32, or bf16 where T is bf16: the cotangent of out
 //   → dq [B, Hq, N, d]  T, dk and dv [B, Hk, N, d] T, each summed over the
-//     g = Hq / Hk q-heads of its group; stats [3, B*Hq, N] f32 scratch.
+//     g = Hq / Hk q-heads of its group; stats [3, B*Hq, N] f32 scratch (m,
+//     l and D; the bf16 route keeps m in base-2 units and 1 / max(l,
+//     1e-30) in place of l).
 //
 // Per row i of one q-head, with s_ij = (q_i . k_j) * scale on the columns
 // j <= i (NEG_INF = -1e30 elsewhere), m_i = max_j s_ij, l_i = sum_j
@@ -28,39 +30,105 @@
 // plain version is `kernels/ref.flash_prefill_bwd_ref`; with f32 inputs
 // every T() is the identity.
 //
-// Design: deterministic, no atomics, f32 FMAs on the CUDA cores for every
-// product (bf16 values are widened to f32 as they are staged). Two kernels
-// on one stream, each a 16 x 16 grid of 256 threads over 64 x 64 tiles
+// Two routes, chosen by T (neither falls back to the other), as in
+// flash_prefill.cu; both make the same two kernels on one stream:
+//   dq kernel     one CTA per (q-head, 64-row q-block), the late q-blocks
+//                 (the most key tiles) first, over the key tiles at or
+//                 before its last row. Sweep 1 carries m, l and sum_j
+//                 exp(s_ij - m) dP_ij (bf16 route: dP_ij - dP_i0) online
+//                 (the rescaling of the forward's online softmax) and
+//                 gives D_i; it writes m, l and D to the stats. Sweep 2
+//                 recomputes s and dP, makes dS and adds dS k into dq in
+//                 registers.
+//   dk/dv kernel  one CTA per (kv-head, 64-key block), after it: K and V
+//                 stay in shared memory while the CTA walks the group's
+//                 q-heads and, for each, the q rows at or after its key
+//                 block; it recomputes s and dP, takes P and dS from the
+//                 stats, and adds T(P)^T dout into dv and dS^T q into dk in
+//                 registers, in head order, then row order.
+// Each output element is summed by one thread in a fixed order, with no
+// atomics, so two launches on the same inputs give the same bits.
+//
+// The bf16 route (bwd_dq_tc_kernel, bwd_dkv_tc_kernel): every product is a
+// warpgroup product on the tensor cores (wgmma, bf16 operands, f32
+// accumulators; hopper_mma.cuh), one warpgroup (128 threads) a CTA. Tiles
+// are bf16 in shared memory as 64-column blocks of 128-byte swizzled rows,
+// d padded with zeros to a multiple of 64: d = 112 fills two blocks, the
+// products over d take d / 16 k-steps and never read the padding, and the
+// products whose width is d run as one m64n64 product a block (the padded
+// columns of their results are dropped). Tiles arrive by cp.async (16-byte
+// copies, zeros past N), in rings: two K/V tiles in flight in the dq
+// kernel, three 32-row q/dout tiles (with their rows' m, l and D, 4-byte
+// copies) in the dk/dv kernel. (Not TMA: a tensor map is encoded by the
+// driver API, which this library, bound by ctypes without libcuda, does
+// not call, and an f32 dout is split as it is staged.)
+//   dq kernel     S = Q K^T and dP = dout V^T as m64n64 products, Q, dout
+//                 and the key tile K-major from shared memory; dq += dS K
+//                 as m64n64 products with A = dS's bf16 hi, then lo, half
+//                 from registers (an accumulator's layout is the A
+//                 fragment's) and B the K tile MN-major. Q and dout stay
+//                 in shared memory.
+//   dk/dv kernel  S^T = K Q^T and dP^T = V dout^T as m64n32 products (the
+//                 64 keys are the warpgroup's rows, a tile's 32 q rows its
+//                 columns); dv += T(P)^T dout and dk += dS^T q (hi, then
+//                 lo) from registers, B the dout and Q tiles MN-major. The 32-row
+//                 tile keeps the logits at 16 floats a thread beside dk and
+//                 dv (2 x 64 at d = 128).
+// A tile's logit products are two commit groups, S first: its
+// exponentials run while dP is still in flight. dq, dk and dv's products
+// are waited for before the next tile's (no overlap across tiles).
+// Precision of the bf16 route:
+//   - s and dP are f32 sums of bf16 products, exact in f32, in the tensor
+//     cores' order (a few f32 ulps from the plain version's GEMM); the
+//     exponentials are exp2 of the logits times scale log2(e) (m in those
+//     units in the stats), and P is exp2(s - m) times 1 / max(l, 1e-30):
+//     a few f32 ulps from exp(s - m) / l, for one MUFU op and one multiply
+//     an element where an accurate exp and an IEEE division take many
+//     (the kernels are bound by the issue of their softmax instructions
+//     more than by their products);
+//   - dS enters dq += dS k and dk += dS^T q as two bf16 A operands, hi =
+//     bf16(dS) and lo = bf16(dS - hi), two products each, so dS is kept
+//     to 2^-16. sum_j dS_ij = 0 cancels out of dq whatever the keys hold
+//     in common, and a model's keys share a large common vector: dS
+//     rounded to bf16 alone leaves 2^-9 of that vector's share in dq,
+//     past the one-ulp limit (tests/test_torch_attention_grad.py,
+//     `*common_component*`);
+//   - dout: a bf16 cotangent (the model's: `ops.causal_attention` casts
+//     out to bf16 inside its autograd Function, as the reference casts it
+//     after `chunked_causal_attention`) is the operand as it is. An f32
+//     dout is split as it is staged into hi = bf16(dout) and lo =
+//     bf16(dout - hi): dP = hi v + lo v and dv += T(P)^T hi + T(P)^T lo
+//     keep it to 2^-16. Rounded to bf16 alone, every operand of dP and dv
+//     would move by up to 2^-9 of itself, as much as the one-ulp limit
+//     allows the whole gradient;
+//   - D_i = c_i + sum_j P_ij (dP_ij - c_i), c_i = dP_i0 (key 0, which
+//     every row sees), from sweep 1's online sums (not dout_i . out_i,
+//     which would need the forward's out). The shift makes D_i = c_i and
+//     dS = 0 exactly on a row whose dP are all equal (row 1 when its two
+//     dP round to one bf16 value: its gradient is 0), where the unshifted
+//     sum leaves f32 rounding noise of either sign.
+// The f32 route (bwd_dq_kernel, bwd_dkv_kernel): f32 FMAs on the CUDA
+// cores for every product (an f32 product on the tensor cores would be
+// TF32), each kernel a 16 x 16 grid of 256 threads over 64 x 64 tiles
 // staged in shared memory (rows padded to d + 1 floats, so the 16 rows a
-// half-warp reads for one column lie in 16 different banks):
-//   bwd_dq_kernel   one CTA per (q-head, 64-row q-block), over the key
-//                   tiles at or before its last row. Sweep 1 carries m, l
-//                   and sum_j exp(s_ij - m) dP_ij online (the rescaling
-//                   of the forward's online softmax) and gives D_i; it
-//                   writes m, l, D to the stats. Sweep 2 recomputes s and
-//                   dP, makes dS and adds dS k into dq in registers.
-//   bwd_dkv_kernel  one CTA per (kv-head, 64-key block), after it: K and V
-//                   stay in shared memory while the CTA walks the group's
-//                   q-heads and, for each, the q-blocks at or after its key
-//                   block; it recomputes s and dP from the stats, and adds
-//                   T(P)^T dout into dv and dS^T q into dk in registers, in
-//                   head order, then row-block order.
-// Each output element is summed by one thread in a fixed order, so two
-// launches on the same inputs give the same bits.
+// half-warp reads for one column lie in 16 different banks); dout is f32.
 //
 // Bound: five products of 2 B Hq (N (N + 1) / 2) d flop (q.k, dout.v,
 // dS.k, dS^T.q, P^T.dout) over the causal triangle; at granite-3-2b's 4 x
 // 2048 rows, 32 q-heads of d = 64, 1.719e11 flop, 0.174 ms at the 989 TF/s
-// bf16 peak. This design makes nine (sweep 1 and 2 each recompute q.k and
-// dout.v in the dq kernel, the dkv kernel both again) on the CUDA cores,
-// whose f32 peak is 67 TF/s: it is a correct first kernel, and wgmma / TMA
-// tiles are later work.
+// bf16 peak. The f32 route makes nine (the dq kernel makes q.k and dout.v
+// in each sweep, the dk/dv kernel both again) on the CUDA cores, whose f32
+// peak is 67 TF/s; the bf16 route eleven on the tensor cores (dS.k and
+// dS^T.q twice, hi and lo), fifteen with an f32 dout (dout.v and P^T.dout
+// twice as well).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <math.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -70,19 +138,17 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// ---------------------------------------------------------------------------
+// f32 route: f32 FMAs on the CUDA cores (instantiated with T = float only;
+// bf16 takes the wgmma route below)
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T narrow(float x);
 template <>
 __device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // x rounded to T and widened back (the identity for f32)
 template <typename T>
@@ -392,6 +458,530 @@ constexpr size_t dkv_smem_bytes(int d) {
   return sizeof(float) * (4 * kB * (d + 1) + 2 * kB * (kB + 1) + 3 * kB);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: warpgroup products (wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;   // one warpgroup
+constexpr int kQT = 32;           // dk/dv kernel: q rows a tile
+constexpr int kDqStages = 2;      // dq kernel: K/V tiles in flight
+constexpr int kDkvStages = 3;     // dk/dv kernel: q/dout tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The 64-column blocks of a tile row of head dim d (d padded with zeros).
+__host__ __device__ constexpr int blocks_of(int d) { return (d + 63) / 64; }
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(r[i]);
+}
+
+// Rows [r0, r0 + R) of a bf16 matrix [N][D] into the tile at shared
+// address `dst` (blocks of R swizzled 128-byte rows), by cp.async (not
+// waited for); zeros past N and past D.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int N) {
+  constexpr int kCh = blocks_of(D) * 8;   // 16-byte chunks a padded row
+#pragma unroll
+  for (int i = 0; i < R * kCh / kTcThreads; ++i) {
+    const int x = threadIdx.x + i * kTcThreads;
+    const int r = x / kCh, c = x % kCh;
+    const bool ok = r0 + r < N && c < D / 8;
+    cp_async16(dst + (c >> 3) * (R * 128) + swz(r, c & 7),
+               src + (ok ? (size_t)(r0 + r) * D + c * 8 : 0), ok);
+  }
+}
+
+// The same rows of an f32 matrix, split into two bf16 tiles, hi = bf16(x)
+// at `hi` and lo = bf16(x - hi) at `lo`, by plain loads and stores.
+template <int D, int R>
+__device__ __forceinline__ void split_tile(unsigned char* hi,
+                                           unsigned char* lo,
+                                           const float* src, int r0, int N) {
+  constexpr int kCh = blocks_of(D) * 8;
+#pragma unroll
+  for (int i = 0; i < R * kCh / kTcThreads; ++i) {
+    const int x = threadIdx.x + i * kTcThreads;
+    const int r = x / kCh, c = x % kCh;
+    uint4 h = make_uint4(0u, 0u, 0u, 0u), l = h;
+    if (r0 + r < N && c < D / 8) {
+      const float4* p = reinterpret_cast<const float4*>(
+          src + (size_t)(r0 + r) * D + c * 8);
+      const float4 a = __ldg(p), b = __ldg(p + 1);
+      split_bf16(a.x, a.y, h.x, l.x);
+      split_bf16(a.z, a.w, h.y, l.y);
+      split_bf16(b.x, b.y, h.z, l.z);
+      split_bf16(b.z, b.w, h.w, l.w);
+    }
+    const uint32_t off = (c >> 3) * (R * 128) + swz(r, c & 7);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// Tiles 0 .. total - 1 through a ring of kStages stages, kStages - 1 in
+// flight: load(i) issues tile i's copies into stage i % kStages; body(i)
+// runs once every thread's copies of tile i have landed, and when it
+// returns the CTA is done with tile i's stage (its products waited for).
+// cp.async groups issued before the call are waited for with tile 0.
+template <int kStages, typename Load, typename Body>
+__device__ __forceinline__ void ring(int total, Load load, Body body) {
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) load(i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 2>();       // this thread's copies of tile it
+    fence_proxy_async();                // (and its stores) seen by wgmma
+    __syncthreads();                    // everyone's; tile it - 1 is done
+    if (it + kStages - 1 < total) load(it + kStages - 1);
+    cp_async_commit();                  // (an empty group past the end)
+    body(it);
+  }
+  __syncthreads();
+}
+
+// d (+)= A B^T over the D columns, issued for the warpgroup (the caller
+// fences, commits and waits): A the 64-row tile at shared address a, B
+// the RB-row tile at b (RB = 64: m64n64, 32: m64n32), both K-major; `acc`
+// false overwrites d.
+template <int D, int RB, int NR>
+__device__ __forceinline__ void issue_kmajor(float (&d)[NR], uint32_t a,
+                                             uint32_t b, bool acc) {
+  static_assert(NR == RB / 2, "an m64nRB accumulator holds RB / 2 floats");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    const uint64_t da = gmma_desc(a + (kk >> 2) * (kB * 128) + off, 16, 1024);
+    const uint64_t db = gmma_desc(b + (kk >> 2) * (RB * 128) + off, 16, 1024);
+    if constexpr (RB == 64)
+      wgmma_n64(d, da, db, acc || kk > 0);
+    else
+      wgmma_n32(d, da, db, acc || kk > 0);
+  }
+}
+
+// d[nb] += A B, issued for the warpgroup: A [64 x 16 KS] bf16 from
+// registers (a[kk]: k-step kk), B the tile at b, its KS x 16 rows (RB-row
+// blocks) as the contraction and its D columns as the width (MN-major),
+// one m64n64 product a 64-column block.
+template <int D, int RB, int KS>
+__device__ __forceinline__ void issue_rs(float (&d)[blocks_of(D)][32],
+                                         const uint32_t (&a)[KS][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < blocks_of(D); ++nb)
+      wgmma_n64_rs_tb(d[nb], a[kk],
+                      gmma_desc(b + nb * (RB * 128) + kk * 2048, RB * 128,
+                                1024));
+}
+
+// The A fragments of a 64 x 16 KS accumulator's values, rounded to bf16:
+// a[kk] covers its columns 16 kk .. 16 kk + 15.
+template <int KS>
+__device__ __forceinline__ void to_frag(uint32_t (&a)[KS][4],
+                                        const float (&d)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack2(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// The same fragments of hi = bf16(d) and lo = bf16(d - hi): a product with
+// A = hi, then one with A = lo, keeps d to 2^-16.
+template <int KS>
+__device__ __forceinline__ void split_frag(uint32_t (&hi)[KS][4],
+                                           uint32_t (&lo)[KS][4],
+                                           const float (&d)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[kk][i],
+                 lo[kk][i]);
+}
+
+// The dq kernel's two products over one key tile, for the warpgroup's 64
+// rows x 64 keys, issued as two groups: S = Q K^T into s, then dP = dout
+// V^T into dp (dout's hi, then lo half when split, its tile after hi's).
+template <int D, bool kSplit>
+__device__ __forceinline__ void dq_issue(float (&s)[32], float (&dp)[32],
+                                         uint32_t s_q, uint32_t s_do,
+                                         uint32_t s_k, uint32_t s_v) {
+  constexpr int kTile = blocks_of(D) * kB * 128;
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+  issue_kmajor<D, kB>(s, s_q, s_k, false);
+  wgmma_commit();
+  issue_kmajor<D, kB>(dp, s_do, s_v, false);
+  if constexpr (kSplit) issue_kmajor<D, kB>(dp, s_do + kTile, s_v, true);
+  wgmma_commit();
+}
+
+// Once S has landed (dP may still be in flight): s = S * sl (sl = scale
+// log2(e): the logits in base-2 units), NEG_INF where the key lies past
+// the row or past N, or the row past N (none of them where `full`); the
+// thread's rows are ra (values 4 j + 0, 1) and ra + 8 (4 j + 2, 3).
+__device__ __forceinline__ void dq_scores(float (&s)[32], int ra, int col0,
+                                          int N, float sl, bool full) {
+  wgmma_wait<1>();
+  fence_regs(s);
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = __fmul_rn(s[i], sl);
+    return;
+  }
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = ra + 8 * (e >> 1), col = col0 + 8 * j + 2 * t + (e & 1);
+      const bool live = col <= row && col < N && row < N;
+      s[4 * j + e] = live ? __fmul_rn(s[4 * j + e], sl) : kNegInf;
+    }
+}
+
+// Once every product has landed: dP rounded to bf16, T(dout . v).
+template <int NR>
+__device__ __forceinline__ void landed_dp(float (&dp)[NR]) {
+  wgmma_wait<0>();
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < NR; ++i) dp[i] = round_bf16(dp[i]);
+}
+
+// dq and the row statistics (bf16 route). Grid (ceil(N / 64), B * Hq); the
+// late q-blocks are launched first. dout is f32 (kSplit) or bf16.
+template <int D, bool kSplit>
+__global__ void __launch_bounds__(kTcThreads, 1) bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const void* __restrict__ dout,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int N,
+    int group, float scale) {
+  constexpr int NB = blocks_of(D);
+  constexpr int kTile = NB * kB * 128;  // bytes of a 64-row tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* sm =                   // 1024-aligned: the swizzle's atoms
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  const uint32_t s_q = smem_u32(sm);
+  const uint32_t s_do = s_q + kTile;    // dout, or its hi half, then lo
+  const uint32_t s_ring = s_q + (kSplit ? 3 : 2) * kTile;  // K, V a stage
+  const int nqb = (N + kB - 1) / kB;
+  const int qb = nqb - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int bhk = bh / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qb * kB;
+  const int ra = row0 + 16 * warp + g;  // the thread's rows: ra, ra + 8
+  const bool full_rows = row0 + kB <= N;  // then key tiles before the
+                                          // diagonal one need no mask
+  const float sl = scale * kLog2e;
+  const size_t nbh = (size_t)gridDim.y * N;
+  const __nv_bfloat16* kh = k + (size_t)bhk * N * D;
+  const __nv_bfloat16* vh = v + (size_t)bhk * N * D;
+
+  load_tile<D, kB>(s_q, q + (size_t)bh * N * D, row0, N);
+  if constexpr (kSplit)
+    split_tile<D, kB>(sm + kTile, sm + 2 * kTile,
+                      static_cast<const float*>(dout) + (size_t)bh * N * D,
+                      row0, N);
+  else
+    load_tile<D, kB>(s_do,
+                     static_cast<const __nv_bfloat16*>(dout) +
+                         (size_t)bh * N * D,
+                     row0, N);
+  auto load = [&](int kt) {
+    const uint32_t st = s_ring + (kt % kDqStages) * 2 * kTile;
+    load_tile<D, kB>(st, kh, kt * kB, N);
+    load_tile<D, kB>(st + kTile, vh, kt * kB, N);
+  };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, dn[2] = {0.f, 0.f};
+  float c[2] = {0.f, 0.f};              // the rows' dP at key 0
+  float s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  // sweep 1: m, l and sum exp(s - m) (dP - c), online; exp(s - m) is
+  // made while dP is in flight
+  ring<kDqStages>(qb + 1, load, [&](int kt) {
+    const uint32_t st = s_ring + (kt % kDqStages) * 2 * kTile;
+    dq_issue<D, kSplit>(s, dp, s_q, s_do, st, st + kTile);
+    dq_scores(s, ra, kt * kB, N, sl, kt < qb && full_rows);
+    float m_new[2], alpha[2], le[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tmax = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      m_new[h] = fmaxf(m[h], quad_max(tmax));
+      alpha[h] = exp2f(m[h] - m_new[h]);
+      le[h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float e = exp2f(s[4 * j + 2 * h + x] - m_new[h]);
+          s[4 * j + 2 * h + x] = e;
+          le[h] += e;
+        }
+    }
+    landed_dp(dp);
+    if (kt == 0) {                      // key 0: lane t = 0 of the quad
+      c[0] = __shfl_sync(kFull, dp[0], lane & ~3);
+      c[1] = __shfl_sync(kFull, dp[2], lane & ~3);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float de = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          de = fmaf(s[4 * j + 2 * h + x], dp[4 * j + 2 * h + x] - c[h], de);
+      l[h] = l[h] * alpha[h] + quad_sum(le[h]);
+      dn[h] = dn[h] * alpha[h] + quad_sum(de);
+      m[h] = m_new[h];
+    }
+  });
+  float rl[2], dd[2];                   // 1 / max(l, 1e-30), D
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lc = fmaxf(l[h], 1e-30f);
+    rl[h] = 1.f / lc;
+    dd[h] = c[h] + dn[h] / lc;
+    const int row = ra + 8 * h;
+    if (t == 0 && row < N) {
+      const size_t o = (size_t)bh * N + row;
+      stats[o] = m[h];
+      stats[nbh + o] = rl[h];
+      stats[2 * nbh + o] = dd[h];
+    }
+  }
+
+  // sweep 2: dS, and dq += dS k as (hi + lo) k
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  uint32_t a_hi[4][4], a_lo[4][4];
+  ring<kDqStages>(qb + 1, load, [&](int kt) {
+    const uint32_t st = s_ring + (kt % kDqStages) * 2 * kTile;
+    dq_issue<D, kSplit>(s, dp, s_q, s_do, st, st + kTile);
+    dq_scores(s, ra, kt * kB, N, sl, kt < qb && full_rows);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)        // P, while dP is in flight
+      s[i] = exp2f(s[i] - m[(i >> 1) & 1]) * rl[(i >> 1) & 1];
+    landed_dp(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = __fmul_rn(s[i] * (dp[i] - dd[(i >> 1) & 1]), scale);
+    split_frag<4>(a_hi, a_lo, s);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_rs<D, kB, 4>(acc, a_hi, st);
+    issue_rs<D, kB, 4>(acc, a_lo, st);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+  });
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = ra + 8 * h;
+    if (row >= N) continue;
+    __nv_bfloat16* out = dq + ((size_t)bh * N + row) * D;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * nb + 8 * j + 2 * t;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(out + col) =
+              pack2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// dk and dv (bf16 route). Grid (ceil(N / 64), B * Hk); runs after
+// bwd_dq_tc_kernel, whose stats it reads. dout is f32 (kSplit) or bf16.
+template <int D, bool kSplit>
+__global__ void __launch_bounds__(kTcThreads, 1) bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const void* __restrict__ dout,
+    const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int N, int group, float scale) {
+  constexpr int NB = blocks_of(D);
+  constexpr int kKV = NB * kB * 128;    // a 64-key K or V tile
+  constexpr int kQ = NB * kQT * 128;    // a 32-row q or dout tile
+  constexpr int kStage = (kSplit ? 3 : 2) * kQ;  // q, dout (hi, lo)
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* sm =
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  const uint32_t s_k = smem_u32(sm), s_v = s_k + kKV;
+  const uint32_t s_ring = s_k + 2 * kKV;
+  // each stage's rows' m, 1 / max(l, 1e-30) and D: [kDkvStages][3][kQT]
+  float* st_ring = reinterpret_cast<float*>(sm + 2 * kKV +
+                                            kDkvStages * kStage);
+  const int kb = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = kb * kB;
+  const int ka = col0 + 16 * warp + g;  // the thread's keys: ka, ka + 8
+  const float sl = scale * kLog2e;
+  const int nqt = (N + kQT - 1) / kQT;
+  const int qt0 = col0 / kQT;           // the first q tile at or after it
+  const int per_head = nqt - qt0;
+  const size_t nbh = (size_t)gridDim.y * group * N;
+
+  load_tile<D, kB>(s_k, k + (size_t)bhk * N * D, col0, N);
+  load_tile<D, kB>(s_v, v + (size_t)bhk * N * D, col0, N);
+  auto load = [&](int it) {
+    const int bh = bhk * group + it / per_head;
+    const int r0 = (qt0 + it % per_head) * kQT;
+    const int stg = it % kDkvStages;
+    const uint32_t dst = s_ring + stg * kStage;
+    load_tile<D, kQT>(dst, q + (size_t)bh * N * D, r0, N);
+    if constexpr (kSplit)
+      split_tile<D, kQT>(sm + 2 * kKV + stg * kStage + kQ,
+                         sm + 2 * kKV + stg * kStage + 2 * kQ,
+                         static_cast<const float*>(dout) +
+                             (size_t)bh * N * D,
+                         r0, N);
+    else
+      load_tile<D, kQT>(dst + kQ,
+                        static_cast<const __nv_bfloat16*>(dout) +
+                            (size_t)bh * N * D,
+                        r0, N);
+    if (threadIdx.x < 3 * kQT) {        // the tile's rows' stats
+      const int w = threadIdx.x / kQT, r = threadIdx.x % kQT;
+      const bool ok = r0 + r < N;
+      cp_async4(smem_u32(st_ring + (stg * 3 + w) * kQT + r),
+                stats + w * nbh + (ok ? (size_t)bh * N + r0 + r : 0), ok);
+    }
+  };
+
+  float gk[NB][32], gv[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gk[nb][i] = gv[nb][i] = 0.f;
+  float s[kQT / 2], dp[kQT / 2];
+#pragma unroll
+  for (int i = 0; i < kQT / 2; ++i) s[i] = dp[i] = 0.f;
+  uint32_t pa[kQT / 16][4], da_hi[kQT / 16][4], da_lo[kQT / 16][4];
+  ring<kDkvStages>(group * per_head, load, [&](int it) {
+    const int r0 = (qt0 + it % per_head) * kQT;
+    const int stg = it % kDkvStages;
+    const uint32_t s_qt = s_ring + stg * kStage, s_dt = s_qt + kQ;
+    const float* st = st_ring + stg * 3 * kQT;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_kmajor<D, kQT>(s, s_k, s_qt, false);
+    wgmma_commit();
+    issue_kmajor<D, kQT>(dp, s_v, s_dt, false);
+    if constexpr (kSplit) issue_kmajor<D, kQT>(dp, s_v, s_dt + kQ, true);
+    wgmma_commit();
+    wgmma_wait<1>();                    // S^T has landed; dP^T in flight
+    fence_regs(s);
+    // P (rows past N have m = 0 and 1 / l = 0 in the stage); a tile wholly
+    // at or below the key block's last key and inside N needs no mask
+    if (col0 + kB - 1 <= r0 && r0 + kQT <= N && col0 + kB <= N) {
+#pragma unroll
+      for (int j = 0; j < kQT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lr = 8 * j + 2 * t + (e & 1);
+          s[4 * j + e] =
+              exp2f(__fmul_rn(s[4 * j + e], sl) - st[lr]) * st[kQT + lr];
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kQT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = ka + 8 * (e >> 1), lr = 8 * j + 2 * t + (e & 1);
+          const int row = r0 + lr;
+          const bool live = key <= row && row < N && key < N;
+          const float x = live ? __fmul_rn(s[4 * j + e], sl) : kNegInf;
+          s[4 * j + e] = exp2f(x - st[lr]) * st[kQT + lr];
+        }
+    }
+    landed_dp(dp);
+#pragma unroll
+    for (int j = 0; j < kQT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lr = 8 * j + 2 * t + (e & 1);
+        dp[4 * j + e] =
+            __fmul_rn(s[4 * j + e] * (dp[4 * j + e] - st[2 * kQT + lr]),
+                      scale);
+      }
+    to_frag<kQT / 16>(pa, s);           // T(P)
+    split_frag<kQT / 16>(da_hi, da_lo, dp);  // dS as hi + lo
+    fence_regs(gk);
+    fence_regs(gv);
+    wgmma_fence();
+    issue_rs<D, kQT, kQT / 16>(gv, pa, s_dt);
+    if constexpr (kSplit) issue_rs<D, kQT, kQT / 16>(gv, pa, s_dt + kQ);
+    issue_rs<D, kQT, kQT / 16>(gk, da_hi, s_qt);
+    issue_rs<D, kQT, kQT / 16>(gk, da_lo, s_qt);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(gk);
+    fence_regs(gv);
+  });
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = ka + 8 * h;
+    if (key >= N) continue;
+    const size_t o = ((size_t)bhk * N + key) * D;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * nb + 8 * j + 2 * t;
+        if (col < D) {
+          *reinterpret_cast<uint32_t*>(dk + o + col) =
+              pack2(gk[nb][4 * j + 2 * h], gk[nb][4 * j + 2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(dv + o + col) =
+              pack2(gv[nb][4 * j + 2 * h], gv[nb][4 * j + 2 * h + 1]);
+        }
+      }
+  }
+}
+
+constexpr size_t dq_tc_smem_bytes(int d, bool split) {
+  return 1024 + (size_t)((split ? 3 : 2) + 2 * kDqStages) * blocks_of(d) *
+                    kB * 128;
+}
+constexpr size_t dkv_tc_smem_bytes(int d, bool split) {
+  return 1024 + (size_t)2 * blocks_of(d) * kB * 128 +
+         (size_t)kDkvStages *
+             ((split ? 3 : 2) * blocks_of(d) * kQT * 128 + 3 * kQT * 4);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -399,10 +989,21 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D>
+template <typename Kernel>
+cudaError_t prefer_smem(Kernel kernel, size_t smem) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// The f32 route at head dim D.
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, void* stats, int B, int Hq, int Hk,
            int N, float scale, cudaStream_t stream) {
+  using T = float;
   const int group = Hq / Hk;
   const int nb = (N + kB - 1) / kB;
   auto kq = bwd_dq_kernel<T, D>;
@@ -425,57 +1026,100 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v,
+// The bf16 route at head dim D, dout f32 (kSplit) or bf16.
+template <int D, bool kSplit>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              void* dq, void* dk, void* dv, void* stats, int B, int Hq,
+              int Hk, int N, float scale, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const int group = Hq / Hk;
+  const int nb = (N + kB - 1) / kB;
+  auto kq = bwd_dq_tc_kernel<D, kSplit>;
+  auto kkv = bwd_dkv_tc_kernel<D, kSplit>;
+  const size_t smem_q = dq_tc_smem_bytes(D, kSplit);
+  const size_t smem_kv = dkv_tc_smem_bytes(D, kSplit);
+  cudaError_t err = prefer_smem(kq, smem_q);
+  if (err != cudaSuccess) return (int)err;
+  err = prefer_smem(kkv, smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  kq<<<dim3(nb, B * Hq), kTcThreads, smem_q, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), dout, static_cast<T*>(dq),
+      static_cast<float*>(stats), N, group, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kkv<<<dim3(nb, B * Hk), kTcThreads, smem_kv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), dout, static_cast<const float*>(stats),
+      static_cast<T*>(dk), static_cast<T*>(dv), N, group, scale);
+  return (int)cudaGetLastError();
+}
+
+// route 0: f32; 1: bf16, dout f32; 2: bf16, dout bf16.
+int launch_d(int route, int d, const void* q, const void* k, const void* v,
              const void* dout, void* dq, void* dk, void* dv, void* stats,
              int B, int Hq, int Hk, int N, float scale, cudaStream_t s) {
+#define BWD_CASE(D)                                                          \
+  case D:                                                                    \
+    if (route == 0)                                                          \
+      return launch<D>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N,       \
+                       scale, s);                                            \
+    if (route == 1)                                                          \
+      return launch_tc<D, true>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, \
+                                N, scale, s);                                \
+    return launch_tc<D, false>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk,  \
+                               N, scale, s);
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 32: return launch<T, 32>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 48: return launch<T, 48>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 64: return launch<T, 64>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 80: return launch<T, 80>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 96: return launch<T, 96>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 112: return launch<T, 112>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    case 128: return launch<T, 128>(q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+    BWD_CASE(16)
+    BWD_CASE(32)
+    BWD_CASE(48)
+    BWD_CASE(64)
+    BWD_CASE(80)
+    BWD_CASE(96)
+    BWD_CASE(112)
+    BWD_CASE(128)
   }
+#undef BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of the larger of the two kernels at head dim d,
-// in bytes (0 for a d the kernels do not take).
+// Dynamic shared memory of the largest of the kernels at head dim d (both
+// routes, either dout), in bytes (0 for a d the kernels do not take).
 size_t flash_prefill_bwd_smem_bytes(int d) {
   if (d <= 0 || d > kMaxD || d % 16) return 0;
-  const size_t a = dq_smem_bytes(d), b = dkv_smem_bytes(d);
-  return a > b ? a : b;
+  const size_t sizes[] = {dq_smem_bytes(d), dkv_smem_bytes(d),
+                          dq_tc_smem_bytes(d, true),
+                          dkv_tc_smem_bytes(d, true)};
+  size_t most = 0;
+  for (size_t x : sizes) most = x > most ? x : most;
+  return most;
 }
 
 // Launch the dq kernel, then the dk/dv kernel, on `stream`; returns
 // cudaGetLastError() (0 on success) and never synchronises.
-//   kind    0 = f32, 1 = bf16 (q, k, v, dq, dk, dv share it)
-//   q [B,Hq,N,d], k/v [B,Hk,N,d], dout [B,Hq,N,d] f32, dq [B,Hq,N,d],
-//   dk/dv [B,Hk,N,d], stats [3,B*Hq,N] f32 scratch; all contiguous;
-//   d a multiple of 16 up to 128, Hq a multiple of Hk
-int flash_prefill_bwd_launch(int kind, const void* q, const void* k,
-                             const void* v, const void* dout, void* dq,
-                             void* dk, void* dv, void* stats, int B, int Hq,
-                             int Hk, int N, int d, float scale,
+//   kind       0 = f32 (CUDA cores), 1 = bf16 (wgmma); q, k, v, dq, dk
+//              and dv share it
+//   dout_kind  0 = f32 (split into bf16 hi and lo on the bf16 route), 1 =
+//              bf16 (the bf16 route only)
+//   q [B,Hq,N,d], k/v [B,Hk,N,d], dout [B,Hq,N,d], dq [B,Hq,N,d],
+//   dk/dv [B,Hk,N,d], stats [3,B*Hq,N] f32 scratch; all contiguous and
+//   16-byte aligned; d a multiple of 16 up to 128, Hq a multiple of Hk
+int flash_prefill_bwd_launch(int kind, int dout_kind, const void* q,
+                             const void* k, const void* v, const void* dout,
+                             void* dq, void* dk, void* dv, void* stats, int B,
+                             int Hq, int Hk, int N, int d, float scale,
                              void* stream) {
   if (B <= 0 || Hk <= 0 || Hq % Hk || N <= 0 || d <= 0 || d > kMaxD ||
-      d % 16)
+      d % 16 || kind < 0 || kind > 1 || dout_kind < 0 || dout_kind > 1 ||
+      (kind == 0 && dout_kind != 0))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 0)
-    return launch_d<float>(d, q, k, v, dout, dq, dk, dv, stats, B, Hq, Hk, N,
-                           scale, s);
-  if (kind == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, dout, dq, dk, dv, stats, B, Hq,
-                                   Hk, N, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_d(kind == 0 ? 0 : 1 + dout_kind, d, q, k, v, dout, dq, dk,
+                  dv, stats, B, Hq, Hk, N, scale,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,13 +6,16 @@ Replaces no TPU kernel: the reference trains through plain XLA autodiff of
 `jax.value_and_grad` at `src/repro/launch/train.py:95`), while the port's
 causal attention on the card is the `flash_prefill` kernel, which has no
 gradient. The CUDA source is `csrc/flash_prefill_bwd.cu`, whose header
-note gives the function, the design and the bound. Its plain PyTorch
-version is `kernels/ref.flash_prefill_bwd_ref`; `kernels/ops.
-causal_attention` is the differentiable op that runs it.
+note gives the function, the design and the bound: on bf16 inputs every
+product is a warpgroup product (wgmma) on the tensor cores, with dS, and
+an f32 dout, split into bf16 hi and lo halves (a bf16 dout is taken as it
+is); on f32 inputs f32 FMAs on the CUDA cores. Its plain PyTorch version is
+`kernels/ref.flash_prefill_bwd_ref`; `kernels/ops.causal_attention` is
+the differentiable op that runs it.
 
   q    [B, Hq, N, d]  f32 | bf16
   k, v [B, Hk, N, d]  q's dtype     Hq a multiple of Hk
-  dout [B, Hq, N, d]  f32           the cotangent of out
+  dout [B, Hq, N, d]  f32, or bf16 with bf16 q: the cotangent of out
   → (dq [B, Hq, N, d], dk, dv [B, Hk, N, d]) in q's dtype
 
 `LAUNCHES["flash_prefill_bwd"]` counts the calls: one per backward, the
@@ -37,7 +40,7 @@ _I = ctypes.c_int
 def _bind(lib):
     fn = lib.flash_prefill_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
+        fn.argtypes = [_I] * 2 + [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
         fn.restype = _I
         lib.flash_prefill_bwd_smem_bytes.argtypes = [_I]
         lib.flash_prefill_bwd_smem_bytes.restype = ctypes.c_size_t
@@ -46,15 +49,19 @@ def _bind(lib):
 
 def flash_prefill_bwd(q, k, v, dout, scale: float = None):
     """Launch the dq kernel and the dk/dv kernel on the current stream →
-    (dq, dk, dv). Raises on a tensor that is not contiguous on the CUDA
-    card, on a shape or dtype the kernels do not take, and when a launch
-    fails."""
+    (dq, dk, dv). Raises on a tensor that is not contiguous and 16-byte
+    aligned on the CUDA card, on a shape or dtype the kernels do not take
+    (dout f32 or bf16, bf16 only with bf16 q), and when a launch fails."""
     b, hq, n, d = q.shape
     hk = k.shape[1]
     dev = q.device
     if q.dtype not in KIND:
         raise TypeError(f"flash_prefill_bwd: dtype {q.dtype} not in "
                         f"{list(KIND)}")
+    if dout.dtype not in KIND or (dout.dtype == torch.bfloat16
+                                  and q.dtype != torch.bfloat16):
+        raise TypeError(f"flash_prefill_bwd: dout is {dout.dtype}; it must "
+                        "be f32, or bf16 with bf16 q, k and v")
     if hk <= 0 or hq % hk or d % 16 or d > MAX_D or v.shape[-1] != d:
         raise ValueError(f"flash_prefill_bwd: Hq={hq} over Hk={hk}, head "
                          f"dims ({d}, {v.shape[-1]}): Hq must be a multiple "
@@ -62,7 +69,9 @@ def flash_prefill_bwd(q, k, v, dout, scale: float = None):
     build.check_tensors("flash_prefill_bwd", {
         "q": (q, (b, hq, n, d), q.dtype),
         "k": (k, (b, hk, n, d), q.dtype), "v": (v, (b, hk, n, d), q.dtype),
-        "dout": (dout, (b, hq, n, d), torch.float32)}, dev)
+        "dout": (dout, (b, hq, n, d), dout.dtype)}, dev)
+    build.check_copy_aligned("flash_prefill_bwd", q=(q, 16), k=(k, 16),
+                             v=(v, 16), dout=(dout, 16))
     lib = _bind(build.load("flash_prefill_bwd"))
     build.check_smem("flash_prefill_bwd",
                      lib.flash_prefill_bwd_smem_bytes(d), dev,
@@ -75,9 +84,10 @@ def flash_prefill_bwd(q, k, v, dout, scale: float = None):
         scale = 1.0 / math.sqrt(d)
     with torch.cuda.device(dev):
         rc = lib.flash_prefill_bwd_launch(
-            KIND[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), b, hq, hk, n, d, ctypes.c_float(scale),
+            KIND[q.dtype], KIND[dout.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), b, hq, hk, n, d,
+            ctypes.c_float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("flash_prefill_bwd", rc)
     LAUNCHES["flash_prefill_bwd"] += 1

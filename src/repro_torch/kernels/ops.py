@@ -158,43 +158,53 @@ def prefill_attention_bwd(q, k, v, dout, *, scale=None, chunk: int = 512):
     """The backward of `prefill_attention`'s out over a whole prompt (row0
     0, every row live): q [B,Hq,N,d], k/v [B,Hk,N,d], dout [B,Hq,N,dv] →
     (dq, dk, dv) (`ref.flash_prefill_bwd_ref`). On the card the
-    `flash_prefill_bwd` kernel, with q cast to K's dtype and dout to f32,
-    all made contiguous (copies where they are not); `chunk` only shapes
-    the plain version's loop."""
+    `flash_prefill_bwd` kernel, with q cast to K's dtype, all made
+    contiguous (copies where they are not); a bf16 dout goes to bf16 K/V's
+    route as it is, any other is cast to f32 (which the bf16 route splits
+    into bf16 hi and lo halves). `chunk` only shapes the plain version's
+    loop."""
     if not _on_card(q, "flash_prefill_bwd"):
         return ref.flash_prefill_bwd_ref(q, k, v, dout, scale=scale,
                                          chunk=chunk)
+    keep = dout.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
     dq, dk, dv = _flash_bwd_kernel(
         q.to(k.dtype).contiguous(), k.contiguous(), v.contiguous(),
-        dout.to(torch.float32).contiguous(), scale=scale)
+        (dout if keep else dout.to(torch.float32)).contiguous(),
+        scale=scale)
     return dq.to(q.dtype), dk, dv
 
 
 class _CausalAttention(torch.autograd.Function):
     """Differentiable causal prompt attention: `prefill_attention`'s out
-    forward (its column sums dropped), `prefill_attention_bwd` backward."""
+    forward (its column sums dropped), cast to `out_dtype`, and
+    `prefill_attention_bwd` backward, which so receives the cotangent in
+    `out_dtype`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, chunk):
+    def forward(ctx, q, k, v, scale, chunk, out_dtype):
         out, _ = prefill_attention(q, k, v, chunk=chunk, scale=scale)
         ctx.save_for_backward(q, k, v)
         ctx.scale, ctx.chunk = scale, chunk
-        return out
+        return out.to(out_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = prefill_attention_bwd(q, k, v, dout, scale=ctx.scale,
                                            chunk=ctx.chunk)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def causal_attention(q, k, v, scale=None, chunk: int = 512):
+def causal_attention(q, k, v, scale=None, chunk: int = 512,
+                     out_dtype=torch.float32):
     """Causal attention over a whole prompt with a gradient, the training
     forward's (the reference's `chunked_causal_attention` out under
     `jax.value_and_grad`): q [B,Hq,N,d], k/v [B,Hk,N,d] → out
-    [B,Hq,N,dv] f32. The forward is `prefill_attention` (the
-    `flash_prefill` kernel on the card, its plain version on the CPU),
-    the backward `prefill_attention_bwd` (the `flash_prefill_bwd` kernel,
-    or `ref.flash_prefill_bwd_ref`)."""
-    return _CausalAttention.apply(q, k, v, scale, chunk)
+    [B,Hq,N,dv] in `out_dtype` (f32 by default; the model passes its
+    activations' dtype, the cast the reference makes right after
+    `chunked_causal_attention`, so a bf16 model's backward takes a bf16
+    cotangent, with the values the reference's cast gives). The forward is
+    `prefill_attention` (the `flash_prefill` kernel on the card, its plain
+    version on the CPU), the backward `prefill_attention_bwd` (the
+    `flash_prefill_bwd` kernel, or `ref.flash_prefill_bwd_ref`)."""
+    return _CausalAttention.apply(q, k, v, scale, chunk, out_dtype)

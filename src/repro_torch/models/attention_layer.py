@@ -52,8 +52,9 @@ def attention_train(p, x: torch.Tensor, cfg: ModelConfig, positions,
     if not causal:
         return _dense_attend(q, k, v, cfg).to(x.dtype) @ p["wo"]
     chunk = chunk or cfg.attn_chunk
-    out = ops.causal_attention(q, k, v, chunk=min(chunk, t))
-    out = out.transpose(1, 2).reshape(b, t, cfg.q_dim).to(x.dtype)
+    out = ops.causal_attention(q, k, v, chunk=min(chunk, t),
+                               out_dtype=x.dtype)
+    out = out.transpose(1, 2).reshape(b, t, cfg.q_dim)
     return out @ p["wo"]
 
 

@@ -20,18 +20,27 @@ kernel on the card and `ref.flash_prefill_bwd_ref` on the CPU.
   stays within twice the final largest gradient). So the bound is
   (2C - 1) · 2^-8 · max|grad| (one chunk: 2^-8 · max|grad|, one ulp of
   values below half the largest).
+- `ops.causal_attention(..., out_dtype=bf16)`, the model's call, against
+  `jax.vjp` of the reference's `chunked_causal_attention(...)[0]
+  .astype(bf16)`: the forward and the gradients from a bf16 cotangent.
 - the kernels' blocked algorithm, emulated in PyTorch (online row
-  statistics, ragged N, dk/dv in head then q-block order), against the
-  plain version: f32 1e-5, bf16 each element within one bf16 ulp of
-  itself plus one of the largest gradient of its row;
+  statistics, ragged N, dk/dv in head then q-tile order; on bf16 inputs
+  the wgmma route's roundings: dS as bf16 hi + lo, a bf16 dout as it
+  is, an f32 dout as bf16 hi + lo; keys with a common component, a
+  zero-gradient row), against the plain version: f32 1e-5,
+  bf16 each element within one bf16 ulp of itself plus one of the
+  largest gradient of its row;
 - `attention_train` (the block's attention sublayer, causal and not)
   against the reference's, with the gradients of every projection, f32.
-- the kernel wrapper's refusals on the CPU and the launch counter.
+- the kernel wrapper's refusals on the CPU (dtypes, dout f32 or bf16
+  only) and the launch counter.
 - on a card only (`-m gpu`): the kernel against its plain version at
-  bf16 and f32, GQA and d = 16 … 128, two launches bit-equal, one count a
-  backward.
+  bf16 and f32, GQA and d = 16 … 128, a bf16 and an f32 dout on the bf16
+  route, two launches bit-equal, one count a backward.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -173,9 +182,18 @@ def _emulate_kernel(q, k, v, dout, scale, blk=64):
     masked there; the dq kernel's sweep 1 carries m, l and sum exp(s - m)
     dP online (rescaled as the max grows), sweep 2 makes dS and dq from
     them; the dk/dv kernel recomputes P and dS from the statistics and
-    sums over the group's heads, then the q-blocks at or after its key
-    block. Products in f32; T(x) rounds to the inputs' dtype."""
+    sums over the group's heads, then the q tiles at or after its key
+    block. Products in f32; T(x) rounds to the inputs' dtype.
+
+    bf16 inputs take the wgmma route's roundings: D is summed as dP_i0 +
+    sum P (dP - dP_i0), P is exp2 of base-2 logits times 1 / l; dS enters
+    dq += dS k and dk += dS^T q as hi = bf16(dS) and lo = bf16(dS - hi);
+    dout is the operand as it is when bf16, and an f32 dout is split the
+    same way; each pair of products sums to that of hi + lo (exact in
+    f32); the dk/dv kernel walks 32-row q tiles. f32 inputs take the
+    CUDA-core route: no rounding but T, 64-row q-blocks."""
     dt = q.dtype
+    tc = dt == torch.bfloat16
     b, hq, n, d = q.shape
     hk = k.shape[1]
     g = hq // hk
@@ -188,58 +206,81 @@ def _emulate_kernel(q, k, v, dout, scale, blk=64):
     def t_round(x):
         return x.to(dt).float()
 
+    def operand(x):                     # dS as bf16 hi + lo operands
+        if not tc:
+            return x
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float()
+
+    # the bf16 route: logits in base-2 units (scale log2(e)), exp2, and P
+    # times 1 / l
+    sl = torch.tensor(scale, dtype=torch.float32) * (
+        torch.tensor(math.log2(math.e), dtype=torch.float32) if tc else 1)
+    ex = torch.exp2 if tc else torch.exp
+
+    def probs(s, m, lc):
+        e = ex(s - m[..., None])
+        return e * (1 / lc)[..., None] if tc else e / lc[..., None]
+
+    if tc and dout.dtype == torch.float32:
+        hi = dout.to(torch.bfloat16).float()
+        dout = hi + (dout - hi).to(torch.bfloat16).float()
     qf, kf, vf, dof = (tiles(x) for x in (q, k, v, dout))
     kx = kf.repeat_interleave(g, dim=1)
     vx = vf.repeat_interleave(g, dim=1)
-    idx = torch.arange(blk)
 
-    def tile(qb, kt):
-        rows, cols = qb * blk + idx, kt * blk + idx
+    def tile(rows, cols):
         live = ((cols[None, :] <= rows[:, None]) & (cols[None, :] < n)
                 & (rows[:, None] < n))
         qs, ks = qf[:, :, rows], kx[:, :, cols]
-        s = torch.where(live, (qs @ ks.transpose(-1, -2)) * scale,
+        s = torch.where(live, (qs @ ks.transpose(-1, -2)) * sl,
                         torch.tensor(-1e30))
         dp = t_round(dof[:, :, rows] @ vx[:, :, cols].transpose(-1, -2))
         return s, dp
 
-    stats = []
+    stats = torch.zeros((3, b, hq, nb * blk))
     dq = torch.zeros_like(qf)
     for qb in range(nb):
+        rows = qb * blk + torch.arange(blk)
         m = torch.full((b, hq, blk), -1e30)
         l_ = torch.zeros((b, hq, blk))
         dn = torch.zeros((b, hq, blk))
+        c = torch.zeros((b, hq, blk))   # bf16 route: D shifted by dP_i0
         for kt in range(qb + 1):
-            s, dp = tile(qb, kt)
+            s, dp = tile(rows, kt * blk + torch.arange(blk))
+            if tc and kt == 0:
+                c = dp[..., 0]
             m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            e = torch.exp(s - m_new[..., None])
+            alpha = ex(m - m_new)
+            e = ex(s - m_new[..., None])
             l_ = l_ * alpha + e.sum(-1)
-            dn = dn * alpha + (e * dp).sum(-1)
+            dn = dn * alpha + (e * (dp - c[..., None])).sum(-1)
             m = m_new
         lc = torch.clamp(l_, min=1e-30)
-        dd = dn / lc
-        stats.append((m, lc, dd))
+        dd = c + dn / lc
+        stats[:, :, :, rows] = torch.stack((m, lc, dd))
         for kt in range(qb + 1):
-            s, dp = tile(qb, kt)
-            p = torch.exp(s - m[..., None]) / lc[..., None]
+            cols = kt * blk + torch.arange(blk)
+            s, dp = tile(rows, cols)
+            p = probs(s, m, lc)
             ds = p * (dp - dd[..., None]) * scale
-            dq[:, :, qb * blk + idx] += ds @ kx[:, :, kt * blk + idx]
+            dq[:, :, rows] += operand(ds) @ kx[:, :, cols]
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
+    qt = 32 if tc else blk
     for kb in range(nb):
-        cols = kb * blk + idx
+        cols = kb * blk + torch.arange(blk)
         for h in range(g):
             heads = torch.arange(hk) * g + h
-            for qb in range(kb, nb):
-                m, lc, dd = (x[:, heads] for x in stats[qb])
-                s, dp = (x[:, heads] for x in tile(qb, kb))
-                p = torch.exp(s - m[..., None]) / lc[..., None]
+            for r0 in range(kb * blk, nb * blk, qt):
+                rows = r0 + torch.arange(qt)
+                m, lc, dd = (x[:, heads][..., rows] for x in stats)
+                s, dp = (x[:, heads] for x in tile(rows, cols))
+                p = probs(s, m, lc)
                 ds = p * (dp - dd[..., None]) * scale
-                rows = qb * blk + idx
                 dv[:, :, cols] += t_round(p).transpose(-1, -2) @ \
                     dof[:, heads][:, :, rows]
-                dk[:, :, cols] += ds.transpose(-1, -2) @ \
+                dk[:, :, cols] += operand(ds).transpose(-1, -2) @ \
                     qf[:, heads][:, :, rows]
     return tuple(x[:, :, :n].to(dt) for x in (dq, dk, dv))
 
@@ -274,6 +315,118 @@ def test_kernel_algorithm_matches_plain_version(dtype, g, n):
     want = ref.flash_prefill_bwd_ref(q, k, v, dout)
     for a, w in zip(got, want):
         _assert_kernel_close(a, w)
+
+
+@pytest.mark.parametrize("g,n,d,dout_dtype", [
+    (4, 129, 64, torch.float32), (4, 129, 64, torch.bfloat16),
+    (1, 100, 16, torch.bfloat16)])
+def test_kernel_algorithm_takes_a_bf16_cotangent_and_wide_heads(
+        g, n, d, dout_dtype):
+    """The bf16 route's algorithm with the model's bf16 cotangent (dout the
+    operand as it is) and at granite-3-2b's group and head dim (G = 4, d =
+    64; an f32 dout split into hi and lo), against the plain version on
+    the same bf16-valued dout, to `_assert_kernel_close`."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(2, 2 * g, 2, n,
+                                                          d, seed=n + d))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    dout = dout.to(dout_dtype)
+    got = _emulate_kernel(q, k, v, dout, d ** -0.5)
+    want = ref.flash_prefill_bwd_ref(q, k, v, dout)
+    for a, w in zip(got, want):
+        _assert_kernel_close(a, w)
+
+
+def _common_key_inputs(seed, b=2, hq=4, hk=2, n=129, d=64):
+    """bf16 q, k, v and a bf16 dout whose keys share a large common vector
+    (k_j = c + delta_j, |c| about 8 |delta|), as a model's projections do:
+    sum_j dS_ij = 0 cancels c out of dq exactly, and only as far as the
+    products keep dS."""
+    rng = np.random.default_rng(seed)
+    q = 0.3 * rng.standard_normal((b, hq, n, d))
+    c = 4 + rng.standard_normal((1, hk, 1, d))
+    k = c + 0.5 * rng.standard_normal((b, hk, n, d))
+    v = rng.standard_normal((b, hk, n, d))
+    dout = rng.standard_normal((b, hq, n, d))
+    return [torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+            for x in (q, k, v, dout)]
+
+
+def test_kernel_algorithm_holds_keys_with_a_common_component():
+    """The bf16 route's dS enters dq += dS k as bf16 hi + lo: a key
+    component common to every key cancels out of dq as in the plain
+    version's f32 product (with dS rounded to bf16 alone, dq misses
+    `_assert_kernel_close` here)."""
+    q, k, v, dout = _common_key_inputs(4)
+    got = _emulate_kernel(q, k, v, dout, 64 ** -0.5)
+    want = ref.flash_prefill_bwd_ref(q, k, v, dout)
+    for a, w in zip(got, want):
+        _assert_kernel_close(a, w)
+
+
+@pytest.mark.parametrize("dout_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_algorithm_gives_a_zero_gradient_row_exactly_zero(dout_dtype):
+    """With v_0 = v_1 every row's dP at keys 0 and 1 are equal, so row 1
+    (which sees only those keys) has gradient 0 exactly. The bf16 route
+    sums D as dP_i0 + sum P (dP - dP_i0), which is then dP_i0 exactly, so
+    dS and dq of row 1 are exactly 0; an unshifted sum leaves f32 rounding
+    noise there, which a per-row limit cannot hold."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(2, 4, 1, 70, 16,
+                                                          seed=5))
+    v[:, :, 1] = v[:, :, 0]
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    dq, _, _ = _emulate_kernel(q, k, v, dout.to(dout_dtype), 0.25)
+    assert bool((dq[:, :, 1] == 0).all())
+    assert bool((dq[:, :, 2:].float().abs().amax(-1) > 0).all())
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_causal_attention_bf16_out_matches_reference_cast(g):
+    """`ops.causal_attention(..., out_dtype=bf16)`, the model's call, holds
+    the forward and the gradients of `chunked_causal_attention(...)[0]
+    .astype(bf16)` under `jax.vjp`: the cast inside the autograd Function
+    gives the backward the bf16 cotangent the reference's cast gives."""
+    jax, jnp, cca = _jax()
+    n, chunk = 45, 16
+    q, k, v, dout = _inputs(2, 2 * g, 2, n, 16, seed=31 + g)
+    args = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    out, vjp = jax.vjp(
+        lambda a, b_, c: cca(a, b_, c, chunk=chunk)[0].astype(jnp.bfloat16),
+        *args)
+    ct = jnp.asarray(dout).astype(jnp.bfloat16)
+    want = [np.asarray(x.astype(jnp.float32)) for x in (out, *vjp(ct))]
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+              for x in (q, k, v)]
+    got = ops.causal_attention(*leaves, chunk=chunk,
+                               out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    # a probability's one-ulp flip (2^-8 |v|), then one bf16 ulp of out
+    # where the f32 outs straddle a rounding boundary
+    err = np.abs(got.detach().float().numpy() - want[0])
+    assert (err <= 2.0 ** -8 * (np.abs(v).max() + np.abs(want[0]))).all()
+    got.backward(torch.from_numpy(np.array(ct.astype(jnp.float32))).to(
+        torch.bfloat16))
+    for leaf, w in zip(leaves, want[1:]):
+        err = np.abs(leaf.grad.float().numpy() - w).max()
+        assert err <= _bound(torch.bfloat16, n, chunk, np.abs(w).max()), err
+
+
+def test_kernel_wrapper_takes_an_f32_or_bf16_cotangent_only():
+    """dout may be f32, or bf16 with bf16 q, k and v; any other is refused
+    before a launch (a CPU tensor then fails the device check: its dtype
+    was taken)."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(1, 2, 1, 8, 16, 0))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = bwd_mod.LAUNCHES["flash_prefill_bwd"]
+    for dt in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(TypeError, match="dout"):
+            bwd_mod.flash_prefill_bwd(q, k, v, dout.to(dt))
+    with pytest.raises(TypeError, match="dout"):
+        bwd_mod.flash_prefill_bwd(q.float(), k.float(), v.float(),
+                                  dout.to(torch.bfloat16))
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA"):
+            bwd_mod.flash_prefill_bwd(q, k, v, dout.to(dt))
+    assert bwd_mod.LAUNCHES["flash_prefill_bwd"] == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
@@ -324,3 +477,61 @@ def test_backward_kernel_matches_plain_version_on_card(b, hq, hk, n, d,
     for a, a2, w in zip(got, again, want):
         assert a.dtype == dtype and torch.equal(a, a2)      # deterministic
         _assert_kernel_close(a, w)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_holds_keys_with_a_common_component_on_card():
+    """The bf16 route on keys that share a large common vector (dS as hi +
+    lo operands), with the model's bf16 dout and with it in f32."""
+    _needs_card()
+    q, k, v, dout = (x.cuda() for x in _common_key_inputs(9, n=300))
+    want = ref.flash_prefill_bwd_ref(q, k, v, dout)
+    for cot in (dout, dout.float()):
+        got = bwd_mod.flash_prefill_bwd(q, k, v, cot)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            _assert_kernel_close(a, w)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_gives_a_zero_gradient_row_exactly_zero_on_card():
+    """The bf16 route on the card: with v_0 = v_1, row 1's gradient is 0
+    exactly (its two dP are equal), and the kernel's dq there is 0 bit for
+    bit, with a bf16 and with an f32 dout."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((2, h, 200, 64), generator=gen, device="cuda")
+               for h in (8, 2, 2))
+    v[:, :, 1] = v[:, :, 0]
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    dout = torch.randn((2, 8, 200, 64), generator=gen, device="cuda")
+    for cot in (dout.to(torch.bfloat16), dout):
+        dq, _, _ = bwd_mod.flash_prefill_bwd(q, k, v, cot)
+        torch.cuda.synchronize()
+        assert bool((dq[:, :, 1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hk,n,d", [
+    (2, 8, 2, 300, 64), (1, 4, 4, 129, 112), (2, 4, 1, 129, 64)])
+def test_backward_kernel_takes_a_bf16_cotangent_on_card(b, hq, hk, n, d):
+    """The bf16 route with a bf16 dout (the model's cotangent, the operand
+    as it is) at ragged N, and the same dout in f32 (split into hi and lo):
+    each within `_assert_kernel_close` of the plain version, two launches
+    bit-equal, one count a backward."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + d + 1)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (hq, hk, hk))
+    dout = torch.randn((b, hq, n, d), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    want = ref.flash_prefill_bwd_ref(q, k, v, dout)
+    for cot in (dout, dout.float()):
+        before = bwd_mod.LAUNCHES["flash_prefill_bwd"]
+        got = bwd_mod.flash_prefill_bwd(q, k, v, cot)
+        again = bwd_mod.flash_prefill_bwd(q, k, v, cot)
+        torch.cuda.synchronize()
+        assert bwd_mod.LAUNCHES["flash_prefill_bwd"] == before + 2
+        for a, a2, w in zip(got, again, want):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
+            _assert_kernel_close(a, w)
