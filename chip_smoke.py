@@ -12,7 +12,9 @@ Phases, in order (no failure is caught: any one exits non-zero):
                (spills) of the prompt kernel's routes and the HMMA and
                HGMMA (tensor-core, warpgroup) instructions in their SASS
                (cuobjdump; the latent route must hold HGMMA and spill
-               nothing);
+               nothing); the registers, stack and local memory of every
+               approx_score and gather_attention instantiation (any spill
+               fails, and the served ones must be there);
   3. kernels — each kernel against its plain PyTorch version on the card,
                at longchat-7b, granite-like (GQA), starcoder2-3b (G = 12),
                grok-1-314b (G = 6, ragged_decode), zamba2-7b (d = 112) and
@@ -34,6 +36,15 @@ Phases, in order (no failure is caught: any one exits non-zero):
                exact rows, beside the count of exact rows), with CUDA-event
                times beside the reckoned bound (and beside the one PyTorch
                call that computes the function, where there is one);
+               approx_score (both routes, bit for bit) and gather_attention
+               (GATHER_ATOL) also at the edges of their tilings (S and K
+               no multiple of a tile, empty tiles and rows, one valid
+               slot, G = 16, d = 40 to 4096, rows past gather's shared
+               memory stage, misaligned rows, the largest K the wrapper
+               admits at G = 1 and 16 and the refusal of one more), two
+               launches of each bit-equal, and both timed at the
+               longchat-7b, granite-like and starcoder2-3b shapes with
+               inputs in L2 and with L2 cold;
   4. serve   — full-width longchat-7b (random bf16 weights from a seed)
                serving 8 requests on 4 lanes through `ServeLoop`, bf16 and
                int8 KV, first with global selection (the ragged_decode
@@ -924,12 +935,17 @@ def phase_fused():
     return worst, timings
 
 
-def score_inputs(bh, g, d, s, fills, seed, q_hi=128, k_hi=128):
+def score_inputs(bh, g, d, s, fills, seed, q_hi=128, k_hi=128, holes=0.0):
+    """qq, qscale, kq, kscale, valid: slots below a row's fill valid, less
+    a `holes` share of them at random."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     fills = torch.as_tensor(fills, dtype=torch.int32, device=dev)
     valid = (torch.arange(s, device=dev)[None, :]
              < fills[:, None]).to(torch.int8)
+    if holes:
+        valid *= (torch.rand((bh, s), generator=gen, device=dev)
+                  >= holes).to(torch.int8)
     qq = torch.randint(-q_hi + 1, q_hi, (bh, g, d), generator=gen,
                        device=dev, dtype=torch.int8)
     kq = torch.randint(-k_hi + 1, k_hi, (bh, s, d), generator=gen,
@@ -951,98 +967,326 @@ def score_bound(qq, kq_row_bytes, valid):
     return t, by, nbytes
 
 
+# the composed path's timed shapes (S = K... = 1088 slots, k = 128
+# gathered rows): longchat-7b's served decode, a granite-like GQA one, and
+# starcoder2-3b's G = 12
+COMPOSED_SHAPES = (("longchat-7b", 128, 1, 128, MAIN_FILLS),
+                   ("granite-like GQA", 32, 4, 64, MAIN_FILLS[::4]),
+                   ("starcoder2-3b", 8, 12, 128, G12_FILLS))
+
+def composed_kernel_name(text):
+    """The demangled name of an approx_score or gather_attention kernel in
+    a mangled one, or None."""
+    m = re.search(r"approx_score_mma_kernelILi(\d+)E", text)
+    if m:
+        return f"approx_score_mma_kernel<{m.group(1)}>"
+    m = re.search(r"approx_score_kernelILi(\d+)E", text)
+    if m:
+        return f"approx_score_kernel<{m.group(1)}>"
+    m = re.search(r"gather_attention_kernelI(f|a|13__nv_bfloat16)Lb([01])E"
+                  r"Li(\d+)E", text)
+    if m:
+        return (f"gather_attention_kernel<{KV_MANGLED[m.group(1)]}, "
+                f"{'true' if m.group(2) == '1' else 'false'}, {m.group(3)}>")
+    return None
+
+
+# what phase 5's three-pass step launches (bf16 K/V, and f32 ones for an
+# int8 cache), and the timed G = 4 and 12 shapes
+SERVED_COMPOSED = ("approx_score_mma_kernel<16>",
+                   "approx_score_kernel<8>",
+                   "gather_attention_kernel<bf16, true, 1>",
+                   "gather_attention_kernel<float, true, 1>",
+                   "gather_attention_kernel<bf16, true, 4>")
+
+
+def composed_kernel_report():
+    """Registers, stack and local memory (spills) of every instantiation of
+    approx_score.cu and gather_attention.cu, printed; fails when one
+    spills or a served one is missing. Returns the served ones'."""
+    tool = cuobjdump()
+    if tool is None:
+        print("[build] cuobjdump not found: composed kernels' registers and "
+              "spills not measured")
+        return {}
+    report = {}
+    for kernel in ("approx_score", "gather_attention"):
+        report.update(res_usage(tool, kernel, composed_kernel_name))
+    for name in sorted(report):
+        r = report[name]
+        print(f"[build] {name}: {r['registers']} registers, "
+              f"{r['stack_bytes']} B stack, {r['local_bytes']} B local "
+              "(spills) (cuobjdump)")
+    assert set(SERVED_COMPOSED) <= set(report), sorted(report)
+    for name, r in report.items():
+        assert r["stack_bytes"] == r["local_bytes"] == 0, (name, "spills")
+    return {name: report[name] for name in SERVED_COMPOSED}
+
+
+def misaligned(t, offset):
+    """A contiguous copy of t whose data starts `offset` bytes past a
+    256-byte boundary."""
+    n = t.numel() * t.element_size()
+    buf = torch.empty(n + 256, dtype=torch.uint8, device=t.device)
+    out = buf[offset:offset + n].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 256 == offset
+    return out
+
+
+def approx_check(name, qq, qs, kq, ks, valid):
+    """Both routes bit for bit against their plain versions, and two
+    launches of each bit-equal (the int8 route's codes clamped into the
+    packed route's [-8, 7])."""
+    got = approx_mod.approx_score(qq, qs, kq, ks, valid)
+    again = approx_mod.approx_score(qq, qs, kq, ks, valid)
+    want = ref.approx_score_ref(qq, qs, kq, ks, valid)
+    packed = quant.pack_int4(torch.clamp(kq, -8, 7))
+    got4 = approx_mod.approx_score_packed(qq, qs, packed, ks, valid)
+    again4 = approx_mod.approx_score_packed(qq, qs, packed, ks, valid)
+    want4 = ref.approx_score_packed_ref(qq, qs, packed, ks, valid)
+    torch.cuda.synchronize()
+    same, same4 = torch.equal(got, want), torch.equal(got4, want4)
+    twice = torch.equal(got, again) and torch.equal(got4, again4)
+    print(f"  {name}: approx_score bit-equal {same}, packed bit-equal "
+          f"{same4}, two launches bit-equal {twice}")
+    assert same and same4 and twice, name
+
+
+# approx_score's edges: (name, BH, G, d, S); S is no multiple of the
+# 32-slot item, and every row gets holes and an empty 32-slot tile
+APPROX_EDGES = (("S=1045 G=1 d=128", 6, 1, 128, 1045),
+                ("S=77 G=16 d=128", 5, 16, 128, 77),
+                ("S=1088 G=16 d=64", 4, 16, 64, 1088),
+                ("S=333 G=3 d=112", 7, 3, 112, 333),
+                ("S=130 G=5 d=40 (8-byte loads)", 3, 5, 40, 130),
+                ("S=259 G=16 d=256 (two k-chunks)", 3, 16, 256, 259),
+                ("S=64 G=1 d=4096 (32 k-chunks)", 2, 1, 4096, 64))
+
+
 def phase_approx():
     """approx_score and approx_score_packed against their plain versions:
-    equal bit for bit."""
+    equal bit for bit at the three served shapes and at the edges of the
+    int8 route's tiling; then `approx_times`."""
     for ci, (name, bh, g, d, s) in enumerate([
             ("longchat S=1088", 128, 1, 128, 1088),
             ("granite-like GQA S=1088", 32, 4, 64, 1088),
             ("starcoder2 G=12 S=1088", 8, 12, 128, 1088)]):
         fills = mixed_fills(bh, s, 128, ci)
-        qq, qs, kq, ks, valid = score_inputs(bh, g, d, s, fills, 20 + ci)
-        got = approx_mod.approx_score(qq, qs, kq, ks, valid)
-        want = ref.approx_score_ref(qq, qs, kq, ks, valid)
-        kq4 = torch.clamp(kq, -8, 7)
-        packed = quant.pack_int4(kq4)
-        got4 = approx_mod.approx_score_packed(qq, qs, packed, ks, valid)
-        want4 = ref.approx_score_packed_ref(qq, qs, packed, ks, valid)
-        torch.cuda.synchronize()
-        same, same4 = torch.equal(got, want), torch.equal(got4, want4)
-        print(f"  {name} G={g} d={d}: approx_score bit-equal {same}, "
-              f"packed bit-equal {same4}")
-        assert same and same4, name
-    timings = {}
-    # the served operands: 4-bit queries, a 3-bit mirror
-    qq, qs, kq, ks, valid = score_inputs(128, 1, 128, 1088, MAIN_FILLS, 29,
-                                         q_hi=8, k_hi=4)
-    packed = quant.pack_int4(kq)
-    for name, fn, plain_fn, kqx, row in (
-            ("approx_score", approx_mod.approx_score, ref.approx_score_ref,
-             kq, 128),
-            ("approx_score_packed", approx_mod.approx_score_packed,
-             ref.approx_score_packed_ref, packed, 64)):
-        ms = cuda_ms(lambda: fn(qq, qs, kqx, ks, valid))
-        plain = cuda_ms(lambda: plain_fn(qq, qs, kqx, ks, valid))
-        t, by, nbytes = score_bound(qq, row, valid)
-        timings[name] = (ms, plain, t, by, None)
-        print(f"  time {name} main shape (BH=128 G=1 d=128 S=1088): kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: "
-              f"{nbytes} B); library call: none (torch has no int8 x int8 "
-              "-> int32 batched product on the card)")
-    return 0.0, timings
+        approx_check(f"{name} G={g} d={d}",
+                     *score_inputs(bh, g, d, s, fills, 20 + ci))
+    for ci, (name, bh, g, d, s) in enumerate(APPROX_EDGES):
+        fills = ([s, s - 13, s // 2, 0] * bh)[:bh]   # 0: an empty row
+        qq, qs, kq, ks, valid = score_inputs(bh, g, d, s, fills, 40 + ci,
+                                             holes=0.3)
+        if s > 64:
+            valid[:, 32:64] = 0        # a tile with no valid slot
+        approx_check(f"edge {name}", qq, qs, kq, ks, valid)
+    qq, qs, kq, ks, valid = score_inputs(4, 2, 128, 200, [200] * 4, 49,
+                                         holes=0.3)
+    approx_check("edge mirror 4- but not 8-byte aligned (4-byte loads)",
+                 qq, qs, misaligned(kq, 4), ks, valid)
+    return 0.0, approx_times()
 
 
-def gather_inputs(bh, g, d, kk, kv, seed, frac=0.6):
+def approx_times():
+    """Both routes timed at the three COMPOSED_SHAPES with inputs in L2 and
+    with L2 cold, beside the plain version and the bound. Needs nothing of
+    this script's other phases, so it also times another checkout's
+    kernels: run it from that checkout's root."""
+    timings = {"extra:approx_score": {}, "extra:approx_score_packed": {}}
+    for si, (model, bh, g, d, fills) in enumerate(COMPOSED_SHAPES):
+        # the served operands: 4-bit queries, a 3-bit mirror
+        def make(seed):
+            return score_inputs(bh, g, d, 1088, fills, seed, q_hi=8, k_hi=4)
+        first = make(29 + 100 * si)
+        nbytes = (sum(t.numel() * t.element_size() for t in first)
+                  + bh * g * 1088 * 4)
+        n_sets = max(COLD_SETS, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [first] + [make(29 + 100 * si + i) for i in range(1, n_sets)]
+        for name, fn, plain_fn, row in (
+                ("approx_score", approx_mod.approx_score,
+                 ref.approx_score_ref, d),
+                ("approx_score_packed", approx_mod.approx_score_packed,
+                 ref.approx_score_packed_ref, d // 2)):
+            if name.endswith("packed"):
+                args = [(a, b, quant.pack_int4(c), e, f)
+                        for a, b, c, e, f in sets]
+            else:
+                args = sets
+            warm = cuda_ms(lambda: fn(*args[0]))
+            cold = cold_ms(fn, args)
+            plain = cuda_ms(lambda: plain_fn(*args[0]))
+            t, by, nb = score_bound(args[0][0], row, args[0][4])
+            res = {"ms": warm, "ms_l2_cold": cold, "plain_ms": plain,
+                   "bound_ms": t, "bound_by": by}
+            line = (f"kernel {warm:.4f} ms with its inputs in L2, {cold:.4f}"
+                    f" ms with L2 cold ({n_sets} input sets in turn)")
+            print(f"  time {name} {model} (BH={bh} G={g} d={d} S=1088): "
+                  f"{line}; plain {plain:.4f} ms, bound {t:.4f} ms ({by}: "
+                  f"{nb} B); library call: none (torch has no int8 x int8 "
+                  "-> int32 batched product on the card)")
+            if si == 0:
+                timings[name] = (warm, plain, t, by, None)
+                timings[f"extra:{name}"]["ms_l2_cold"] = cold
+            else:
+                timings[f"extra:{name}"][model] = res
+    return timings
+
+
+def gather_inputs(bh, g, d, kk, kv, seed, frac=0.6, dv=None):
     """q, k, v, valid: mixed rows, row 0 without a valid slot, row 1 all
-    valid. int8 K/V are raw codes, so q carries their 1/127 scale."""
+    valid, row 2 (where there is one) with one valid slot. int8 K/V are raw
+    codes, so q carries their 1/127 scale."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
+    dv = d if dv is None else dv
     q = torch.randn((bh, g, d), generator=gen, device=dev)
     if kv == torch.int8:
         q = q / 127
-        k, v = (torch.randint(-127, 128, (bh, kk, d), generator=gen,
-                              device=dev, dtype=torch.int8) for _ in "kv")
+        k, v = (torch.randint(-127, 128, (bh, kk, w), generator=gen,
+                              device=dev, dtype=torch.int8) for w in (d, dv))
     else:
-        k, v = (torch.randn((bh, kk, d), generator=gen, device=dev).to(kv)
-                for _ in "kv")
+        k, v = (torch.randn((bh, kk, w), generator=gen, device=dev).to(kv)
+                for w in (d, dv))
     valid = (torch.rand((bh, kk), generator=gen, device=dev)
              < frac).to(torch.int8)
     valid[0], valid[1] = 0, 1
+    if bh > 2:
+        valid[2] = 0
+        valid[2, kk // 2] = 1
     return q, k, v, valid
 
 
+def gather_check(name, q, k, v, valid):
+    """Within GATHER_ATOL of the plain version, finite, and two launches
+    bit-equal; returns max|dout|."""
+    out = gather_mod.gather_attention(q, k, v, valid)
+    again = gather_mod.gather_attention(q, k, v, valid)
+    want = ref.gather_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    twice = torch.equal(out, again)
+    print(f"  {name}: max|dout|={err:.3g}, two launches bit-equal {twice}")
+    assert err <= GATHER_ATOL and torch.isfinite(out).all(), name
+    assert twice, name
+    return err
+
+
+def gather_kmax(g, d):
+    """The largest K whose [G][d] query and [G][K] logits (and 32 bytes)
+    fit in the shared memory a CTA may opt into: what the wrapper admits."""
+    lib = gather_mod._bind(build.load("gather_attention"))
+    props = torch.cuda.get_device_properties(0)
+    limit = int(getattr(props, "shared_memory_per_block_optin", 232448))
+    kk = (limit - 32 - 4 * g * d) // (4 * g)
+    assert lib.gather_attention_smem_bytes(kk, g, d) <= limit
+    assert lib.gather_attention_smem_bytes(kk + 1, g, d) > limit
+    return kk
+
+
+def gather_bound(q, k, v, valid):
+    """q, the valid bytes and out; the valid K and V rows (all V rows of a
+    row with no valid slot); 2·G·(d + dv) flops a row read."""
+    bh, g, d = q.shape
+    kk, dv = k.shape[1], v.shape[-1]
+    nv = valid.sum(-1).long()
+    rows_k = int(nv.sum())
+    rows_v = int(torch.where(nv > 0, nv, torch.full_like(nv, kk)).sum())
+    nbytes = (bh * (g * d * 4 + kk + g * dv * 4)
+              + rows_k * d * k.element_size() + rows_v * dv * v.element_size())
+    t, by = bound(nbytes, f32_flops=2.0 * g * (rows_k * d + rows_v * dv))
+    return t, by, nbytes
+
+
 def phase_gather():
-    """gather_attention against its plain version, K = 128, including
-    rows with no valid slot (the mean of their V rows, as the oracle)."""
+    """gather_attention against its plain version (rows with no valid slot
+    get the mean of their V rows, as the oracle): the three served shapes,
+    then the edges of the design; then `gather_times`."""
     worst = 0.0
     for ci, (name, bh, g, d) in enumerate([("longchat", 128, 1, 128),
                                            ("granite-like GQA", 32, 4, 64),
                                            ("starcoder2", 8, 12, 128)]):
         for kv in (torch.bfloat16, torch.int8):
-            args = gather_inputs(bh, g, d, 128, kv, 30 + ci)
-            out = gather_mod.gather_attention(*args)
-            want = ref.gather_attention_ref(*args)
-            torch.cuda.synchronize()
-            err = float((out - want).abs().max())
-            print(f"  {name} G={g} d={d} K=128 {str(kv)[6:]}: "
-                  f"max|dout|={err:.3g}")
-            assert err <= GATHER_ATOL and torch.isfinite(out).all(), (name, kv)
-            worst = max(worst, err)
-    q, k, v, valid = gather_inputs(128, 1, 128, 128, torch.bfloat16, 39,
-                                   frac=1.0)
-    ms = cuda_ms(lambda: gather_mod.gather_attention(q, k, v, valid))
-    plain = cuda_ms(lambda: ref.gather_attention_ref(q, k, v, valid))
-    qb, mask = q.to(torch.bfloat16), (valid != 0)[:, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qb, k, v,
-                                                         attn_mask=mask))
-    nbytes = (128 * (1 * 128 * 4 + 128 + 1 * 128 * 4)
-              + int(valid.sum()) * (128 + 128) * 2)
-    t, by = bound(nbytes, f32_flops=4.0 * int(valid.sum()) * 128)
-    print(f"  time main shape (BH=128 G=1 d=128 K=128 bf16): kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: "
-          f"{nbytes} B); library call F.scaled_dot_product_attention "
-          f"(bf16 q, boolean mask) {lib:.4f} ms")
-    return worst, {"gather_attention": (ms, plain, t, by, lib)}
+            worst = max(worst, gather_check(
+                f"{name} G={g} d={d} K=128 {str(kv)[6:]}",
+                *gather_inputs(bh, g, d, 128, kv, 30 + ci)))
+    edges = [  # name, bh, g, d, K, dtype, dv
+        ("K=40 G=16 d=64 f32", 6, 16, 64, 40, torch.float32, 64),
+        ("K=129 G=16 d=128 bf16", 6, 16, 128, 129, torch.bfloat16, 128),
+        ("K=300 G=3 d=112 int8", 6, 3, 112, 300, torch.int8, 112),
+        ("K=129 G=1 d=112 bf16", 6, 1, 112, 129, torch.bfloat16, 112),
+        ("K=257 G=12 d=64 bf16", 6, 12, 64, 257, torch.bfloat16, 64),
+        ("K=200 G=4 d=128 dv=64 f32", 6, 4, 128, 200, torch.float32, 64),
+        ("K=1024 G=1 d=128 f32 (past the stage)", 4, 1, 128, 1024,
+         torch.float32, 128),
+        ("K=700 G=16 d=128 bf16 (past the stage)", 4, 16, 128, 700,
+         torch.bfloat16, 128),
+        ("K=130 G=2 d=40 int8 (element-wise)", 6, 2, 40, 130, torch.int8,
+         40),
+        ("K=77 G=5 d=36 bf16 dv=20 (element-wise)", 6, 5, 36, 77,
+         torch.bfloat16, 20),
+    ]
+    for ci, (name, bh, g, d, kk, kv, dv) in enumerate(edges):
+        worst = max(worst, gather_check(f"edge {name}", *gather_inputs(
+            bh, g, d, kk, kv, 60 + ci, dv=dv)))
+    q, k, v, valid = gather_inputs(4, 4, 128, 128, torch.bfloat16, 71)
+    worst = max(worst, gather_check(
+        "edge K 8- but not 16-byte aligned (element-wise)", q,
+        misaligned(k, 8), v, valid))
+    for g in (1, 16):
+        kk = gather_kmax(g, 128)
+        worst = max(worst, gather_check(
+            f"edge largest K the wrapper admits at G={g} d=128: K={kk} bf16",
+            *gather_inputs(3, g, 128, kk, torch.bfloat16, 80 + g)))
+        try:
+            gather_mod.gather_attention(*gather_inputs(
+                3, g, 128, kk + 1, torch.bfloat16, 80 + g))
+        except ValueError as e:
+            print(f"  K={kk + 1} at G={g} refused before a launch: {e}")
+        else:
+            raise AssertionError(f"K={kk + 1} at G={g} launched")
+    return worst, gather_times()
+
+
+def gather_times():
+    """gather_attention timed at the three COMPOSED_SHAPES (K = 128, bf16,
+    every slot valid) with inputs in L2 and with L2 cold, beside the plain
+    version, the bound and SDPA. Like `approx_times`, it also times another
+    checkout's kernel when run from that checkout's root."""
+    timings = {"extra:gather_attention": {}}
+    for si, (model, bh, g, d, _) in enumerate(COMPOSED_SHAPES):
+        def make(seed):
+            return gather_inputs(bh, g, d, 128, torch.bfloat16, seed,
+                                 frac=1.0)
+        first = make(39 + 100 * si)
+        nbytes = sum(t.numel() * t.element_size() for t in first)
+        n_sets = max(COLD_SETS, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [first] + [make(39 + 100 * si + i) for i in range(1, n_sets)]
+        fn = gather_mod.gather_attention
+        warm = cuda_ms(lambda: fn(*first))
+        cold = cold_ms(fn, sets)
+        plain = cuda_ms(lambda: ref.gather_attention_ref(*first))
+        q, k, v, valid = first
+        # the G query rows of a kv-head as SDPA's query sequence
+        qb, mask = q.to(torch.bfloat16), (valid != 0)[:, None, :]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, k, v, attn_mask=mask))
+        t, by, nb = gather_bound(*first)
+        res = {"ms": warm, "ms_l2_cold": cold, "plain_ms": plain,
+               "bound_ms": t, "bound_by": by, "library_ms": lib}
+        line = (f"kernel {warm:.4f} ms with its inputs in L2, {cold:.4f} ms "
+                f"with L2 cold ({n_sets} input sets in turn)")
+        print(f"  time gather_attention {model} (BH={bh} G={g} d={d} K=128 "
+              f"bf16): {line}; plain {plain:.4f} ms, bound {t:.4f} ms ({by}:"
+              f" {nb} B); library call F.scaled_dot_product_attention (bf16 "
+              f"q, boolean mask) {lib:.4f} ms")
+        if si == 0:
+            timings["gather_attention"] = (warm, plain, t, by, lib)
+            timings["extra:gather_attention"]["ms_l2_cold"] = cold
+        else:
+            timings["extra:gather_attention"][model] = res
+    return timings
 
 
 # the served prompt pass: 4 lanes x 32 heads, N = 2048, d = 128, bf16, the
@@ -4115,6 +4359,7 @@ def main():
     print(f"[build] {secs} ({time.monotonic() - t:.1f}s wall)")
     compiled = prompt_kernel_report()
     decode_compiled = decode_kernel_report()
+    composed_compiled = composed_kernel_report()
     # 3. kernels
     worst, timings = {}, {}
     for name, phase in (("ragged_decode", phase_ragged),
@@ -4130,6 +4375,16 @@ def main():
               f"probabilities, {FLIP_ACC_RTOL:.4g} with bf16-rounded ones)")
         worst[name], timings[name] = phase()
         print(f"[kernels] {name} done in {time.monotonic() - t:.1f}s")
+    for name, kernels in (("approx_score", ("approx_score_mma_kernel<16>",)),
+                          ("approx_score_packed",
+                           ("approx_score_kernel<8>",)),
+                          ("gather_attention",
+                           tuple(n for n in SERVED_COMPOSED
+                                 if n.startswith("gather")))):
+        timings["approx_score" if name.startswith("approx") else name][
+            f"extra:{name}"]["compiled"] = {
+                n: composed_compiled[n] for n in kernels
+                if n in composed_compiled}
     timings["flash_prefill"]["extra"].update(compiled)
     for name in ("ragged_decode", "fused_decode"):
         warm, wall = timings[name]["bfloat16 warm"]
@@ -4312,7 +4567,8 @@ def main():
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": launches[name], "max_abs_err": worst[err], "ms": ms,
             "plain_ms": plain, "bound_ms": t_bound, "bound_by": by,
-            "library_ms": lib, **timings[phase].get("extra", {})})
+            "library_ms": lib, **timings[phase].get(
+                f"extra:{name}", timings[phase].get("extra", {}))})
     # the latent route: a kernel of its own behind the same wrapper (its
     # launches, phase 10's, are within flash_prefill's count too)
     lat = timings["flash_prefill"]["extra"]["latent"]

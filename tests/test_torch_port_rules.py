@@ -380,10 +380,20 @@ def test_fused_kernel_matches_plain_version_on_card(g, d, s, k, nb, kv):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("g,d,s", [(1, 128, 1088), (4, 64, 576),
-                                   (12, 128, 1088), (16, 128, 576)])
+                                   (12, 128, 1088), (16, 128, 576),
+                                   # the int8 route's edges: S no multiple
+                                   # of its 32-slot item, G = 16, d = 112
+                                   # and 40 (a padded last k-step, 8-byte
+                                   # loads), 256 and 4096 (k-chunks)
+                                   (1, 128, 1045), (16, 128, 77),
+                                   (16, 64, 1088), (3, 112, 333),
+                                   (5, 40, 130), (16, 256, 259),
+                                   (1, 4096, 64)])
 def test_approx_score_kernels_equal_plain_versions_on_card(g, d, s):
     _needs_card()
     qq, qs, kq, ks, valid = _score_args(16, g, d, s, "cuda")
+    if s > 64:
+        valid[1:, 32:64] = 0          # a tile with no valid slot
     before = dict(approx_mod.LAUNCHES)
     torch.testing.assert_close(approx_mod.approx_score(qq, qs, kq, ks, valid),
                                ref.approx_score_ref(qq, qs, kq, ks, valid),
@@ -402,16 +412,87 @@ def test_approx_score_kernels_equal_plain_versions_on_card(g, d, s):
                                        (4, 64, 128, torch.int8),
                                        (2, 64, 40, torch.float32),
                                        (12, 128, 128, torch.bfloat16),
-                                       (16, 64, 128, torch.int8)])
+                                       (16, 64, 128, torch.int8),
+                                       # K no multiple of a warp step or of
+                                       # the 256-row staging loop; d = 112;
+                                       # rows past the shared-memory stage;
+                                       # element-wise rows (int8 d = 40)
+                                       (16, 128, 129, torch.bfloat16),
+                                       (3, 112, 300, torch.int8),
+                                       (1, 112, 129, torch.bfloat16),
+                                       (12, 64, 257, torch.bfloat16),
+                                       (1, 128, 1024, torch.float32),
+                                       (16, 128, 700, torch.bfloat16),
+                                       (2, 40, 130, torch.int8)])
 def test_gather_attention_kernel_matches_plain_version_on_card(g, d, kk, kv):
     _needs_card()
     args = _gather_args(16, g, d, kk, kv, "cuda")
+    args[3][2] = 0
+    args[3][2, kk // 2] = 1                    # a row with one valid slot
     before = gather_mod.LAUNCHES["gather_attention"]
     out = gather_mod.gather_attention(*args)
     torch.cuda.synchronize()
     assert gather_mod.LAUNCHES["gather_attention"] == before + 1
     torch.testing.assert_close(out, ref.gather_attention_ref(*args), rtol=0,
                                atol=1e-4)
+    assert torch.equal(out, gather_mod.gather_attention(*args))
+
+
+def _misaligned(t, offset):
+    """A contiguous copy of t starting `offset` bytes past 256-byte
+    alignment."""
+    n = t.numel() * t.element_size()
+    buf = torch.empty(n + 256, dtype=torch.uint8, device=t.device)
+    out = buf[offset:offset + n].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+def test_composed_kernels_take_misaligned_rows_on_card():
+    """approx_score's int8 route on a mirror 4- but not 8-byte aligned (its
+    4-byte loads) bit for bit, and gather_attention on K 8- but not 16-byte
+    aligned (its element-wise route) within 1e-4, both bit-equal across
+    two launches."""
+    _needs_card()
+    qq, qs, kq, ks, valid = _score_args(8, 2, 128, 200, "cuda")
+    kq = _misaligned(kq, 4)
+    got = approx_mod.approx_score(qq, qs, kq, ks, valid)
+    torch.testing.assert_close(got, ref.approx_score_ref(qq, qs, kq, ks,
+                                                         valid),
+                               rtol=0, atol=0)
+    assert torch.equal(got, approx_mod.approx_score(qq, qs, kq, ks, valid))
+    q, k, v, valid = _gather_args(8, 4, 128, 128, torch.bfloat16, "cuda")
+    k = _misaligned(k, 8)
+    out = gather_mod.gather_attention(q, k, v, valid)
+    torch.testing.assert_close(out, ref.gather_attention_ref(q, k, v, valid),
+                               rtol=0, atol=1e-4)
+    assert torch.equal(out, gather_mod.gather_attention(q, k, v, valid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 16])
+def test_gather_attention_accepts_the_largest_k_it_took_before_on_card(g):
+    """The kernel before this design took any K whose [G][d] f32 query and
+    [G][K] f32 logits (and 32 bytes) fit in the shared memory one block may
+    opt into. That largest K still launches and matches the plain version;
+    one more is refused before any launch."""
+    _needs_card()
+    d = 128
+    props = torch.cuda.get_device_properties(0)
+    limit = int(getattr(props, "shared_memory_per_block_optin", 232448))
+    kk = (limit - 4 * (g * d + 8)) // (4 * g)       # 4 (G d + G K + 8) <= limit
+    args = _gather_args(3, g, d, kk, torch.bfloat16, "cuda")
+    before = gather_mod.LAUNCHES["gather_attention"]
+    out = gather_mod.gather_attention(*args)
+    torch.cuda.synchronize()
+    assert gather_mod.LAUNCHES["gather_attention"] == before + 1
+    torch.testing.assert_close(out, ref.gather_attention_ref(*args), rtol=0,
+                               atol=1e-4)
+    more = _gather_args(3, g, d, kk + 1, torch.bfloat16, "cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        gather_mod.gather_attention(*more)
+    assert gather_mod.LAUNCHES["gather_attention"] == before + 1
 
 
 @pytest.mark.gpu
