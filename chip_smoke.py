@@ -977,12 +977,10 @@ COMPOSED_SHAPES = (("longchat-7b", 128, 1, 128, MAIN_FILLS),
 def composed_kernel_name(text):
     """The demangled name of an approx_score or gather_attention kernel in
     a mangled one, or None."""
-    m = re.search(r"approx_score_mma_kernelILi(\d+)E", text)
+    m = re.search(r"approx_score_mma_kernelILi(\d+)ELb([01])E", text)
     if m:
-        return f"approx_score_mma_kernel<{m.group(1)}>"
-    m = re.search(r"approx_score_kernelILi(\d+)E", text)
-    if m:
-        return f"approx_score_kernel<{m.group(1)}>"
+        return (f"approx_score_mma_kernel<{m.group(1)}, "
+                f"{'true' if m.group(2) == '1' else 'false'}>")
     m = re.search(r"gather_attention_kernelI(f|a|13__nv_bfloat16)Lb([01])E"
                   r"Li(\d+)E", text)
     if m:
@@ -993,8 +991,8 @@ def composed_kernel_name(text):
 
 # what phase 5's three-pass step launches (bf16 K/V, and f32 ones for an
 # int8 cache), and the timed G = 4 and 12 shapes
-SERVED_COMPOSED = ("approx_score_mma_kernel<16>",
-                   "approx_score_kernel<8>",
+SERVED_COMPOSED = ("approx_score_mma_kernel<16, false>",
+                   "approx_score_mma_kernel<16, true>",
                    "gather_attention_kernel<bf16, true, 1>",
                    "gather_attention_kernel<float, true, 1>",
                    "gather_attention_kernel<bf16, true, 4>")
@@ -1034,14 +1032,17 @@ def misaligned(t, offset):
     return out
 
 
-def approx_check(name, qq, qs, kq, ks, valid):
+def approx_check(name, qq, qs, kq, ks, valid, offset=0):
     """Both routes bit for bit against their plain versions, and two
     launches of each bit-equal (the int8 route's codes clamped into the
-    packed route's [-8, 7])."""
+    packed route's [-8, 7]); offset: both mirrors start that many bytes
+    past a 256-byte boundary."""
+    packed = quant.pack_int4(torch.clamp(kq, -8, 7))
+    if offset:
+        kq, packed = misaligned(kq, offset), misaligned(packed, offset)
     got = approx_mod.approx_score(qq, qs, kq, ks, valid)
     again = approx_mod.approx_score(qq, qs, kq, ks, valid)
     want = ref.approx_score_ref(qq, qs, kq, ks, valid)
-    packed = quant.pack_int4(torch.clamp(kq, -8, 7))
     got4 = approx_mod.approx_score_packed(qq, qs, packed, ks, valid)
     again4 = approx_mod.approx_score_packed(qq, qs, packed, ks, valid)
     want4 = ref.approx_score_packed_ref(qq, qs, packed, ks, valid)
@@ -1053,15 +1054,29 @@ def approx_check(name, qq, qs, kq, ks, valid):
     assert same and same4 and twice, name
 
 
-# approx_score's edges: (name, BH, G, d, S); S is no multiple of the
-# 32-slot item, and every row gets holes and an empty 32-slot tile
-APPROX_EDGES = (("S=1045 G=1 d=128", 6, 1, 128, 1045),
-                ("S=77 G=16 d=128", 5, 16, 128, 77),
-                ("S=1088 G=16 d=64", 4, 16, 64, 1088),
-                ("S=333 G=3 d=112", 7, 3, 112, 333),
-                ("S=130 G=5 d=40 (8-byte loads)", 3, 5, 40, 130),
-                ("S=259 G=16 d=256 (two k-chunks)", 3, 16, 256, 259),
-                ("S=64 G=1 d=4096 (32 k-chunks)", 2, 1, 4096, 64))
+# approx_score's edges: (name, BH, G, d, S, mirror offset, extreme); S is
+# no multiple of the 32-slot item, and every row gets holes and an empty
+# 32-slot tile. Load widths (int8 / packed rows of d / d/2 bytes): 16 / 16
+# at d = 128, 64 and 256, 16 / 8 at d = 112, 8 / 4 at d = 40, and what a
+# mirror's offset from 16-byte alignment leaves. extreme: every q at -128
+# or 127 and every code at -8 or 7, with slots where |Σ| = 128·8·4096 =
+# 2^22, the packed route's largest sum (16·Σ = 2^26 in its accumulator)
+APPROX_EDGES = (("S=1045 G=1 d=128", 6, 1, 128, 1045, 0, False),
+                ("S=77 G=16 d=128", 5, 16, 128, 77, 0, False),
+                ("S=1088 G=16 d=64", 4, 16, 64, 1088, 0, False),
+                ("S=333 G=3 d=112 (packed 8-byte loads)", 7, 3, 112, 333,
+                 0, False),
+                ("S=130 G=5 d=40 (8-byte loads, packed 4)", 3, 5, 40, 130,
+                 0, False),
+                ("S=259 G=16 d=256 (two k-chunks)", 3, 16, 256, 259, 0,
+                 False),
+                ("S=64 G=1 d=4096 (32 k-chunks)", 2, 1, 4096, 64, 0, False),
+                ("S=64 G=1 d=4096, codes at the extremes", 2, 1, 4096, 64,
+                 0, True),
+                ("S=200 G=2 d=128, mirrors 8- but not 16-byte aligned "
+                 "(8-byte loads)", 4, 2, 128, 200, 8, False),
+                ("S=200 G=2 d=128, mirrors 4- but not 8-byte aligned "
+                 "(4-byte loads)", 4, 2, 128, 200, 4, False))
 
 
 def phase_approx():
@@ -1075,17 +1090,19 @@ def phase_approx():
         fills = mixed_fills(bh, s, 128, ci)
         approx_check(f"{name} G={g} d={d}",
                      *score_inputs(bh, g, d, s, fills, 20 + ci))
-    for ci, (name, bh, g, d, s) in enumerate(APPROX_EDGES):
+    for ci, (name, bh, g, d, s, offset, extreme) in enumerate(
+            APPROX_EDGES):
         fills = ([s, s - 13, s // 2, 0] * bh)[:bh]   # 0: an empty row
         qq, qs, kq, ks, valid = score_inputs(bh, g, d, s, fills, 40 + ci,
                                              holes=0.3)
         if s > 64:
             valid[:, 32:64] = 0        # a tile with no valid slot
-        approx_check(f"edge {name}", qq, qs, kq, ks, valid)
-    qq, qs, kq, ks, valid = score_inputs(4, 2, 128, 200, [200] * 4, 49,
-                                         holes=0.3)
-    approx_check("edge mirror 4- but not 8-byte aligned (4-byte loads)",
-                 qq, qs, misaligned(kq, 4), ks, valid)
+        if extreme:
+            qq = torch.where(qq < 0, -128, 127).to(torch.int8)
+            kq = torch.where(kq < 0, -8, 7).to(torch.int8)
+            qq[0] = -128               # row 0: Σ = 2^22 at its first slots
+            kq[0, :s // 2] = -8
+        approx_check(f"edge {name}", qq, qs, kq, ks, valid, offset)
     return 0.0, approx_times()
 
 
@@ -4375,9 +4392,10 @@ def main():
               f"probabilities, {FLIP_ACC_RTOL:.4g} with bf16-rounded ones)")
         worst[name], timings[name] = phase()
         print(f"[kernels] {name} done in {time.monotonic() - t:.1f}s")
-    for name, kernels in (("approx_score", ("approx_score_mma_kernel<16>",)),
+    for name, kernels in (("approx_score",
+                           ("approx_score_mma_kernel<16, false>",)),
                           ("approx_score_packed",
-                           ("approx_score_kernel<8>",)),
+                           ("approx_score_mma_kernel<16, true>",)),
                           ("gather_attention",
                            tuple(n for n in SERVED_COMPOSED
                                  if n.startswith("gather")))):

@@ -3,10 +3,13 @@ or an int4 one packed two codes to a byte, and its wrappers.
 
 Replaces the TPU kernels `approx_score` (`src/repro/kernels/
 approx_score.py:96`) and `approx_score_packed` (`:67`) of the reference
-package; the CUDA source is `csrc/approx_score.cu`, whose header note gives
-the design and the memory bound. Plain PyTorch versions:
+package. The CUDA source is `csrc/approx_score.cu`, whose header note gives
+the design and the memory bound: one tensor-core kernel body serves both
+routes, and only its mirror loader differs (int8 words as they are, or
+packed nibbles expanded in registers). Plain PyTorch versions:
 `kernels/ref.approx_score_ref` and `ref.approx_score_packed_ref`, which
-the kernel equals bit for bit.
+the kernel equals bit for bit (the int8 route up to d = 1040, the packed
+route at every accepted shape; see `ref.approx_score_ref`).
 
   qq        [BH, G, d]    int8     quantized queries
   qscale    [BH, G]       f32
@@ -29,7 +32,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ragged_decode import MAX_GROUPS, check_groups
 
 LAUNCHES = {"approx_score": 0, "approx_score_packed": 0}
-MAX_GROUP_DIM = 4096                  # kMaxGD in the source
+MAX_GROUP_DIM = 4096    # kMaxGD in the source: the accepted G x d, both routes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 

@@ -117,10 +117,11 @@ def check_tensors(kernel: str, spec, dev: torch.device) -> None:
 
 
 def check_aligned(kernel: str, *tensors) -> None:
-    """Raise unless each int8 tensor starts 4-byte aligned (dp4a words)."""
+    """Raise unless each int8 tensor starts 4-byte aligned (the kernel
+    reads it in 4-byte words)."""
     if any(t.data_ptr() % 4 for t in tensors):
         raise ValueError(f"{kernel}: int8 rows must be 4-byte aligned for "
-                         "dp4a")
+                         "the kernel's 4-byte words")
 
 
 def check_copy_aligned(kernel: str, **needs) -> None:

@@ -20,8 +20,11 @@ def approx_score_ref(qq, qscale, kq, kscale, valid):
     """CAM-mode scores, the plain version of `kernels/approx_score.py`:
     qq [BH,G,d] int8, qscale [BH,G], kq [BH,S,d] int8, kscale [BH,S],
     valid [BH,S] → [BH,G,S] f32 = (qq·kq)·qscale·kscale, NEG_INF at invalid
-    slots. The integer contraction is exact in f32 (|Σ| <= 127·127·128 <
-    2^24), so this equals the reference's int32 one bit for bit."""
+    slots. The integer contraction is exact in f32 while every partial sum
+    stays below 2^24: for ±127 codes up to d = 1040 (1040·127² < 2^24,
+    `core/scoring.EXACT_MAX_D`), and for the packed mirror's codes in
+    [-8, 7] at every shape the kernel accepts (|Σ| <= 128·8·4096 = 2^22).
+    There it equals the reference's int32 one bit for bit."""
     raw = torch.matmul(qq.float(), kq.float().transpose(1, 2))
     sc = raw * qscale.float()[..., None] * kscale.float()[:, None, :]
     return torch.where(valid[:, None, :] != 0, sc, torch.full_like(sc, NEG_INF))

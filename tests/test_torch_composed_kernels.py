@@ -10,14 +10,18 @@ CPU in the kernels' own order and held to the reference.
   (the Pallas kernel in interpret mode, K padded to its block; on a row
   with no valid slot that op averages over its padding, a quirk of the
   reference: `tests/test_torch_decode_kernels.py`).
-- `approx_score`'s int8 route (`approx_score_mma_kernel`): the persistent
-  CTAs' even shares of (row, 32-slot tile) items, the warps' turns, the
-  m16n8k32 fragments of PTX's layout with the lanes' 16-, 8- or 4-byte
-  loads and the one permutation of k they share with the query, the zero
-  padding of G to 16 and of d to the 128-byte chunk, the skip of empty
-  tiles and of invalid rows, and the exchange tile's epilogue. Held bit
-  for bit to `repro.kernels.ops.approx_score` (interpret mode), with every
-  (g, s) written exactly once.
+- `approx_score` (`approx_score_mma_kernel<VEC, PACKED>`, one body for
+  both routes): the persistent CTAs' even shares of (row, 32-slot tile)
+  items, the warps' turns and their division-free step, the m16n8k32
+  fragments of PTX's layout with the lanes' 16-, 8- or 4-byte loads and
+  the one permutation of k they share with the query, the zero padding of
+  G to 16 and of d to the 128-code chunk, the skip of empty tiles and of
+  invalid rows, and the exchange tile's epilogue. The packed route's
+  loader expands each nibble word into its even and odd codes times 16
+  (with the query's matching `prmt` words) and the epilogue shifts the
+  sum right by 4. Held bit for bit to `repro.kernels.ops.approx_score` /
+  `approx_score_packed` (interpret mode) and to the plain versions, with
+  every (g, s) written exactly once.
 - The launcher's shared-memory plan for `gather_attention`: whatever the
   wrapper admits (the [G][d] query and [G][K] logits fit), the launch fits.
 """
@@ -32,11 +36,14 @@ import torch  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.approx_score import \
+    approx_score_packed as japprox_packed  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
-WARPS = 8                 # kWarps: 256 threads a CTA
+WARPS = 4                 # approx_score's kWarps: 128 threads a CTA
 NEG_INF = np.float32(-1e30)
 SMEM_OPTIN = 232448       # what one H100 block may opt into
 
@@ -195,7 +202,7 @@ def test_gather_launch_fits_wherever_the_wrapper_admits(g):
 ITEM = 32          # kItemSlots
 NB = ITEM // 8     # n-blocks an item
 CHUNK = 128        # kChunk
-CTAS_PER_SM = 2    # kCtasPerSm
+CTAS_PER_SM = {False: 4, True: 5}   # ctas_per_sm<PACKED>()
 
 
 def _word_offset(vec, m, tig):
@@ -203,9 +210,59 @@ def _word_offset(vec, m, tig):
     return ((m // w) * 4 + tig) * vec + 4 * (m % w)
 
 
+ZERO = np.zeros(4, np.int64)
+
+
 def _words(buf, off, d):
     """The little-endian int8 quadruple at off (zeros at or past d)."""
-    return buf[off:off + 4] if off < d else np.zeros(4, np.int64)
+    return buf[off:off + 4] if off < d else ZERO
+
+
+def _prmt(q0, q1, sel):
+    """__byte_perm(q0, q1, sel): byte i of the result is byte (sel >> 4i)
+    & 7 of the eight bytes q0, q1."""
+    both = np.concatenate([q0, q1])
+    return both[[(sel >> (4 * i)) & 7 for i in range(4)]]
+
+
+def _s8(word):
+    """The four bytes of a u32 as s8 codes, low byte first."""
+    return np.frombuffer(np.uint32(word).tobytes(), np.int8).astype(np.int64)
+
+
+def _a_words(q_row, k0, d, vec, tig, packed):
+    """load_a: the eight A words of one query row (None: a padding row)."""
+    if q_row is None:
+        return [ZERO] * 8
+    if not packed:
+        return [_words(q_row, k0 + _word_offset(vec, m, tig), d)
+                for m in range(8)]
+    out = []
+    for m in range(4):                     # packed word m: codes off..+7
+        off = k0 + 2 * _word_offset(vec, m, tig)
+        q0, q1 = ((q_row[off:off + 4], q_row[off + 4:off + 8]) if off < d
+                  else (ZERO, ZERO))
+        out += [_prmt(q0, q1, 0x6420), _prmt(q0, q1, 0x7531)]
+    return out
+
+
+def _b_words(row, kb, rb, vec, tig, live, packed):
+    """load_b: the eight B words of one slot's mirror row (rb bytes) for
+    the chunk at byte kb; a packed word p becomes (p << 4) & 0xF0F0F0F0
+    (its even codes) and p & 0xF0F0F0F0 (its odd ones), 16·code a byte."""
+    w = vec // 4
+    raw = []
+    for m in range(4 if packed else 8):    # word m % w of load m // w
+        off = kb + ((m // w) * 4 + tig) * vec
+        raw.append(row[off + 4 * (m % w):off + 4 * (m % w) + 4]
+                   if live and off < rb else ZERO)
+    if not packed:
+        return raw
+    out = []
+    for x in raw:
+        p = int.from_bytes(bytes(np.uint8(v & 0xFF) for v in x), "little")
+        out += [_s8((p << 4) & 0xF0F0F0F0), _s8(p & 0xF0F0F0F0)]
+    return out
 
 
 def _mma(c, a_regs, b_regs):
@@ -230,22 +287,30 @@ def _mma(c, a_regs, b_regs):
             c[lane][ci] += dmat[gid if ci < 2 else gid + 8, tig * 2 + (ci & 1)]
 
 
-def _emulate_approx(qq, qscale, kq, kscale, valid, vec, n_sms):
-    """scores [BH, G, S] f32 as approx_score_mma_kernel<vec> computes them
-    on n_sms SMs, and the number of writes of each element."""
+def _emulate_approx(qq, qscale, kq, kscale, valid, vec, n_sms,
+                    packed=False):
+    """scores [BH, G, S] f32 as approx_score_mma_kernel<vec, packed>
+    computes them on n_sms SMs, and the number of writes of each element.
+    packed: kq is [BH, S, d/2] uint8 nibbles (quant.pack_int4)."""
     bh, g, d = qq.shape
     s = kq.shape[1]
+    rb = d // 2 if packed else d           # bytes of a mirror row
     qq64, kq64 = qq.astype(np.int64), kq.astype(np.int64)
     out = np.zeros((bh, g, s), np.float32)
     writes = np.zeros((bh, g, s), np.int64)
     tiles = -(-s // ITEM)
     items = bh * tiles
-    grid = min(CTAS_PER_SM * n_sms, -(-items // WARPS))
+    grid = min(CTAS_PER_SM[packed] * n_sms, -(-items // WARPS))
     for cta in range(grid):
         lo, hi = items * cta // grid, items * (cta + 1) // grid
         for warp in range(WARPS):
-            for it in range(lo + warp, hi, WARPS):
-                row, s0 = it // tiles, (it % tiles) * ITEM
+            row, t = divmod(lo + warp, tiles)
+            for n in range(len(range(lo + warp, hi, WARPS))):
+                if n:                   # the kernel's step: no division
+                    t += WARPS
+                    while t >= tiles:
+                        t, row = t - tiles, row + 1
+                s0 = t * ITEM
                 ok = [s0 + ln < s and valid[row, s0 + ln] != 0
                       for ln in range(ITEM)]
                 if not any(ok):                    # no mirror byte read
@@ -261,24 +326,18 @@ def _emulate_approx(qq, qscale, kq, kscale, valid, vec, n_sms):
                        for _ in range(NB)]
                 for kc in range(-(-d // CHUNK)):
                     k0 = kc * CHUNK
+                    kb = k0 // 2 if packed else k0
                     a_w, b_w = [], []
                     for ln in range(32):
                         gid, tig = ln >> 2, ln & 3
-                        offs = [k0 + _word_offset(vec, m, tig)
-                                for m in range(8)]
-                        ra = [_words(qq64[row, gid], o, d) if gid < g
-                              else np.zeros(4, np.int64) for o in offs]
-                        rb = [_words(qq64[row, gid + 8], o, d) if gid + 8 < g
-                              else np.zeros(4, np.int64) for o in offs]
-                        a_w.append((ra, rb))
-                        bl = []
-                        for nb in range(NB):
-                            slot = s0 + nb * 8 + gid
-                            live = ok[nb * 8 + gid]
-                            bl.append([_words(kq64[row, slot], o, d) if live
-                                       else np.zeros(4, np.int64)
-                                       for o in offs])
-                        b_w.append(bl)
+                        a_w.append(tuple(
+                            _a_words(qq64[row, r] if r < g else None, k0, d,
+                                     vec, tig, packed)
+                            for r in (gid, gid + 8)))
+                        b_w.append([_b_words(   # a slot past S: not live
+                            kq64[row, min(s0 + nb * 8 + gid, s - 1)], kb, rb,
+                            vec, tig, ok[nb * 8 + gid], packed)
+                            for nb in range(NB)])
                     for nb in range(NB):
                         for ks in range(4):
                             a_regs = [[a_w[ln][0][2 * ks], a_w[ln][1][2 * ks],
@@ -306,7 +365,8 @@ def _emulate_approx(qq, qscale, kq, kscale, valid, vec, n_sms):
                             if se >= s:
                                 continue
                             if ok[4 * q4 + i]:
-                                x = np.float32(tile[gg, 4 * q4 + i])
+                                v = tile[gg, 4 * q4 + i]
+                                x = np.float32(v >> 4 if packed else v)
                                 x = np.float32(x * qscale[row, gg])
                                 out[row, gg, se] = np.float32(
                                     x * kscale[row, se])
@@ -330,11 +390,13 @@ def _score_args(bh, g, d, s, seed):
 
 
 # S no multiple of the 32-slot item; d = 112 and 40 pad the last k-step;
-# G = 1 pads 15 rows, G = 16 none; 2 SMs make CTAs walk several items
+# G = 1 pads 15 rows, G = 16 none; 1-2 SMs make CTAs walk several items,
+# and at S = 200 on 1 SM warps step to a second item across rows
 @pytest.mark.parametrize("bh,g,d,s,vec,n_sms", [
     (3, 1, 128, 77, 16, 132), (3, 4, 64, 100, 16, 1),
     (2, 16, 112, 70, 16, 132), (3, 3, 40, 45, 8, 2),
     (2, 12, 128, 33, 4, 1), (2, 2, 256, 40, 16, 132),
+    (4, 2, 64, 200, 16, 1),
 ])
 def test_approx_emulation_equals_reference_bitwise(bh, g, d, s, vec, n_sms):
     args = _score_args(bh, g, d, s, seed=s * g + d)
@@ -356,3 +418,71 @@ def test_approx_k_permutation_covers_every_byte_once():
         offs = sorted(_word_offset(vec, m, tig)
                       for tig in range(4) for m in range(8))
         assert offs == list(range(0, CHUNK, 4)), vec
+
+
+# ---------------------------------------------------------------------------
+# approx_score, packed route: the same body with the nibble loader
+# ---------------------------------------------------------------------------
+
+
+def _packed_args(bh, g, d, s, seed):
+    """_score_args with int4 codes over the full [-8, 7], -8 and 7 in both
+    nibble positions of a byte, and queries at -128 and 127; kq packed."""
+    qq, qs, _, ks, valid = _score_args(bh, g, d, s, seed)
+    rng = np.random.default_rng(seed + 1)
+    codes = rng.integers(-8, 8, (bh, s, d)).astype(np.int8)
+    codes[:, 0, 0::2], codes[:, 0, 1::2] = -8, 7
+    codes[:, 1, 0::2], codes[:, 1, 1::2] = 7, -8
+    valid[:, :2] = 1
+    qq[:, :, 0], qq[:, :, 1] = -128, 127
+    packed = quant.pack_int4(torch.as_tensor(codes)).numpy()
+    return qq, qs, packed, ks, valid
+
+
+# the launcher's load widths: 16 bytes where the d/2-byte row and the
+# pointer allow (d = 128, 64, 256), 8 at d = 112 and on a mirror 8- but not
+# 16-byte aligned, 4 at d = 40 and on one only 4-byte aligned
+@pytest.mark.parametrize("bh,g,d,s,vec,n_sms", [
+    (3, 1, 128, 77, 16, 132), (3, 4, 64, 100, 16, 1),
+    (2, 16, 112, 70, 8, 132), (3, 3, 40, 45, 4, 2),
+    (2, 12, 128, 33, 8, 1), (2, 12, 128, 70, 4, 2),
+    (2, 2, 256, 40, 16, 132), (4, 2, 64, 200, 16, 1),
+])
+def test_approx_packed_emulation_equals_reference_bitwise(bh, g, d, s, vec,
+                                                          n_sms):
+    args = _packed_args(bh, g, d, s, seed=s * g + d)
+    emu, writes = _emulate_approx(*args, vec=vec, n_sms=n_sms, packed=True)
+    assert (writes == 1).all()
+    want = np.asarray(japprox_packed(*map(jnp.asarray, args),
+                                     interpret=True))
+    np.testing.assert_array_equal(emu, want)
+    np.testing.assert_array_equal(emu, np.asarray(
+        jref.approx_score_packed_ref(*map(jnp.asarray, args))))
+    np.testing.assert_array_equal(emu, ref.approx_score_packed_ref(
+        *map(torch.as_tensor, args)).numpy())
+
+
+@pytest.mark.parametrize("vec", [16, 8, 4])
+def test_approx_packed_k_order_covers_every_code_once(vec):
+    """The packed route's k order: over the four lanes of a slot, load_a's
+    eight A words hold every code position of a 128-code chunk once, and
+    load_b puts each mirror code, as 16·code, at the same (lane, word,
+    byte) as its query code."""
+    pos = np.arange(CHUNK)
+    at = {}
+    for tig in range(4):
+        for m, word in enumerate(_a_words(pos, 0, CHUNK, vec, tig, True)):
+            for byte, p in enumerate(word):
+                at[(tig, m, byte)] = p
+    assert sorted(at.values()) == list(range(CHUNK))
+    for p in range(CHUNK):
+        code = (-8, 7, -1, 1)[p % 4]
+        codes = np.zeros(CHUNK, np.int8)
+        codes[p] = code
+        row = quant.pack_int4(torch.as_tensor(codes)).numpy().astype(
+            np.int64)
+        hits = {(tig, m, byte): v for tig in range(4)
+                for m, word in enumerate(
+                    _b_words(row, 0, CHUNK // 2, vec, tig, True, True))
+                for byte, v in enumerate(word) if v}
+        assert hits == {k: 16 * code for k, q in at.items() if q == p}, p

@@ -379,21 +379,27 @@ def test_fused_kernel_matches_plain_version_on_card(g, d, s, k, nb, kv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("g,d,s", [(1, 128, 1088), (4, 64, 576),
-                                   (12, 128, 1088), (16, 128, 576),
-                                   # the int8 route's edges: S no multiple
-                                   # of its 32-slot item, G = 16, d = 112
-                                   # and 40 (a padded last k-step, 8-byte
-                                   # loads), 256 and 4096 (k-chunks)
-                                   (1, 128, 1045), (16, 128, 77),
-                                   (16, 64, 1088), (3, 112, 333),
-                                   (5, 40, 130), (16, 256, 259),
-                                   (1, 4096, 64)])
-def test_approx_score_kernels_equal_plain_versions_on_card(g, d, s):
+@pytest.mark.parametrize("g,d,s,extreme", [
+    (1, 128, 1088, False), (4, 64, 576, False), (12, 128, 1088, False),
+    (16, 128, 576, False),
+    # the tiling's edges: S no multiple of the 32-slot item, G = 16, d =
+    # 112 and 40 (a padded last k-step; 8- and 4-byte packed loads), 256
+    # and 4096 (k-chunks)
+    (1, 128, 1045, False), (16, 128, 77, False), (16, 64, 1088, False),
+    (3, 112, 333, False), (5, 40, 130, False), (16, 256, 259, False),
+    (1, 4096, 64, False),
+    # every q at -128 or 127 and every code at -8 or 7; row 0's slots sum
+    # to |Σ| = 128·8·4096 = 2^22, the packed route's largest (16·Σ = 2^26)
+    (1, 4096, 64, True)])
+def test_approx_score_kernels_equal_plain_versions_on_card(g, d, s, extreme):
     _needs_card()
     qq, qs, kq, ks, valid = _score_args(16, g, d, s, "cuda")
     if s > 64:
         valid[1:, 32:64] = 0          # a tile with no valid slot
+    if extreme:
+        qq = torch.where(qq < 0, -128, 127).to(torch.int8)
+        kq = torch.where(kq < 0, -8, 7).to(torch.int8)
+        qq[0], kq[0] = -128, -8
     before = dict(approx_mod.LAUNCHES)
     torch.testing.assert_close(approx_mod.approx_score(qq, qs, kq, ks, valid),
                                ref.approx_score_ref(qq, qs, kq, ks, valid),
@@ -451,17 +457,26 @@ def _misaligned(t, offset):
 @pytest.mark.gpu
 def test_composed_kernels_take_misaligned_rows_on_card():
     """approx_score's int8 route on a mirror 4- but not 8-byte aligned (its
-    4-byte loads) bit for bit, and gather_attention on K 8- but not 16-byte
-    aligned (its element-wise route) within 1e-4, both bit-equal across
-    two launches."""
+    4-byte loads) and its packed route on mirrors 8- and 4- but not 16-
+    and 8-byte aligned (8- and 4-byte loads) bit for bit, and
+    gather_attention on K 8- but not 16-byte aligned (its element-wise
+    route) within 1e-4, all bit-equal across two launches."""
     _needs_card()
     qq, qs, kq, ks, valid = _score_args(8, 2, 128, 200, "cuda")
+    packed = quant.pack_int4(kq)
     kq = _misaligned(kq, 4)
     got = approx_mod.approx_score(qq, qs, kq, ks, valid)
     torch.testing.assert_close(got, ref.approx_score_ref(qq, qs, kq, ks,
                                                          valid),
                                rtol=0, atol=0)
     assert torch.equal(got, approx_mod.approx_score(qq, qs, kq, ks, valid))
+    for offset in (8, 4):
+        p = _misaligned(packed, offset)
+        got = approx_mod.approx_score_packed(qq, qs, p, ks, valid)
+        torch.testing.assert_close(got, ref.approx_score_packed_ref(
+            qq, qs, p, ks, valid), rtol=0, atol=0)
+        assert torch.equal(got, approx_mod.approx_score_packed(
+            qq, qs, p, ks, valid))
     q, k, v, valid = _gather_args(8, 4, 128, 128, torch.bfloat16, "cuda")
     k = _misaligned(k, 8)
     out = gather_mod.gather_attention(q, k, v, valid)
