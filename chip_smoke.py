@@ -3806,13 +3806,19 @@ WHISPER_TRAIN = (4, 448, 3)        # batch, decoder tokens, steps
 REMAT_LAYERS = 4                   # granite-3-2b's depth for the remat check
 
 
-def bwd_bound(b, hq, hk, n, d, dout_bytes=4):
-    """(bound_ms, bound_by, flop, bytes) of the attention backward: five
-    products over the causal triangle at the bf16 peak; q, k, v, dq, dk,
-    dv in bf16 and dout in f32 (4 bytes) or bf16 (2), each moved once."""
-    flop = 5 * 2 * b * hq * (n * (n + 1) // 2) * d
-    nbytes = (2 * (2 * b * hq * n * d + 4 * b * hk * n * d)
-              + dout_bytes * b * hq * n * d)
+def bwd_bound(b, hq, hk, n, d, dout_bytes=4, dv=None):
+    """(bound_ms, bound_by, flop, bytes) of the attention backward at head
+    dims (d, dv) (dv = d unless given): five products over the causal
+    triangle at the bf16 peak, q.k, dS.k and dS^T.q over d, dout.v and
+    P^T.dout over dv; q, k, dq, dk, dv in bf16, v in bf16 unless it is the
+    view of k's first dv columns (MLA's latent, given dv: read with k),
+    and dout in f32 (4 bytes) or bf16 (2), each moved once."""
+    v_read = dv is None or dv == d      # else V is read with K's rows
+    dv = d if dv is None else dv
+    v_bytes = 2 * b * hk * n * dv if v_read else 0
+    flop = 2 * b * hq * (n * (n + 1) // 2) * (3 * d + 2 * dv)
+    nbytes = (2 * (2 * b * hq * n * d + 2 * b * hk * n * d + b * hk * n * dv)
+              + v_bytes + dout_bytes * b * hq * n * dv)
     t, by = bound(nbytes, bf16_flops=flop)
     return t, by, flop, nbytes
 
@@ -3820,12 +3826,19 @@ def bwd_bound(b, hq, hk, n, d, dout_bytes=4):
 def bwd_kernel_name(text):
     """`bwd_dq_tc_kernel<64, bf16 dout>` for a mangled backward kernel name
     (the bf16 route's template arguments: head dim, dout split from f32;
-    the f32 route's: float, head dim), or None."""
+    the latent route's: dout split from f32; the f32 route's: float, head
+    dim), or None."""
     m = re.search(r"(bwd_dq_tc_kernel|bwd_dkv_tc_kernel)ILi(\d+)ELb([01])E",
                   text)
     if m:
         return (f"{m.group(1)}<{m.group(2)}, "
                 f"{'f32' if m.group(3) == '1' else 'bf16'} dout>")
+    m = re.search(r"(bwd_dq_latent_kernel|bwd_dkv_latent_kernel)ILb([01])E",
+                  text)
+    if m:
+        return f"{m.group(1)}<{'f32' if m.group(2) == '1' else 'bf16'} dout>"
+    if "sum_slices_kernel" in text:
+        return "sum_slices_kernel"
     m = re.search(r"(bwd_dq_kernel|bwd_dkv_kernel)IfLi(\d+)E", text)
     return f"{m.group(1)}<float, {m.group(2)}>" if m else None
 
@@ -3834,8 +3847,9 @@ def bwd_kernel_report():
     """Registers, stack and local memory (spills) and HGMMA (warpgroup
     product) instructions of every backward kernel instantiation, read by
     cuobjdump from the built library and printed; fails unless every bf16
-    (wgmma) instantiation holds HGMMA and spills nothing. Returns the
-    served head dims' numbers."""
+    (wgmma) instantiation, the latent route's too, holds HGMMA and spills
+    nothing, and the latent route's slice sum spills nothing. Returns the
+    served head dims' numbers and the latent route's."""
     tool = cuobjdump()
     if tool is None:
         print("[train] cuobjdump not found: the backward kernels' registers, "
@@ -3853,6 +3867,17 @@ def bwd_kernel_report():
             name = bwd_kernel_name(line)
         elif name and "HGMMA" in line:
             report[name]["hgmma"] += 1
+    lat = {n: r for n, r in report.items() if "latent" in n
+           or n == "sum_slices_kernel"}
+    for n in sorted(lat):
+        r = report.pop(n)
+        print(f"[mla-train] {n}: {r['registers']} registers, "
+              f"{r['stack_bytes']} B stack, {r['local_bytes']} B local "
+              f"(spills), {r['hgmma']} HGMMA instructions in its SASS "
+              "(cuobjdump)")
+        assert r["stack_bytes"] == r["local_bytes"] == 0, (n, "spills")
+        assert n == "sum_slices_kernel" or r["hgmma"] > 0, (n, "no wgmma")
+    assert len(lat) == 5, sorted(lat)
     tc = {n: r for n, r in report.items() if "_tc_" in n}
     served = sorted(n for n in tc if any(f"<{d}," in n
                                          for d in (64, 112, 128)))
@@ -3876,7 +3901,7 @@ def bwd_kernel_report():
     for n, r in tc.items():
         assert r["hgmma"] > 0, (n, "no wgmma")
         assert r["stack_bytes"] == r["local_bytes"] == 0, (n, "spills")
-    return {"compiled": {n: tc[n] for n in served}}
+    return {"compiled": {n: tc[n] for n in served}, "latent_compiled": lat}
 
 
 def bwd_check(model, hq, hk, d, seed, b=4, n=2048, dtype=torch.bfloat16,
@@ -3957,7 +3982,7 @@ def plain_bwd_one_chunk(q, k, v, dout, scale, tc_dp):
     g = hq // hk
     qg = q.to(k.dtype).float().reshape(b, hk, g * n, d)
     kf, vf = k.float(), v.float()
-    do = dout.float().reshape(b, hk, g * n, d)
+    do = dout.float().reshape(b, hk, g * n, v.shape[-1])
     row = torch.arange(n, device=q.device)
     logits = torch.matmul(qg, kf.transpose(-1, -2)).reshape(b, hk, g, n, n)
     logits = torch.where(row[:, None] >= row[None, :], logits * scale,
@@ -4178,13 +4203,16 @@ def train_step_profile(model, opt_cfg, batch):
                if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     bwd = sum(dev_us(e) for e in kernels if "bwd_dq" in e.key
-              or "bwd_dkv" in e.key) / 1e3
+              or "bwd_dkv" in e.key or "sum_slices" in e.key) / 1e3
     fwd = sum(dev_us(e) for e in kernels if "flash_prefill_" in e.key
               and "bwd" not in e.key or "fold_columns" in e.key) / 1e3
     del state
+    top = sorted(((e.key, dev_us(e) / 1e3) for e in kernels),
+                 key=lambda x: -x[1])[:5]
     return {"wall_s": wall, "loss": float(m["loss"]), "peak": peak,
             "launches": counts, "busy_ms": busy, "bwd_ms": bwd,
-            "fwd_ms": fwd, "n_kernels": sum(e.count for e in kernels)}
+            "fwd_ms": fwd, "n_kernels": sum(e.count for e in kernels),
+            "top": top}
 
 
 def phase_train(smi):
@@ -4192,10 +4220,12 @@ def phase_train(smi):
     the training path's five shapes, then granite-3-2b (full width and
     depth) through the training CLI's functions, uninterrupted and with a
     failure and a resume, the kernel on its own inputs, a profiled step at
-    4 x 2048 under remat, and whisper-base (full) for a few steps. Returns (the backward kernel's
-    row, the launches of the main-path runs)."""
+    4 x 2048 under remat, and whisper-base (full) for a few steps. Returns
+    (the backward kernel's row, the launches of the main-path runs, the
+    latent route's registers, spills and HGMMA for phase 14's row)."""
     t_all = time.monotonic()
     compiled = bwd_kernel_report()
+    latent_compiled = compiled.pop("latent_compiled")
     checks = {}
     for i, (name, hq, hk, d) in enumerate(BWD_SHAPES):
         # the model's cotangent is bf16 (its out is cast to bf16); an f32
@@ -4351,6 +4381,303 @@ def phase_train(smi):
                                 "kernel_ms": prof["busy_ms"],
                                 "bwd_ms": prof["bwd_ms"],
                                 "peak_gib": prof["peak"] / 2 ** 30}}
+    return row, launches, latent_compiled
+
+# ---------------------------------------------------------------------------
+# phase 14: MLA training
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b cut to its three mla_dense blocks (dense_first_k) and the
+# MTP head, 4.29e9 parameters: one mla_moe block's 256 experts alone hold
+# 11.3e9, about 68 GB with their bf16 gradients and int8 moments, which no
+# single card holds beside the rest
+MLA_TRAIN_LAYERS = 3
+MLA_TRAIN_STEPS = 5
+MLA_PROFILE_BATCH = 2              # x PROMPT_LEN tokens, remat 'nothing'
+LATENT_DV = flash_mod.LATENT[1]
+
+
+def latent_bwd_inputs(b, n, seed, dout_dtype):
+    """q [B, 128, N, 576] and the latent u [B, 1, N, 576] bf16, v the view of
+    its first 512 columns, and dout [B, 128, N, 512] in `dout_dtype`."""
+    q, u, v = latent_inputs(b, n, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn((b, LATENT_HEADS, n, LATENT_DV), generator=gen,
+                       device="cuda").to(dout_dtype)
+    return q, u, v, dout
+
+
+def limit_reading(x, w, extra=None):
+    """(worst |err| / limit, elements over it) with the limit BWD_TOL x
+    (|w| + max|w| of its row), plus `extra` where given."""
+    a = w.float().abs()
+    lim = BWD_TOL * (a + a.amax(-1, True))
+    if extra is not None:
+        lim = lim + extra
+    diff = (x.float() - w.float()).abs()
+    return (float((diff / lim.clamp_min(1e-30)).max()),
+            int((diff > lim).sum()))
+
+
+def latent_bwd_check(b, seed, dout_dtype, timed):
+    """The latent route (q [B, 128, 2048, 576] over one latent, scale
+    1/sqrt(192)) against its plain version: dk and dv to BWD_TOL x (|ref|
+    + max|ref| of the row), dq to that plus the move one dP element of its
+    row rounding to its other bf16 neighbour makes
+    (`ref.flash_prefill_bwd_dq_flip`: where dP - D cancels over a row, as
+    on a few early rows of 512 q-heads, another summation order's flip
+    moves dq by up to the row's whole size), the elements over the bare
+    limit printed; two launches bit-equal. With `timed`, the kernel's
+    CUDA-event time beside the bound and the plain version's."""
+    n = PROMPT_LEN
+    q, u, v, dout = latent_bwd_inputs(b, n, seed, dout_dtype)
+    got = bwd_mod.flash_prefill_bwd(q, u, v, dout, LATENT_SCALE)
+    again = bwd_mod.flash_prefill_bwd(q, u, v, dout, LATENT_SCALE)
+    want = ref.flash_prefill_bwd_ref(q, u, v, dout, scale=LATENT_SCALE)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    flip = ref.flash_prefill_bwd_dq_flip(q, u, v, dout, scale=LATENT_SCALE)
+    errs = {}
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        bare, over = limit_reading(x, w)
+        held = limit_reading(x, w, flip)[0] if name == "dq" else bare
+        errs[name] = {"max_abs_err": float((x.float() - w.float()).abs()
+                                           .max()),
+                      "max_ref": float(w.float().abs().max()),
+                      "reading": held, "bare_reading": bare,
+                      "over_bare": over}
+    del got, want, flip
+    tag = f"B={b} dout {str(dout_dtype)[6:]}"
+    out = {"errors": errs, "bit_equal": same}
+    line = ""
+    if timed:
+        t, by, flop, nbytes = bwd_bound(b, LATENT_HEADS, 1, n,
+                                        flash_mod.LATENT[0],
+                                        dout.element_size(), dv=LATENT_DV)
+        ms = cuda_ms(lambda: bwd_mod.flash_prefill_bwd(q, u, v, dout,
+                                                       LATENT_SCALE), 5, 1)
+        plain = long_ms(lambda: ref.flash_prefill_bwd_ref(
+            q, u, v, dout, scale=LATENT_SCALE), 2)
+        out.update(ms=ms, plain_ms=plain, bound_ms=t, bound_by=by, flop=flop,
+                   bytes=nbytes)
+        line = (f"; kernel {ms:.4f} ms, bound {t:.4f} ms ({by}: {flop:.4g} "
+                f"flop, {nbytes} B), kernel / bound {ms / t:.1f}x, plain "
+                f"{plain:.4f} ms")
+    print(f"[mla-train] flash_prefill_bwd latent route ({tag}, Hq "
+          f"{LATENT_HEADS}, N {n}): max|err|/max|grad| "
+          + ", ".join(f"{k} {e['max_abs_err']:.3g}/{e['max_ref']:.3g}"
+                      for k, e in errs.items())
+          + "; worst |err| / limit " + ", ".join(
+              f"{k} {e['reading']:.3g}" for k, e in errs.items())
+          + f" (dq: limit plus one dP rounding flip of its row); against "
+          f"the bare limit {BWD_TOL:.4g} x (|grad| + max|grad| of its row): "
+          + ", ".join(f"{k} {e['bare_reading']:.3g} ({e['over_bare']} "
+                      "elements over)" for k, e in errs.items())
+          + f"; two launches bit-equal: {same}" + line)
+    for name, e in errs.items():
+        assert e["reading"] <= 1.0, (tag, name, e)
+    assert same, (tag, "two launches differ")
+    del q, u, v, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def latent_sdpa_bwd_ms():
+    """The backward alone of the F.scaled_dot_product_attention(is_causal)
+    call that times the latent forward (K and V expanded over the 128
+    heads, bf16 dout), at B = 4; at B = 2 where no backend takes B = 4.
+    Returns (ms, B)."""
+    n = PROMPT_LEN
+    for b in (LANES, 2):
+        q, u, v = latent_inputs(b, n, SEED + 150)
+        try:
+            qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (
+                q, u.expand(b, LATENT_HEADS, n, u.shape[-1]),
+                v.expand(b, LATENT_HEADS, n, LATENT_DV)))
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                               scale=LATENT_SCALE)
+            do = torch.randn_like(o)
+            ms = cuda_ms(lambda: torch.autograd.grad(
+                o, (qg, kg, vg), do, retain_graph=True), 3, 1)
+            return ms, b
+        except torch.OutOfMemoryError:
+            print(f"[mla-train] SDPA backward at B={b}: out of memory")
+        finally:
+            del q, u, v
+            gc.collect()
+            torch.cuda.empty_cache()
+    return None, None
+
+
+def phase_mla_train(smi, compiled):
+    """Phase 14: the latent route of the attention backward against its
+    plain version and timed, then deepseek-v3-671b at full width cut to its
+    three mla_dense blocks and the MTP head (MLA_TRAIN_LAYERS) through the
+    training CLI's functions: MLA_TRAIN_STEPS steps at TRAIN_BATCH x
+    TRAIN_SEQ, int8 moments (4 flash_prefill and 4 flash_prefill_bwd
+    launches a step, finite loss and mtp_loss), the kernel on layer 0's
+    own inputs of the last step (printed), and one step at
+    MLA_PROFILE_BATCH x PROMPT_LEN under remat, profiled. Returns (the
+    latent route's kernel row, the launches of the main-path runs)."""
+    t_all = time.monotonic()
+    checks = {}
+    for b in (2, LANES):
+        for dt in (torch.float32, torch.bfloat16):
+            checks[(b, dt)] = latent_bwd_check(b, SEED + 140 + b, dt,
+                                               timed=b == LANES)
+    sdpa_ms, sdpa_b = latent_sdpa_bwd_ms()
+    print(f"[mla-train] F.scaled_dot_product_attention(is_causal=True, K/V "
+          f"expanded over {LATENT_HEADS} heads, dv {LATENT_DV}) backward "
+          f"alone at B={sdpa_b}, N={PROMPT_LEN}: {sdpa_ms} ms  [{smi}]")
+    print(f"[mla-train] kernel checks {time.monotonic() - t_all:.1f}s")
+
+    t = time.monotonic()
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              num_layers=MLA_TRAIN_LAYERS)
+    model = Model(cfg, baselines.unicaim(heavy=min(448, TRAIN_SEQ),
+                                         reserve=64, select_k=64),
+                  device="cuda")
+    opt_q = adamw.AdamWConfig(lr=TRAIN_LR, quantized_state=True)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_mod.init_train_state(model, opt_q, SEED)
+    n_params = sum(x.numel() for x in _leaves(state.params))
+    step_fn = train_mod.make_train_step(model, opt_q, MLA_TRAIN_STEPS,
+                                        peak_lr=TRAIN_LR)
+    data = train_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    kernel = ops._flash_bwd_kernel
+    own = {}
+
+    def capture(q, k, v, dout, scale=None):
+        out = kernel(q, k, v, dout, scale=scale)
+        # the step's last backward call is layer 0's
+        own.update(args=tuple(x.clone() for x in (q, k, v, dout)),
+                   out=out, scale=scale)
+        return out
+
+    metrics = []
+    torch.cuda.synchronize()
+    reset_launches()
+    PLAIN_ON_CARD.update(dict.fromkeys(PLAIN_ON_CARD, 0))
+    t0 = time.monotonic()
+    for i in range(MLA_TRAIN_STEPS):
+        if i == MLA_TRAIN_STEPS - 1:
+            ops._flash_bwd_kernel = capture
+        try:
+            state, m = step_fn(state, data(i))
+        finally:
+            ops._flash_bwd_kernel = kernel
+        metrics.append({k: float(x) for k, x in m.items()})
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+    blocks = MLA_TRAIN_LAYERS + 1                 # + the MTP head's block
+    assert counts["flash_prefill"] == blocks * MLA_TRAIN_STEPS, counts
+    assert counts["flash_prefill_bwd"] == blocks * MLA_TRAIN_STEPS, counts
+    assert all(math.isfinite(x[k]) for x in metrics
+               for k in ("loss", "mtp_loss")), metrics
+    print(f"[mla-train] deepseek-v3-671b ({MLA_TRAIN_LAYERS} mla_dense "
+          f"blocks of 61 and the MTP head, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads over a latent of {cfg.mla.latent_dim}, {n_params} random "
+          f"bf16 params, int8 moments) {MLA_TRAIN_STEPS} steps at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR}: {wall:.2f}s "
+          f"({wall / MLA_TRAIN_STEPS * 1e3:.1f} ms a step, "
+          f"{MLA_TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall:.0f} "
+          f"tokens/s); loss {[round(x['loss'], 4) for x in metrics]}, "
+          f"mtp_loss {[round(x['mtp_loss'], 4) for x in metrics]}; "
+          f"flash_prefill {counts['flash_prefill']} and flash_prefill_bwd "
+          f"{counts['flash_prefill_bwd']} launches ({blocks} x "
+          f"{MLA_TRAIN_STEPS}); peak {peak / 2 ** 30:.2f} GiB  [{smi}]")
+    launches = {k: counts[k] for k in ("flash_prefill", "flash_prefill_bwd")}
+    del state
+
+    # layer 0's own inputs of the last step: printed, not held (ROADMAP.md
+    # Queue C item 8)
+    held = dict(PLAIN_ON_CARD)
+    q, k, v, dout = own["args"]
+    sc = own["scale"]
+    want = ref.flash_prefill_bwd_ref(q, k, v, dout, scale=sc)
+    tc = plain_bwd_one_chunk(q, k, v, dout, sc, tc_dp=True)
+    own_r = {"kernel": [bwd_reading(x, w) for x, w in zip(own["out"], want)],
+             "plain, dP on the tensor cores": [
+                 bwd_reading(x, w) for x, w in zip(tc, want)]}
+    PLAIN_ON_CARD.update(held)
+    print(f"[mla-train] the latent route on layer 0's own inputs (step "
+          f"{MLA_TRAIN_STEPS - 1}, {TRAIN_BATCH} x {TRAIN_SEQ} rows, dout "
+          f"{str(dout.dtype)[6:]}), worst |err| / limit for dq, dk, dv, all "
+          "rows (rows with a gradient): " + "; ".join(
+              f"{name} " + ", ".join(f"{a:.3g} ({b:.3g})" for a, b in r)
+              for name, r in own_r.items())
+          + " (printed, not held)")
+    del own, q, k, v, dout, want, tc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mla-train] deepseek-v3 runs {time.monotonic() - t:.1f}s")
+
+    # one step at 2 x 2048 tokens, remat, profiled
+    t = time.monotonic()
+    model = Model(cfg, model.prune, device="cuda", remat=True)
+    big = {"tokens": torch.as_tensor(SyntheticSource(
+        cfg.vocab_size, PROMPT_LEN, seed=SEED).batch(0, MLA_PROFILE_BATCH),
+        device="cuda")}
+    prof = train_step_profile(model, opt_q, big)
+    assert prof["launches"]["flash_prefill"] == 2 * MLA_TRAIN_LAYERS + 1, \
+        prof
+    assert prof["launches"]["flash_prefill_bwd"] == blocks, prof
+    for k in ("flash_prefill", "flash_prefill_bwd"):
+        launches[k] += prof["launches"][k]
+    tokens = MLA_PROFILE_BATCH * PROMPT_LEN
+    busy = prof["busy_ms"]
+    share = (lambda x: "not measured" if busy == 0 else f"{x / busy:.1%}")
+    print(f"[mla-train] deepseek-v3 one step at {MLA_PROFILE_BATCH} x "
+          f"{PROMPT_LEN} tokens (int8 moments, remat 'nothing'): "
+          f"{prof['wall_s'] * 1e3:.1f} ms wall, {tokens / prof['wall_s']:.0f} "
+          f"tokens/s, loss {prof['loss']:.4f}, peak "
+          f"{prof['peak'] / 2 ** 30:.2f} GiB; launches flash_prefill "
+          f"{prof['launches']['flash_prefill']} ({MLA_TRAIN_LAYERS} x 2: "
+          f"remat, + the MTP block), flash_prefill_bwd "
+          f"{prof['launches']['flash_prefill_bwd']}; profiled: {busy:.1f} ms "
+          f"of kernel time in {prof['n_kernels']} kernels, the latent "
+          f"backward {prof['bwd_ms']:.1f} ms ({share(prof['bwd_ms'])}), the "
+          f"latent forward {prof['fwd_ms']:.1f} ms ({share(prof['fwd_ms'])})"
+          "; the five kernels with the most time: " + "; ".join(
+              f"{name[:80]} {ms:.1f} ms" for name, ms in prof["top"])
+          + f"  [{smi}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mla-train] 2 x 2048 step {time.monotonic() - t:.1f}s")
+    print(f"[mla-train] phase 14 {time.monotonic() - t_all:.1f}s")
+
+    f32, b16 = checks[(LANES, torch.float32)], checks[(LANES, torch.bfloat16)]
+    row = {
+        "name": "flash_prefill_bwd_latent", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+        "replaces": ("none: the reference differentiates plain XLA "
+                     "(src/repro/models/mla.py:114 mla_train, "
+                     "src/repro/core/attention.py:490 under "
+                     "jax.value_and_grad at src/repro/launch/train.py:95)"),
+        "launches": launches["flash_prefill_bwd"],
+        "max_abs_err": max(e["max_abs_err"] for c in checks.values()
+                           for e in c["errors"].values()),
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": sdpa_ms, "library_batch": sdpa_b,
+        "bf16_dout": {k: b16[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "readings": {f"B{b} {str(dt)[6:]}": {
+            **{k: e["reading"] for k, e in c["errors"].items()},
+            "over_bare": {k: e["over_bare"] for k, e in c["errors"].items()}}
+            for (b, dt), c in checks.items()},
+        "own_inputs_worst_reading": own_r,
+        "compiled": compiled,
+        "deepseek_step_2x2048": {"wall_ms": prof["wall_s"] * 1e3,
+                                 "kernel_ms": busy,
+                                 "bwd_ms": prof["bwd_ms"],
+                                 "fwd_ms": prof["fwd_ms"],
+                                 "peak_gib": prof["peak"] / 2 ** 30}}
     return row, launches
 
 
@@ -4554,11 +4881,23 @@ def main():
     print(f"[train] before phase 13: {held / 2 ** 30:.3f} GiB still "
           f"allocated on the card (phase 12's model freed)")
     assert held < 1 << 30, held
-    bwd_row, train_launches = phase_train(smi)
+    bwd_row, train_launches, latent_compiled = phase_train(smi)
     for name, n in train_launches.items():
         launches[name] += n
     timings["flash_prefill"]["extra"]["train_launches"] = train_launches[
         "flash_prefill"]
+
+    # 14. MLA training: the latent route of the attention backward and
+    # deepseek-v3-671b's dense blocks and MTP head
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[mla-train] before phase 14: {held / 2 ** 30:.3f} GiB still "
+          f"allocated on the card (phase 13's models freed)")
+    assert held < 1 << 30, held
+    lat_bwd_row, mla_train_launches = phase_mla_train(smi, latent_compiled)
+    for name, n in mla_train_launches.items():
+        launches[name] += n
     assert all(launches.values()), launches
 
     rows = [  # name, source, TPU entry it replaces, timing key, error key
@@ -4600,6 +4939,7 @@ def main():
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
         "library_ms": b4["library_ms"]})
     table.append(bwd_row)
+    table.append(lat_bwd_row)
     print(json.dumps({"kernels": table}))
     print(f"[done] {time.monotonic() - t_all:.1f}s total")
     print(smi)

@@ -121,6 +121,9 @@
 // peak is 67 TF/s; the bf16 route eleven on the tensor cores (dS.k and
 // dS^T.q twice, hi and lo), fifteen with an f32 dout (dout.v and P^T.dout
 // twice as well).
+//
+// MLA's latent shape (d = 576, dv = 512, one latent as K and V) takes a
+// third route, bf16 only, whose note opens its section below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1083,6 +1086,725 @@ int launch_d(int route, int d, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// latent route: MLA's absorbed attention (d = 576 over one latent "kv head",
+// V its first 512 columns), bf16, warpgroup products (wgmma)
+// ---------------------------------------------------------------------------
+//
+// The backward of the prompt attention that `mla_train` (models/mla.py)
+// runs, `ops.causal_attention(q_full, u[:, None], u[:, None, :, :512])`:
+// q [B, Hq, N, 576] (deepseek-v3: Hq = 128) over the latent u [B, 1, N,
+// 576] as K, V the view of its first 512 columns, scale 1/sqrt(192) passed
+// in; dout [B, Hq, N, 512] f32 (the model's: its ctx stays f32 up to the
+// W_uv product) or bf16. The function and the rounding points are the
+// GQA routes' above (`ref.flash_prefill_bwd_ref`), with dv = 512 != d.
+// Like them it replaces no TPU kernel: the reference differentiates its
+// MLA attention (src/repro/models/mla.py:114, `chunked_causal_attention`
+// at the latent shape) with plain XLA autodiff, and the port's forward
+// there is flash_prefill.cu's latent route, which has no gradient.
+//
+// Bound: the five products over the causal triangle, q.k, dS.k and
+// dS^T.q over 576 and dout.v and P^T.dout over 512: B Hq N (N + 1) (3 576
+// + 2 512) flop, 5.913e12 at B = 4, N = 2048, 5.98 ms at the 989 TF/s bf16
+// peak (the bytes, 4.59 GB with an f32 dout, take 1.37 ms).
+//
+// Why the GQA design does not stretch: its dq kernel keeps dq for 64 rows
+// in one warpgroup's registers, 288 a thread at d = 576 (the cap is 255);
+// its dk/dv kernel keeps dk and dv of 64 keys, 64 x 1088 f32 (278 KB); and
+// a 64-row q tile (72 KB) beside an f32 dout's hi and lo halves (128 KB)
+// leaves 26 KB of the 227 KB a CTA may have. So:
+// - dq kernel (bwd_dq_latent_kernel): one CTA of two warpgroups per
+//   (q-head, 64-row q-block), Q and dout resident, 16-key latent tiles
+//   (18 KB) streamed, one stage with an f32 dout (the shared memory is
+//   then full), two with a bf16 one. Warpgroup 0 makes S = Q K^T and the
+//   online statistics, warpgroup 1 dP = dout V^T, both as m64n16 products
+//   from shared memory; dP goes to warpgroup 0 and dS (bf16 hi and lo)
+//   back through 6 KB of shared memory in the accumulators' fragment
+//   order; each warpgroup adds dS K into its own dq columns (blocks 0-4
+//   and 5-8, 160 and 128 f32 a thread).
+// - dk/dv kernel (bwd_dkv_latent_kernel): one CTA per (64-key block,
+//   slice of up to 16 q-heads, dk or dv), so a CTA holds one of the two
+//   sums split over its two warpgroups, the 64-key latent tile resident
+//   and 16-row q and dout tiles through two stages; warpgroup 0 makes S^T
+//   and P (and dS for dk), warpgroup 1 dP^T for dk. Each slice's sums go
+//   to f32 partials, and sum_slices_kernel adds the slices in order and
+//   rounds to bf16: no atomics, so two launches give the same bits.
+// What holds it back: every logit product is an m64n16 wgmma with both
+// operands in shared memory, so the tensor cores wait on shared-memory
+// reads (2 KB of A for each 16 x 64 x 16 step); the f32 dout's dq kernel
+// has a single latent stage, so each tile's load waits on the last tile's
+// products; warpgroup 1 of a dv CTA idles while warpgroup 0 makes S^T;
+// and the dq kernel makes S and dP twice (two sweeps), the dk CTAs a
+// third time, the dv CTAs S a fourth.
+
+constexpr int kLatD = 576;                // kv_lora + qk_rope: q and K
+constexpr int kLatDV = 512;               // kv_lora: V, dout
+constexpr int kLatNB = kLatD / 64;        // 64-column blocks of q and K: 9
+constexpr int kLatVB = kLatDV / 64;       // of V and dout: 8
+constexpr int kLatThreads = 256;          // two warpgroups
+constexpr int kLatT = 16;                 // keys of a dq tile, q rows of a
+                                          // dk/dv tile
+constexpr int kLat64 = kB * 128;          // a block of a 64-row tile
+constexpr int kLat16 = kLatT * 128;       // a block of a 16-row tile
+constexpr int kLatQ = kLatNB * kLat64;    // 64 rows of q or K: 73,728
+constexpr int kLatDo = kLatVB * kLat64;   // 64 rows of dout: 65,536
+constexpr int kLatQT = kLatNB * kLat16;   // 16 rows of q or K: 18,432
+constexpr int kLatDoT = kLatVB * kLat16;  // 16 rows of dout: 16,384
+constexpr int kLatX = 3 * 128 * 16;       // the warpgroups' exchange: dP,
+                                          // then dS hi and lo (or T(P)),
+                                          // 16 bytes a thread each
+constexpr int kLatWideFirst = 5;          // warpgroup 0's blocks of dq, dk
+constexpr int kLatVFirst = 4;             // and of dv
+
+// The thread's warpgroup (0 or 1), as a value the compiler knows to be the
+// same across the warp, so the warpgroups' products in their branches
+// are not serialised.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(kFull, (int)threadIdx.x >> 7, 0);
+}
+
+// Rows [r0, r0 + R) of a bf16 matrix with rows of D elements (zeros past
+// N) into the tile at shared address dst: D / 64 blocks of R swizzled
+// 128-byte rows, by cp.async (not waited for); all 256 threads.
+template <int D, int R>
+__device__ __forceinline__ void lat_load(uint32_t dst,
+                                         const __nv_bfloat16* src, int r0,
+                                         int N) {
+  constexpr int kCh = D / 8;              // 16-byte chunks a row
+  for (int x = threadIdx.x; x < R * kCh; x += kLatThreads) {
+    const int r = x / kCh, c = x % kCh;
+    const bool ok = r0 + r < N;
+    cp_async16(dst + (c >> 3) * (R * 128) + swz(r, c & 7),
+               src + (ok ? (size_t)(r0 + r) * D + c * 8 : 0), ok);
+  }
+}
+
+// The same rows of an f32 dout (rows of 512), split into hi = bf16(x) at
+// hi and lo = bf16(x - hi) at lo, tiles of that layout, by plain loads
+// and stores.
+template <int R>
+__device__ __forceinline__ void lat_split(unsigned char* hi,
+                                          unsigned char* lo,
+                                          const float* src, int r0, int N) {
+  constexpr int kCh = kLatDV / 8;
+  for (int x = threadIdx.x; x < R * kCh; x += kLatThreads) {
+    const int r = x / kCh, c = x % kCh;
+    uint4 h = make_uint4(0u, 0u, 0u, 0u), l = h;
+    if (r0 + r < N) {
+      const float4* p = reinterpret_cast<const float4*>(
+          src + (size_t)(r0 + r) * kLatDV + c * 8);
+      const float4 a = __ldg(p), b = __ldg(p + 1);
+      split_bf16(a.x, a.y, h.x, l.x);
+      split_bf16(a.z, a.w, h.y, l.y);
+      split_bf16(b.x, b.y, h.z, l.z);
+      split_bf16(b.z, b.w, h.w, l.w);
+    }
+    const uint32_t off = (c >> 3) * (R * 128) + swz(r, c & 7);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// Tiles 0 .. total - 1 through `ring` (kStages > 1), or through one stage:
+// load(i), wait, body(i), and every thread done with the stage.
+template <int kStages, typename Load, typename Body>
+__device__ __forceinline__ void lat_ring(int total, Load load, Body body) {
+  if constexpr (kStages > 1) {
+    ring<kStages>(total, load, body);
+  } else {
+    for (int it = 0; it < total; ++it) {
+      load(it);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+      body(it);
+      __syncthreads();
+    }
+  }
+}
+
+// s (+)= A B^T over KS k-steps of 16 columns, issued for the warpgroup (the
+// caller fences, commits and waits): A the 64-row tile at a, B the 16-row
+// tile at b, both K-major; m64n16 products.
+template <int KS>
+__device__ __forceinline__ void lat_n16(float (&s)[2][4], uint32_t a,
+                                        uint32_t b, bool acc) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_n16(s, gmma_desc(a + (kk >> 2) * kLat64 + off, 16, 1024),
+              gmma_desc(b + (kk >> 2) * kLat16 + off, 16, 1024),
+              acc || kk > 0);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frag(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
+}
+
+// s = A B^T over the 576 dims, waited for: a 64 x 16 tile of logits.
+__device__ __forceinline__ void lat_logits(float (&s)[2][4], uint32_t a,
+                                           uint32_t b) {
+  fence_frag(s);
+  wgmma_fence();
+  lat_n16<kLatNB * 4>(s, a, b, false);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_frag(s);
+}
+
+// dp = T(A B^T) over the 512 dims of V and dout, waited for and rounded to
+// bf16; an f32 dout is its hi half, then its lo half (lo_a bytes past A's
+// address, or lo_b past B's).
+template <bool kSplit>
+__device__ __forceinline__ void lat_dp(float (&dp)[2][4], uint32_t a,
+                                       uint32_t b, uint32_t lo_a,
+                                       uint32_t lo_b) {
+  fence_frag(dp);
+  wgmma_fence();
+  lat_n16<kLatVB * 4>(dp, a, b, false);
+  if constexpr (kSplit) lat_n16<kLatVB * 4>(dp, a + lo_a, b + lo_b, true);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_frag(dp);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[j][e] = round_bf16(dp[j][e]);
+}
+
+// d[i] += A B over the column blocks NB0 .. NB0 + NBW - 1 of B, issued for
+// the warpgroup: A [64 x 16] bf16 from registers, B the 16-row tile at b,
+// MN-major (its 16 rows the contraction).
+template <int NB0, int NBW, int NA>
+__device__ __forceinline__ void lat_rs(float (&d)[NA][32],
+                                       const uint32_t (&a)[4], uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < NBW; ++i)
+    wgmma_n64_rs_tb(d[i], a, gmma_desc(b + (NB0 + i) * kLat16, kLat16,
+                                       1024));
+}
+
+// The A fragment of a 64 x 16 accumulator, rounded to bf16, as a uint4
+// (the exchange's unit; a warpgroup's thread w holds the same rows and
+// columns as the other's thread w).
+__device__ __forceinline__ uint4 lat_frag(const float (&x)[2][4]) {
+  return make_uint4(pack2(x[0][0], x[0][1]), pack2(x[0][2], x[0][3]),
+                    pack2(x[1][0], x[1][1]), pack2(x[1][2], x[1][3]));
+}
+// Those of hi = bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void lat_split_frag(uint4& hi, uint4& lo,
+                                               const float (&x)[2][4]) {
+  split_bf16(x[0][0], x[0][1], hi.x, lo.x);
+  split_bf16(x[0][2], x[0][3], hi.y, lo.y);
+  split_bf16(x[1][0], x[1][1], hi.z, lo.z);
+  split_bf16(x[1][2], x[1][3], hi.w, lo.w);
+}
+__device__ __forceinline__ void lat_unfrag(float (&x)[2][4], uint4 w) {
+  const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i >> 1][2 * (i & 1)] = __uint_as_float(v[i] << 16);
+    x[i >> 1][2 * (i & 1) + 1] = __uint_as_float(v[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void lat_regs(uint32_t (&a)[4], uint4 w) {
+  a[0] = w.x;
+  a[1] = w.y;
+  a[2] = w.z;
+  a[3] = w.w;
+}
+
+// dq and the row statistics of the latent route. Grid (ceil(N / 64),
+// B * Hq), the late q-blocks first; q [B*Hq, N, 576], the latent [B, N,
+// 576]. Each tile is 16 keys of the latent: warpgroup 0 makes S = Q K^T
+// (36 m64n16 k-steps), the online statistics, P and dS; warpgroup 1 makes
+// dP = dout V^T (32 k-steps, 64 with an f32 dout) and hands it over; both
+// add dS K into their dq columns (0-319 and 320-575), dS as hi and lo.
+// dout is f32 (kSplit: one latent stage, the shared memory then holding
+// q, dout's two halves and one tile) or bf16 (two stages).
+template <bool kSplit>
+__global__ void __launch_bounds__(kLatThreads, 1) bwd_dq_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ lat, const void* __restrict__ dout,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int N,
+    int Hq, float scale) {
+  constexpr int kStages = kSplit ? 1 : 2;
+  constexpr int kDoBytes = (kSplit ? 2 : 1) * kLatDo;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* sm =
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  const uint32_t s_q = smem_u32(sm);
+  const uint32_t s_do = s_q + kLatQ;
+  const uint32_t s_ring = s_do + kDoBytes;
+  uint4* xdp = reinterpret_cast<uint4*>(sm + kLatQ + kDoBytes +
+                                        kStages * kLatQT);
+  uint4* xds = xdp + 128;               // hi [128], lo [128]
+  const int nqb = (N + kB - 1) / kB;
+  const int qb = nqb - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int wg = warpgroup(), wt = threadIdx.x & 127;
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qb * kB;
+  const int ra = row0 + 16 * warp + g;  // the thread's rows: ra, ra + 8
+  const bool full_rows = row0 + kB <= N;
+  const int ntiles = min(4 * (qb + 1), (N + kLatT - 1) / kLatT);
+  const float sl = scale * kLog2e;
+  const size_t nbh = (size_t)gridDim.y * N;
+  const __nv_bfloat16* kh = lat + (size_t)(bh / Hq) * N * kLatD;
+
+  lat_load<kLatD, kB>(s_q, q + (size_t)bh * N * kLatD, row0, N);
+  if constexpr (kSplit)
+    lat_split<kB>(sm + kLatQ, sm + kLatQ + kLatDo,
+                  static_cast<const float*>(dout) + (size_t)bh * N * kLatDV,
+                  row0, N);
+  else
+    lat_load<kLatDV, kB>(s_do,
+                         static_cast<const __nv_bfloat16*>(dout) +
+                             (size_t)bh * N * kLatDV,
+                         row0, N);
+  auto load = [&](int kt) {
+    lat_load<kLatD, kLatT>(s_ring + (kt % kStages) * kLatQT, kh, kt * kLatT,
+                           N);
+  };
+  // warpgroup 0: the tile's logits in base-2 units, masked
+  auto logits = [&](float (&s)[2][4], uint32_t tile, int kt) {
+    lat_logits(s, s_q, tile);
+    const bool full = kt < 4 * qb && full_rows;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = ra + 8 * (e >> 1);
+        const int col = kt * kLatT + 8 * j + 2 * t + (e & 1);
+        const bool live = full || (col <= row && col < N && row < N);
+        s[j][e] = live ? __fmul_rn(s[j][e], sl) : kNegInf;
+      }
+  };
+  // warpgroup 1: the tile's dP, to the exchange
+  auto dp_out = [&](uint32_t tile) {
+    float dp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+    lat_dp<kSplit>(dp, s_do, tile, kLatDo, 0);
+    xdp[wt] = lat_frag(dp);
+  };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, dn[2] = {0.f, 0.f};
+  float c[2] = {0.f, 0.f};              // the rows' dP at key 0
+  float s[2][4], dp[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  // sweep 1: m, l and sum exp(s - m) (dP - c), online
+  lat_ring<kStages>(ntiles, load, [&](int kt) {
+    const uint32_t tile = s_ring + (kt % kStages) * kLatQT;
+    float m_new[2], alpha[2], le[2];
+    if (wg == 0) {
+      logits(s, tile, kt);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float tmax = fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
+                                 fmaxf(s[1][2 * h], s[1][2 * h + 1]));
+        m_new[h] = fmaxf(m[h], quad_max(tmax));
+        alpha[h] = exp2f(m[h] - m_new[h]);
+        le[h] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const float e = exp2f(s[j][2 * h + x] - m_new[h]);
+            s[j][2 * h + x] = e;
+            le[h] += e;
+          }
+      }
+    } else {
+      dp_out(tile);
+    }
+    __syncthreads();
+    if (wg == 0) {
+      lat_unfrag(dp, xdp[wt]);
+      if (kt == 0) {                    // key 0: lane t = 0 of the quad
+        c[0] = __shfl_sync(kFull, dp[0][0], lane & ~3);
+        c[1] = __shfl_sync(kFull, dp[0][2], lane & ~3);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float de = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            de = fmaf(s[j][2 * h + x], dp[j][2 * h + x] - c[h], de);
+        l[h] = l[h] * alpha[h] + quad_sum(le[h]);
+        dn[h] = dn[h] * alpha[h] + quad_sum(de);
+        m[h] = m_new[h];
+      }
+    }
+  });
+  float rl[2], dd[2];                   // 1 / max(l, 1e-30), D
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lc = fmaxf(l[h], 1e-30f);
+    rl[h] = 1.f / lc;
+    dd[h] = c[h] + dn[h] / lc;
+    const int row = ra + 8 * h;
+    if (wg == 0 && t == 0 && row < N) {
+      const size_t o = (size_t)bh * N + row;
+      stats[o] = m[h];
+      stats[nbh + o] = rl[h];
+      stats[2 * nbh + o] = dd[h];
+    }
+  }
+
+  // sweep 2: dS, and dq += dS k as (hi + lo) k
+  float acc[kLatWideFirst][32];
+#pragma unroll
+  for (int i = 0; i < kLatWideFirst; ++i)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[i][x] = 0.f;
+  lat_ring<kStages>(ntiles, load, [&](int kt) {
+    const uint32_t tile = s_ring + (kt % kStages) * kLatQT;
+    if (wg == 0) {
+      logits(s, tile, kt);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = exp2f(s[j][e] - m[e >> 1]) * rl[e >> 1];
+    } else {
+      dp_out(tile);
+    }
+    __syncthreads();
+    uint32_t a_hi[4], a_lo[4];
+    if (wg == 0) {
+      lat_unfrag(dp, xdp[wt]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = __fmul_rn(s[j][e] * (dp[j][e] - dd[e >> 1]), scale);
+      uint4 hi, lo;
+      lat_split_frag(hi, lo, s);
+      xds[wt] = hi;
+      xds[128 + wt] = lo;
+      lat_regs(a_hi, hi);
+      lat_regs(a_lo, lo);
+    }
+    __syncthreads();
+    if (wg == 1) {
+      lat_regs(a_hi, xds[wt]);
+      lat_regs(a_lo, xds[128 + wt]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+    if (wg == 0) {
+      lat_rs<0, kLatWideFirst>(acc, a_hi, tile);
+      lat_rs<0, kLatWideFirst>(acc, a_lo, tile);
+    } else {
+      lat_rs<kLatWideFirst, kLatNB - kLatWideFirst>(acc, a_hi, tile);
+      lat_rs<kLatWideFirst, kLatNB - kLatWideFirst>(acc, a_lo, tile);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+  });
+  const int nb0 = wg == 0 ? 0 : kLatWideFirst;
+  const int nbw = wg == 0 ? kLatWideFirst : kLatNB - kLatWideFirst;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = ra + 8 * h;
+    if (row >= N) continue;
+    __nv_bfloat16* out = dq + ((size_t)bh * N + row) * kLatD;
+#pragma unroll
+    for (int i = 0; i < kLatWideFirst; ++i) {
+      if (i >= nbw) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * (nb0 + i) + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack2(acc[i][4 * j + 2 * h], acc[i][4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// One CTA of the dk/dv kernel of the latent route: the sums of dk (kDK:
+// dS^T q, 576 columns) or of dv (T(P)^T dout, 512 columns) of 64 keys over
+// one slice of the q-heads, in head order, then row order, into that
+// slice's f32 partials part[slice][b][key][column]. The 64-key latent
+// tile stays in shared memory; 16-row q and dout tiles (with their rows'
+// m, 1 / max(l, 1e-30) and D) come through a ring of two stages. Warpgroup
+// 0 makes S^T = K Q^T (36 m64n16 k-steps) and P (and, for dk, dS);
+// warpgroup 1 makes dP^T = V dout^T for dk and hands it over; each adds
+// into its column blocks (dk: 0-4 and 5-8; dv: 0-3 and 4-7) from
+// registers, the other's share handed over through shared memory.
+template <bool kDK, bool kSplit>
+__device__ __forceinline__ void dkv_latent_cta(
+    unsigned char* sm, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ lat, const void* __restrict__ dout,
+    const float* __restrict__ stats, float* __restrict__ part, int B,
+    int N, int Hq, int slices, float scale) {
+  constexpr int kStages = 2;
+  constexpr int kDoT = (kSplit ? 2 : 1) * kLatDoT;
+  constexpr int kStage = kLatQT + kDoT;  // a q tile and its dout (hi, lo)
+  constexpr int kW = kDK ? kLatD : kLatDV;
+  constexpr int kNB = kW / 64;
+  constexpr int kFirst = kDK ? kLatWideFirst : kLatVFirst;
+  const uint32_t s_k = smem_u32(sm);
+  const uint32_t s_ring = s_k + kLatQ;
+  float* st_ring =                      // [kStages][3][16]: m, 1 / l, D
+      reinterpret_cast<float*>(sm + kLatQ + kStages * kStage);
+  uint4* xdp = reinterpret_cast<uint4*>(st_ring + kStages * 3 * kLatT);
+  uint4* xds = xdp + 128;
+  const int bs = blockIdx.x >> 1;
+  const int b = bs / slices, slice = bs % slices;
+  const int hs = Hq / slices;
+  const int col0 = blockIdx.y * kB;
+  const int wg = warpgroup(), wt = threadIdx.x & 127;
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ka = col0 + 16 * warp + g;  // the thread's keys: ka, ka + 8
+  const float sl = scale * kLog2e;
+  const int nqt = (N + kLatT - 1) / kLatT;
+  const int qt0 = col0 / kLatT;         // the first q tile at or after it
+  const int per_head = nqt - qt0;
+  const size_t nbh = (size_t)B * Hq * N;
+
+  lat_load<kLatD, kB>(s_k, lat + (size_t)b * N * kLatD, col0, N);
+  auto load = [&](int it) {
+    const int bh = b * Hq + slice * hs + it / per_head;
+    const int r0 = (qt0 + it % per_head) * kLatT;
+    const int stg = it % kStages;
+    const uint32_t dst = s_ring + stg * kStage;
+    lat_load<kLatD, kLatT>(dst, q + (size_t)bh * N * kLatD, r0, N);
+    if constexpr (kSplit)
+      lat_split<kLatT>(sm + kLatQ + stg * kStage + kLatQT,
+                       sm + kLatQ + stg * kStage + kLatQT + kLatDoT,
+                       static_cast<const float*>(dout) +
+                           (size_t)bh * N * kLatDV,
+                       r0, N);
+    else
+      lat_load<kLatDV, kLatT>(dst + kLatQT,
+                              static_cast<const __nv_bfloat16*>(dout) +
+                                  (size_t)bh * N * kLatDV,
+                              r0, N);
+    if (threadIdx.x < 3 * kLatT) {      // the tile's rows' stats
+      const int w = threadIdx.x / kLatT, r = threadIdx.x % kLatT;
+      const bool ok = r0 + r < N;
+      cp_async4(smem_u32(st_ring + (stg * 3 + w) * kLatT + r),
+                stats + w * nbh + (ok ? (size_t)bh * N + r0 + r : 0), ok);
+    }
+  };
+
+  float acc[kFirst][32];
+#pragma unroll
+  for (int i = 0; i < kFirst; ++i)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[i][x] = 0.f;
+  float s[2][4], dp[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  ring<kStages>(hs * per_head, load, [&](int it) {
+    const int r0 = (qt0 + it % per_head) * kLatT;
+    const int stg = it % kStages;
+    const uint32_t s_qt = s_ring + stg * kStage, s_dt = s_qt + kLatQT;
+    const float* st = st_ring + stg * 3 * kLatT;
+    if (wg == 0) {                      // P^T (rows past N: m = 0, 1/l = 0)
+      lat_logits(s, s_k, s_qt);
+      const bool full =
+          col0 + kB - 1 <= r0 && r0 + kLatT <= N && col0 + kB <= N;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = ka + 8 * (e >> 1), lr = 8 * j + 2 * t + (e & 1);
+          const int row = r0 + lr;
+          const bool live = full || (key <= row && row < N && key < N);
+          const float x = live ? __fmul_rn(s[j][e], sl) : kNegInf;
+          s[j][e] = exp2f(x - st[lr]) * st[kLatT + lr];
+        }
+    } else if constexpr (kDK) {
+      lat_dp<kSplit>(dp, s_k, s_dt, 0, kLatDoT);
+      xdp[wt] = lat_frag(dp);
+    }
+    uint32_t a0[4], a1[4];
+    if constexpr (kDK) {
+      __syncthreads();
+      if (wg == 0) {                    // dS^T, as hi and lo
+        lat_unfrag(dp, xdp[wt]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int lr = 8 * j + 2 * t + (e & 1);
+            dp[j][e] = __fmul_rn(s[j][e] * (dp[j][e] - st[2 * kLatT + lr]),
+                                 scale);
+          }
+        uint4 hi, lo;
+        lat_split_frag(hi, lo, dp);
+        xds[wt] = hi;
+        xds[128 + wt] = lo;
+      }
+      __syncthreads();
+      lat_regs(a0, xds[wt]);
+      lat_regs(a1, xds[128 + wt]);
+      fence_regs(acc);
+      wgmma_fence();
+      if (wg == 0) {
+        lat_rs<0, kFirst>(acc, a0, s_qt);
+        lat_rs<0, kFirst>(acc, a1, s_qt);
+      } else {
+        lat_rs<kFirst, kNB - kFirst>(acc, a0, s_qt);
+        lat_rs<kFirst, kNB - kFirst>(acc, a1, s_qt);
+      }
+    } else {
+      if (wg == 0) xds[wt] = lat_frag(s);  // T(P^T)
+      __syncthreads();
+      lat_regs(a0, xds[wt]);
+      fence_regs(acc);
+      wgmma_fence();
+      if (wg == 0) {
+        lat_rs<0, kFirst>(acc, a0, s_dt);
+        if constexpr (kSplit) lat_rs<0, kFirst>(acc, a0, s_dt + kLatDoT);
+      } else {
+        lat_rs<kFirst, kNB - kFirst>(acc, a0, s_dt);
+        if constexpr (kSplit)
+          lat_rs<kFirst, kNB - kFirst>(acc, a0, s_dt + kLatDoT);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+  });
+  const int nb0 = wg == 0 ? 0 : kFirst;
+  const int nbw = wg == 0 ? kFirst : kNB - kFirst;
+  float* out = part + ((size_t)slice * B + b) * N * kW;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = ka + 8 * h;
+    if (key >= N) continue;
+#pragma unroll
+    for (int i = 0; i < kFirst; ++i) {
+      if (i >= nbw) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * (nb0 + i) + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(out + (size_t)key * kW + col) =
+            make_float2(acc[i][4 * j + 2 * h], acc[i][4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// dk and dv partials of the latent route. Grid (2 B slices, ceil(N / 64)):
+// block x = 2 (b slices + slice) + role (0: dk, 1: dv), block y the key
+// block, so the key blocks with the most q rows after them start first.
+// Runs after bwd_dq_latent_kernel, whose stats it reads.
+template <bool kSplit>
+__global__ void __launch_bounds__(kLatThreads, 1) bwd_dkv_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ lat, const void* __restrict__ dout,
+    const float* __restrict__ stats, float* __restrict__ dk_part,
+    float* __restrict__ dv_part, int B, int N, int Hq, int slices,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* sm =
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  if ((blockIdx.x & 1) == 0)
+    dkv_latent_cta<true, kSplit>(sm, q, lat, dout, stats, dk_part, B, N, Hq,
+                                 slices, scale);
+  else
+    dkv_latent_cta<false, kSplit>(sm, q, lat, dout, stats, dv_part, B, N,
+                                  Hq, slices, scale);
+}
+
+// out[i] = bf16(the sum over s of part[s][i]), s in order, in f32; four
+// elements a thread (count a multiple of 4).
+__global__ void sum_slices_kernel(const float* __restrict__ part,
+                                  __nv_bfloat16* __restrict__ out,
+                                  size_t count, int slices) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x * 4;
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+       i < count; i += stride) {
+    float4 a = __ldg(reinterpret_cast<const float4*>(part + i));
+    for (int sl = 1; sl < slices; ++sl) {
+      const float4 x =
+          __ldg(reinterpret_cast<const float4*>(part + sl * count + i));
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    *reinterpret_cast<uint2*>(out + i) =
+        make_uint2(pack2(a.x, a.y), pack2(a.z, a.w));
+  }
+}
+
+constexpr size_t dq_latent_smem_bytes(bool split) {
+  return 1024 + (size_t)kLatQ + (split ? 2 : 1) * kLatDo +
+         (split ? 1 : 2) * kLatQT + kLatX;
+}
+constexpr size_t dkv_latent_smem_bytes(bool split) {
+  return 1024 + (size_t)kLatQ + 2 * (kLatQT + (split ? 2 : 1) * kLatDoT) +
+         2 * 3 * kLatT * sizeof(float) + kLatX;
+}
+static_assert(dq_latent_smem_bytes(true) <= 232448,
+              "the dq kernel's shared memory exceeds an sm_90 CTA's");
+static_assert(dkv_latent_smem_bytes(true) <= 232448,
+              "the dk/dv kernel's shared memory exceeds an sm_90 CTA's");
+
+template <bool kSplit>
+int launch_latent(const void* q, const void* lat, const void* dout,
+                  void* dq, void* dk, void* dv, void* stats, void* dk_part,
+                  void* dv_part, int B, int Hq, int N, int slices,
+                  float scale, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const int nb = (N + kB - 1) / kB;
+  auto kq = bwd_dq_latent_kernel<kSplit>;
+  auto kkv = bwd_dkv_latent_kernel<kSplit>;
+  const size_t smem_q = dq_latent_smem_bytes(kSplit);
+  const size_t smem_kv = dkv_latent_smem_bytes(kSplit);
+  cudaError_t err = prefer_smem(kq, smem_q);
+  if (err != cudaSuccess) return (int)err;
+  err = prefer_smem(kkv, smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  kq<<<dim3(nb, B * Hq), kLatThreads, smem_q, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(lat), dout,
+      static_cast<T*>(dq), static_cast<float*>(stats), N, Hq, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kkv<<<dim3(2 * B * slices, nb), kLatThreads, smem_kv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(lat), dout,
+      static_cast<const float*>(stats), static_cast<float*>(dk_part),
+      static_cast<float*>(dv_part), B, N, Hq, slices, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t counts[2] = {(size_t)B * N * kLatD, (size_t)B * N * kLatDV};
+  void* outs[2] = {dk, dv};
+  const float* parts[2] = {static_cast<const float*>(dk_part),
+                           static_cast<const float*>(dv_part)};
+  for (int i = 0; i < 2; ++i) {
+    const size_t blocks = (counts[i] / 4 + 255) / 256;
+    sum_slices_kernel<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0,
+                        stream>>>(parts[i], static_cast<T*>(outs[i]),
+                                  counts[i], slices);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1120,6 +1842,41 @@ int flash_prefill_bwd_launch(int kind, int dout_kind, const void* q,
   return launch_d(kind == 0 ? 0 : 1 + dout_kind, d, q, k, v, dout, dq, dk,
                   dv, stats, B, Hq, Hk, N, scale,
                   static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of the larger of the latent route's kernels, in
+// bytes.
+size_t flash_prefill_bwd_latent_smem_bytes() {
+  const size_t a = dq_latent_smem_bytes(true), b = dkv_latent_smem_bytes(true);
+  return a > b ? a : b;
+}
+
+// The latent route (MLA: d = 576, dv = 512, V the latent's first 512
+// columns, one latent "kv head"; bf16): the dq kernel, the dk/dv kernel
+// and the two sums of its slices, on `stream`; returns cudaGetLastError()
+// (0 on success) and never synchronises.
+//   dout_kind  0 = f32 (split into bf16 hi and lo), 1 = bf16
+//   q [B,Hq,N,576] and dq, the latent [B,N,576] (k, and v = its first 512
+//   columns, read from its rows), dout [B,Hq,N,512], dk [B,N,576], dv
+//   [B,N,512] bf16; stats [3,B*Hq,N] f32 scratch; dk_part [slices,B,N,576]
+//   and dv_part [slices,B,N,512] f32 scratch: the sums of each slice of
+//   Hq / slices q-heads; all contiguous and 16-byte aligned, Hq a multiple
+//   of slices
+int flash_prefill_bwd_latent_launch(int dout_kind, const void* q,
+                                    const void* lat, const void* dout,
+                                    void* dq, void* dk, void* dv,
+                                    void* stats, void* dk_part,
+                                    void* dv_part, int B, int Hq, int N,
+                                    int slices, float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || N <= 0 || slices <= 0 || Hq % slices ||
+      dout_kind < 0 || dout_kind > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dout_kind == 0)
+    return launch_latent<true>(q, lat, dout, dq, dk, dv, stats, dk_part,
+                               dv_part, B, Hq, N, slices, scale, s);
+  return launch_latent<false>(q, lat, dout, dq, dk, dv, stats, dk_part,
+                              dv_part, B, Hq, N, slices, scale, s);
 }
 
 }  // extern "C"

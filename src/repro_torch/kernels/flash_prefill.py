@@ -70,19 +70,21 @@ def _bind(lib):
     return lib
 
 
-def _check_latent_v(v, k, shape, dtype, dev) -> int:
-    """The latent route's V: `shape` and `dtype` on `dev`, and the view of
-    K's first dv columns (the kernel reads V from the latent tiles it
-    loads for K). Returns its row stride in elements, K's row width."""
+def check_latent_v(v, k, shape, dtype, dev,
+                   kernel: str = "flash_prefill") -> int:
+    """The latent route's V ([G, N, dv]): `shape` and `dtype` on `dev`, and
+    the view of K's ([G, N, d]) first dv columns (the kernel reads V from
+    the latent tiles it loads for K). Returns its row stride in elements,
+    K's row width."""
     if (tuple(v.shape) != tuple(shape) or v.dtype != dtype
             or v.device != dev):
-        raise ValueError(f"flash_prefill: v is {tuple(v.shape)} {v.dtype} "
+        raise ValueError(f"{kernel}: v is {tuple(v.shape)} {v.dtype} "
                          f"on {v.device}, expected {tuple(shape)} {dtype} "
                          f"on {dev}")
     n, d = k.shape[1], k.shape[2]
     if v.data_ptr() != k.data_ptr() or v.stride(1) != d or v.stride(2) != 1 \
             or (shape[0] > 1 and v.stride(0) != n * d):
-        raise ValueError("flash_prefill: the latent route reads V from K's "
+        raise ValueError(f"{kernel}: the latent route reads V from K's "
                          "rows: v must be the view k[..., :dv]")
     return d
 
@@ -123,7 +125,7 @@ def flash_prefill(q, k, v, lengths, acc, *, group: int, acc_group: int,
     if latent and (q.dtype != torch.bfloat16 or not model):
         raise ValueError(f"flash_prefill: the latent route (d, dv) = "
                          f"{LATENT} takes bf16 under the model's contract")
-    v_ld = (_check_latent_v(v, k, (bh // group, n, dv), q.dtype, dev)
+    v_ld = (check_latent_v(v, k, (bh // group, n, dv), q.dtype, dev)
             if latent else dv)
     if not latent and (d % 16 or d > MAX_D or dv != d):
         raise ValueError(f"flash_prefill: head dims (d, dv) = ({d}, {dv}): "

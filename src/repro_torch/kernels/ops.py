@@ -156,19 +156,22 @@ def prefill_attention(q, k, v, acc=None, *, row0: int = 0, length=None,
 
 def prefill_attention_bwd(q, k, v, dout, *, scale=None, chunk: int = 512):
     """The backward of `prefill_attention`'s out over a whole prompt (row0
-    0, every row live): q [B,Hq,N,d], k/v [B,Hk,N,d], dout [B,Hq,N,dv] →
-    (dq, dk, dv) (`ref.flash_prefill_bwd_ref`). On the card the
-    `flash_prefill_bwd` kernel, with q cast to K's dtype, all made
-    contiguous (copies where they are not); a bf16 dout goes to bf16 K/V's
-    route as it is, any other is cast to f32 (which the bf16 route splits
-    into bf16 hi and lo halves). `chunk` only shapes the plain version's
-    loop."""
+    0, every row live): q [B,Hq,N,d], k [B,Hk,N,d], v [B,Hk,N,dv], dout
+    [B,Hq,N,dv] → (dq, dk, dv) (`ref.flash_prefill_bwd_ref`). On the card
+    the `flash_prefill_bwd` kernel, with q cast to K's dtype, all made
+    contiguous (copies where they are not) but MLA's latent V ((d, dv) =
+    `LATENT`), the view of k's first dv columns, which the kernel's latent
+    route reads where it lies; a bf16 dout goes to bf16 K/V's route as it
+    is, any other is cast to f32 (which the bf16 routes split into bf16 hi
+    and lo halves). `chunk` only shapes the plain version's loop."""
     if not _on_card(q, "flash_prefill_bwd"):
         return ref.flash_prefill_bwd_ref(q, k, v, dout, scale=scale,
                                          chunk=chunk)
     keep = dout.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
+    latent = (q.shape[-1], v.shape[-1]) == LATENT
     dq, dk, dv = _flash_bwd_kernel(
-        q.to(k.dtype).contiguous(), k.contiguous(), v.contiguous(),
+        q.to(k.dtype).contiguous(), k.contiguous(),
+        v if latent else v.contiguous(),
         (dout if keep else dout.to(torch.float32)).contiguous(),
         scale=scale)
     return dq.to(q.dtype), dk, dv
@@ -178,7 +181,8 @@ class _CausalAttention(torch.autograd.Function):
     """Differentiable causal prompt attention: `prefill_attention`'s out
     forward (its column sums dropped), cast to `out_dtype`, and
     `prefill_attention_bwd` backward, which so receives the cotangent in
-    `out_dtype`."""
+    `out_dtype`. k and v may be views of one tensor (MLA's latent and its
+    first dv columns): autograd then adds their gradients into it."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, chunk, out_dtype):

@@ -256,3 +256,50 @@ def flash_prefill_bwd_ref(q, k, v, dout, *, scale=None, chunk: int = 512):
         dk += torch.matmul(ds.transpose(-1, -2), q_g)
     dq = torch.cat(dqs, dim=2).to(q.dtype)
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_prefill_bwd_dq_flip(q, k, v, dout, *, scale=None,
+                              chunk: int = 256):
+    """How far each element of `flash_prefill_bwd_ref`'s dq moves when one
+    dP element of its row rounds to its other bf16 neighbour: scale ·
+    max_j(P_ij · ulp(dP_ij)) · (max_j |k_jc| + |sum_j P_ij k_jc|), [B, Hq,
+    N, d] f32 (a flip of dP_ij by u moves dS_ij by P_ij u scale and, through
+    D_i, every dS_ij' by -P_ij' P_ij u scale). dP is rounded to V's dtype
+    after an f32 sum, so an implementation that sums dout · v in another
+    order rounds the elements near a rounding midpoint the other way; where
+    dP - D cancels over a row, one such flip moves its dq by more than a
+    bf16 ulp of its largest element. Zeros for an f32 V (no rounding)."""
+    b, hq, n, d = q.shape
+    hk = k.shape[1]
+    g = hq // hk
+    dev = q.device
+    out = torch.zeros((b, hq, n, d), dtype=torch.float32, device=dev)
+    if v.dtype == torch.float32:
+        return out
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qs, kf, vf, do = q.to(k.dtype).float(), k.float(), v.float(), \
+        dout.float()
+    kmax = kf.abs().amax(dim=2, keepdim=True)[:, :, None]    # [B,Hk,1,1,d]
+    col = torch.arange(n, device=dev)
+    for r0 in range(0, n, chunk):
+        t = min(chunk, n - r0)
+        row = torch.arange(r0, r0 + t, device=dev)
+        q_g = qs[:, :, r0:r0 + t].reshape(b, hk, g * t, d)
+        logits = torch.matmul(q_g, kf.transpose(-1, -2)).reshape(
+            b, hk, g, t, n)
+        logits = torch.where(row[:, None] >= col[None, :], logits * scale,
+                             torch.full_like(logits, NEG_INF))
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        dp = torch.matmul(do[:, :, r0:r0 + t].reshape(b, hk, g * t, -1),
+                          vf.transpose(-1, -2)).to(v.dtype).float()
+        _, e = torch.frexp(dp.reshape(b, hk, g, t, n))
+        w = (p * torch.ldexp(torch.ones_like(p), e - 8)).amax(-1, True)
+        del dp, e
+        o = torch.matmul(p.reshape(b, hk, g * t, n), kf).reshape(
+            b, hk, g, t, d)
+        out[:, :, r0:r0 + t] = (scale * w * (kmax + o.abs())).reshape(
+            b, hq, t, d)
+    return out
+

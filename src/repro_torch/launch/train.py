@@ -7,11 +7,11 @@ Usage (runs on the card unless `--device cpu`):
 
 The step computes the loss through `Model.train_outputs` (every causal
 attention layer runs `flash_prefill` forward and `flash_prefill_bwd`
-backward on the card), takes the gradients with `torch.autograd.grad`
-over the parameter leaves, and applies the learning-rate schedule and
-`adamw.update`, which writes the parameters and moments in place. The
-mla_moe family (deepseek-v3) raises: its training is ROADMAP.md Queue A
-item 12b.
+backward on the card; an MLA layer their latent routes), with the MTP
+head's loss where the model has one (deepseek-v3), takes the gradients
+with `torch.autograd.grad` over the parameter leaves, and applies the
+learning-rate schedule and `adamw.update`, which writes the parameters and
+moments in place.
 """
 from __future__ import annotations
 
@@ -70,21 +70,32 @@ def chunked_cross_entropy(h: torch.Tensor, head: torch.Tensor,
     return tot / (b * t)
 
 
-def make_loss_fn(model: Model, loss_chunk: int = 0):
+def make_loss_fn(model: Model, mtp_weight: float = 0.3,
+                 loss_chunk: int = 0):
     """(params, batch) → (loss, metrics): next-token CE plus the aux loss;
-    metrics "loss" (the CE) and "aux". An MLA model raises in the model
-    (its MTP loss is ROADMAP.md Queue A item 12b)."""
+    metrics "loss" (the CE) and "aux". Where the model's outputs hold
+    "mtp_logits" (its MTP head), `mtp_weight` times their CE against the
+    token two ahead joins the loss, as metric "mtp_loss". With
+    `loss_chunk` the head is projected chunk by chunk from `train_hidden`
+    and, as in the reference, no MTP loss is taken."""
     def loss_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"], device=model.device)
         if loss_chunk:
             h, aux = model.train_hidden(params, batch)
             ce = chunked_cross_entropy(h[:, :-1], model.head_matrix(params),
                                        tokens[:, 1:], loss_chunk)
+            outs = {"aux": aux}
         else:
             outs = model.train_outputs(params, batch)
             ce = cross_entropy(outs["logits"][:, :-1], tokens[:, 1:])
-            aux = outs["aux"]
-        return ce + aux, {"loss": ce, "aux": aux}
+        loss = ce + outs["aux"]
+        metrics = {"loss": ce, "aux": outs["aux"]}
+        if "mtp_logits" in outs:
+            # the head predicts token t + 2 from (h_t, e_{t+1})
+            mtp_ce = cross_entropy(outs["mtp_logits"][:, :-1], tokens[:, 2:])
+            loss = loss + mtp_weight * mtp_ce
+            metrics["mtp_loss"] = mtp_ce
+        return loss, metrics
     return loss_fn
 
 
@@ -94,7 +105,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     """(state, batch) → (state, metrics): the loss and its gradients over
     every parameter leaf, the warmup-cosine rate at the optimizer's step,
     and one AdamW update (in place). Metrics: loss, aux, lr, grad_norm
-    (f32 scalar tensors on the model's device)."""
+    and, for a model with an MTP head, mtp_loss (f32 scalar tensors on the
+    model's device)."""
     loss_fn = make_loss_fn(model, loss_chunk=loss_chunk)
 
     def train_step(state: TrainState, batch):

@@ -14,6 +14,9 @@ against the latents and up-projects once (ctx @ W_uv).
 The prompt pass goes through `core.attention.chunked_causal_attention` at
 the latent shape (d = kv_lora + rope, dv = kv_lora, all q-heads over one
 latent), which on the card is the `flash_prefill` kernel's latent route.
+Training (`mla_train`) runs the same attention through
+`kernels/ops.causal_attention`, whose backward on the card is the latent
+route of the `flash_prefill_bwd` kernel.
 The decode step is plain PyTorch on every device, as the reference's is
 plain XLA (no decode kernel takes a latent cache). It writes its token in
 place through the layer's views of the stacked cache, with the semantics of
@@ -21,12 +24,11 @@ the reference's `mla_decode_stacked` (lanes outside `active` keep their
 rows and `acc`); eager PyTorch needs neither its decode window nor its
 `dep` pin.
 
-Not ported here: `mla_train` (training, with the model's training path)
-and `_mla_blocked_shardmap` (the shard-local latent race of a multi-device
-mesh). Without a mesh the reference's `_latent_attend` takes the global
-top-k whatever `select_blocks` and `select_mode` say, and accumulates the
-approximate probabilities whatever `accumulate` says; the port follows
-that code.
+Not ported here: `_mla_blocked_shardmap` (the shard-local latent race of
+a multi-device mesh). Without a mesh the reference's `_latent_attend`
+takes the global top-k whatever `select_blocks` and `select_mode` say,
+and accumulates the approximate probabilities whatever `accumulate` says;
+the port follows that code.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.core.attention import _set_acc, chunked_causal_attention
 from repro_torch.core.cache import (KVCache, prefill_fill, protected_mask,
                                     write_token)
 from repro_torch.core.topk import NEG_INF
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rope
 
 
@@ -139,6 +142,30 @@ def _mla_attend(p, x: torch.Tensor, cfg: ModelConfig, positions, chunk: int,
     out = torch.einsum("bhtk,khv->bthv", ctx, w_uv.float())
     out = out.reshape(b, t, h * m.v_dim).to(x.dtype)
     return out @ p["wo"], u, acc
+
+
+def mla_train(p, x: torch.Tensor, cfg: ModelConfig, positions,
+              chunk: int = 0) -> torch.Tensor:
+    """Causal MLA over whole sequences, with a gradient (the reference's
+    `mla_train`): x [B,T,d] → [B,T,d]. The attention is
+    `ops.causal_attention` over the latent, K = u and V the view of its
+    first kv_lora columns, so autograd adds their gradients into u's as
+    XLA's autodiff adds them in the reference; ctx stays f32 up to the
+    W_uv product, as the reference's does, so the kernel's cotangent is
+    f32."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _queries(p, x, cfg, positions)
+    u = _latents(p, x, cfg, positions)
+    w_uk, w_uv = _split_wkv_b(p, cfg)
+    q_full = _absorbed(q_nope, q_rope, w_uk).transpose(1, 2)  # [B,H,T,lat]
+    ctx = ops.causal_attention(
+        q_full, u[:, None], u[:, None, :, :m.kv_lora_rank],
+        scale=1.0 / math.sqrt(_scale_dim(cfg)),
+        chunk=min(chunk or cfg.attn_chunk, t), out_dtype=torch.float32)
+    out = torch.einsum("bhtk,khv->bthv", ctx, w_uv.float())
+    return out.reshape(b, t, h * m.v_dim).to(x.dtype) @ p["wo"]
 
 
 def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions,

@@ -10,9 +10,9 @@ application) and the encoder-decoder (whisper: a bidirectional encoder over
 `batch["enc_embed"]`, then decoder blocks of pruned causal self-attention
 on the cache, cross-attention over K/V made once from the encoder output,
 and the MLP; sinusoidal positions on both stacks). A
-multi-token-prediction head (`mtp_depth > 0`) is built with the
-reference's tree, and nothing reads it yet (its forward belongs to MLA's
-training, ROADMAP.md Queue A item 12b).
+multi-token-prediction head (`mtp_depth > 0`, deepseek-v3's) is built with
+the reference's tree; training reads it (`train_outputs`' "mtp_logits"),
+serving does not.
 
 `Model` keeps the reference's functional surface: parameters are nested
 dicts of tensors with the reference's key names (`embed`, `final_norm`,
@@ -32,7 +32,6 @@ dicts of tensors with the reference's key names (`embed`, `final_norm`,
   decode_step(params, state, tok)  → (logits, state)
   train_hidden / train_logits / train_outputs(params, batch)
                                    → the training forward with a gradient
-                                     (every family but mla_moe)
 
 The decode state's layer-stacked cache and SSM state are updated in place
 (the enc-dec's cross K/V is written once, by the prefill):
@@ -61,7 +60,8 @@ from repro_torch.models.attention_layer import (attention_decode,
                                                 attention_train,
                                                 cross_attention,
                                                 encode_cross_kv)
-from repro_torch.models.mla import init_mla, mla_decode, mla_prefill
+from repro_torch.models.mla import (init_mla, mla_decode, mla_prefill,
+                                    mla_train)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (SSMState, init_ssm, init_ssm_state,
                                     ssm_decode, ssm_prefill, ssm_train)
@@ -191,17 +191,20 @@ def layer_params(params_seg, li: int):
 def _block_train(p, x: torch.Tensor, cfg: ModelConfig, positions, kind: str,
                  cross_kv=None, causal: bool = True):
     """One residual block over the whole sequence, with a gradient →
-    (x, aux): an SSD block (`ssm`), or attention (causal through the
-    kernels' op, `causal=False` for the encoder), the decoder's
-    cross-attention over `cross_kv` (`encdec_dec`), and the MLP or the
-    routed experts, whose load-balancing loss is the aux (a zero f32
-    scalar elsewhere)."""
+    (x, aux): an SSD block (`ssm`), or attention (MLA's `mla_train` for
+    the `mla_*` kinds, else causal through the kernels' op, `causal=False`
+    for the encoder), the decoder's cross-attention over `cross_kv`
+    (`encdec_dec`), and the MLP or the routed experts, whose
+    load-balancing loss is the aux (a zero f32 scalar elsewhere)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         return x + ssm_train(p["ssm"], L.apply_norm(p["norm"], x, cfg.norm),
                              cfg), aux
-    x = x + attention_train(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                            cfg, positions, causal=causal)
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    if kind.startswith("mla"):
+        x = x + mla_train(p["attn"], h, cfg, positions)
+    else:
+        x = x + attention_train(p["attn"], h, cfg, positions, causal=causal)
     if kind == "encdec_dec":
         x = x + cross_attention(p["xattn"],
                                 L.apply_norm(p["ln_x"], x, cfg.norm),
@@ -445,10 +448,9 @@ class Model:
     # -- shared pieces ------------------------------------------------------
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the head, in f32."""
         x = L.apply_norm(params["final_norm"], x, self.cfg.norm)
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
-        return x.float() @ head.float()
+        return x.float() @ self.head_matrix(params).float()
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(self.dtype)
@@ -785,24 +787,13 @@ class Model:
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
 
-    def _check_trainable(self, params) -> None:
-        cfg = self.cfg
-        if cfg.mla is not None or (cfg.mtp_depth > 0 and "mtp" in params):
-            raise NotImplementedError(
-                f"{cfg.name}: training MLA (mla_train, its latent-width "
-                "attention backward) and the MTP head's forward and loss is "
-                "not ported yet: ROADMAP.md Queue A item 12b")
-
-    def train_hidden(self, params, batch) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+    def _train_backbone(self, params, batch) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
         """The backbone over a batch of whole sequences, with a gradient →
-        (post-final-norm hidden [B, T, d], the summed aux loss, an f32
-        scalar). `batch`: `tokens` [B, T]; a frontend model's
-        `<frontend>_embed` [B, F, d] (its F rows are cut from the output);
-        an enc-dec model's `enc_embed` [B, S, d] for its encoder, whose
-        output gives each decoder layer's cross K/V. Raises for an MLA
-        model (ROADMAP.md Queue A item 12b)."""
-        self._check_trainable(params)
+        (pre-final-norm hidden [B, T, d], the summed aux loss, an f32
+        scalar): `train_hidden` normalises it, and the MTP head of
+        `train_outputs` reads it as it is (the reference's
+        `_hidden_for_mtp`)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -832,17 +823,44 @@ class Model:
                 aux_total = aux_total + aux
         if n_front:
             x = x[:, n_front:]
-        return L.apply_norm(params["final_norm"], x, cfg.norm), aux_total
+        return x, aux_total
+
+    def train_hidden(self, params, batch) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """The backbone over a batch of whole sequences, with a gradient →
+        (post-final-norm hidden [B, T, d], the summed aux loss, an f32
+        scalar). `batch`: `tokens` [B, T]; a frontend model's
+        `<frontend>_embed` [B, F, d] (its F rows are cut from the output);
+        an enc-dec model's `enc_embed` [B, S, d] for its encoder, whose
+        output gives each decoder layer's cross K/V."""
+        x, aux = self._train_backbone(params, batch)
+        return L.apply_norm(params["final_norm"], x, self.cfg.norm), aux
 
     def train_logits(self, params, batch) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
         """→ (logits [B, T, V] f32, aux)."""
-        h, aux = self.train_hidden(params, batch)
-        return h.float() @ self.head_matrix(params).float(), aux
+        x, aux = self._train_backbone(params, batch)
+        return self._logits(params, x), aux
 
     def train_outputs(self, params, batch) -> Dict[str, torch.Tensor]:
-        """→ {"logits", "aux"} from one backbone pass. An MLA model (whose
-        MTP head adds "mtp_logits" in the reference) raises
-        NotImplementedError: ROADMAP.md Queue A item 12b."""
-        logits, aux = self.train_logits(params, batch)
-        return {"logits": logits, "aux": aux}
+        """→ {"logits", "aux"} from one backbone pass, and "mtp_logits"
+        [B, T-1, V] f32 where the model has an MTP head (`mtp_depth > 0`
+        and `params["mtp"]`): the pre-final-norm hidden of positions
+        0 … T-2 beside the embedding of tokens 1 … T-1, through
+        `mtp.proj`, one block at positions 0 … T-2 (`mla_dense` for an MLA
+        model, not recomputed under remat, as the reference calls it),
+        `mtp.norm` and the head, predicting token t + 2 from position t."""
+        cfg = self.cfg
+        x, aux = self._train_backbone(params, batch)
+        out = {"logits": self._logits(params, x), "aux": aux}
+        if cfg.mtp_depth > 0 and "mtp" in params:
+            mtp = params["mtp"]
+            tokens = torch.as_tensor(batch["tokens"], device=self.device)
+            z = torch.cat([x[:, :-1], self._embed(params, tokens[:, 1:])],
+                          dim=-1) @ mtp["proj"]
+            pos = torch.arange(z.shape[1], device=self.device)[None]
+            z, _ = _block_train(mtp["block"], z, cfg, pos,
+                                "mla_dense" if cfg.mla else "dense")
+            z = L.apply_norm(mtp["norm"], z, cfg.norm)
+            out["mtp_logits"] = z.float() @ self.head_matrix(params).float()
+        return out

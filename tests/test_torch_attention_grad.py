@@ -33,7 +33,8 @@ kernel on the card and `ref.flash_prefill_bwd_ref` on the CPU.
 - `attention_train` (the block's attention sublayer, causal and not)
   against the reference's, with the gradients of every projection, f32.
 - the kernel wrapper's refusals on the CPU (dtypes, dout f32 or bf16
-  only) and the launch counter.
+  only, head dims past the GQA route's; MLA's latent shape goes to its own
+  route, `tests/test_torch_mla_train.py`) and the launch counter.
 - on a card only (`-m gpu`): the kernel against its plain version at
   bf16 and f32, GQA and d = 16 … 128, a bf16 and an f32 dout on the bf16
   route, two launches bit-equal, one count a backward.
@@ -439,6 +440,23 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
                                   dout[..., :8])
     with pytest.raises(TypeError):
         bwd_mod.flash_prefill_bwd(q.half(), k.half(), v.half(), dout)
+    assert bwd_mod.LAUNCHES["flash_prefill_bwd"] == before
+
+
+def test_kernel_wrapper_routes_the_latent_shape_apart():
+    """A head-dim pair past the GQA route's is refused naming MLA's latent
+    shape, which takes a route of its own: (576, 512) with V the view of
+    K's first 512 columns goes there, where an f32 latent is refused (the
+    route is bf16), before any launch."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(1, 2, 1, 8, 192,
+                                                          0))
+    before = bwd_mod.LAUNCHES["flash_prefill_bwd"]
+    with pytest.raises(ValueError, match=r"\(576, 512\)"):
+        bwd_mod.flash_prefill_bwd(q, k, v, dout)
+    u = torch.zeros((1, 1, 8, 576))
+    with pytest.raises(TypeError, match="latent route"):
+        bwd_mod.flash_prefill_bwd(torch.zeros((1, 2, 8, 576)), u,
+                                  u[..., :512], torch.zeros((1, 2, 8, 512)))
     assert bwd_mod.LAUNCHES["flash_prefill_bwd"] == before
 
 

@@ -2,21 +2,26 @@
 
 - one `make_train_step` of reduced granite-3-2b (dense), grok-1-314b
   (MoE), mamba2-1.3b (SSM), zamba2-7b (hybrid, 5 layers so the tail
-  exists) and whisper-base (enc-dec, a seeded `enc_embed`), with f32 and
-  with int8 moments, on the same weights (`torch_parity.model_pair`) and
-  the same `SyntheticSource` batch: loss and aux within 1e-5 relative,
+  exists), whisper-base (enc-dec, a seeded `enc_embed`) and
+  deepseek-v3-671b (MLA over one mla_dense and one mla_moe block, and the
+  MTP head), with f32 and with int8 moments, on the same weights
+  (`torch_parity.model_pair`) and the same `SyntheticSource` batch: loss,
+  aux and (deepseek-v3) mtp_loss within 1e-5 relative,
   lr bit for bit, grad_norm within 1e-4 relative, and every updated
   parameter and f32 moment (int8 moments: the dequantized values) within
   the stated tolerance (below);
 - `train_logits` of those models and of the frontend model
-  llava-next-mistral-7b against the reference's (1e-4);
+  llava-next-mistral-7b against the reference's (1e-4), and deepseek-v3's
+  `train_outputs` with its "mtp_logits" (1e-4);
+- with `loss_chunk` neither package takes an MTP loss;
 - `chunked_cross_entropy` and `cross_entropy` against the reference's;
 - the reference's `test_train_loss_decreases`,
   `test_fault_tolerant_loop_recovers` and `test_checkpoint_resume_bitexact`
   (`tests/test_integration.py`) on the port; the resumed run is held to
   the direct one bit for bit, a bf16 model's too;
-- `remat=True` (both policies) gives the gradients of `remat=False`;
-- an MLA model refuses to train; the CLI runs.
+- `remat=True` (both policies) gives the gradients of `remat=False`, and
+  an unknown policy raises;
+- the CLI runs, reduced deepseek-v3 too.
 
 The updated parameters' tolerance. AdamW's first step moves a parameter
 by lr · m̂ / (sqrt(v̂) + eps) + lr · wd · p, and m̂ / sqrt(v̂) = g / |g|: an
@@ -57,7 +62,8 @@ PEAK_LR, WARMUP, TOTAL = 1e-3, 4, 20
 PRUNE = dict(heavy=48, reserve=16, select_k=16, sink_tokens=2,
              recent_window=8)
 ARCHS = {"granite-3-2b": {}, "grok-1-314b": {}, "mamba2-1.3b": {},
-         "zamba2-7b": {"num_layers": 5}, "whisper-base": {}}
+         "zamba2-7b": {"num_layers": 5}, "whisper-base": {},
+         "deepseek-v3-671b": {}}
 
 
 def _batch(cfg, step=0, b=2, t=24):
@@ -110,7 +116,10 @@ def test_train_step_matches_reference(arch, quantized):
     p0 = [to_np(x).copy() for x in leaves(ts.params)]
     js1, jmet = jstep(js, jb)
     ts1, tmet = tstep(ts, tb)
-    for k in ("loss", "aux"):
+    assert set(tmet) == set(jmet)
+    assert ("mtp_loss" in tmet) == (arch == "deepseek-v3-671b")
+    for k in ("loss", "aux") + (("mtp_loss",) if "mtp_loss" in tmet
+                                else ()):
         np.testing.assert_allclose(to_np(tmet[k]), np.asarray(jmet[k]),
                                    rtol=1e-5, atol=1e-7, err_msg=k)
     assert to_np(tmet["lr"]) == np.asarray(jmet["lr"])
@@ -160,6 +169,39 @@ def test_train_logits_match_reference(arch):
     np.testing.assert_allclose(to_np(tl), np.asarray(jl), atol=1e-4)
     np.testing.assert_allclose(to_np(taux), np.asarray(jaux), rtol=1e-5,
                                atol=1e-8)
+
+
+def test_mtp_logits_match_reference():
+    """deepseek-v3's `train_outputs`: the logits, the aux loss and the MTP
+    head's logits (the pre-final-norm hidden beside the next token's
+    embedding, through `mtp.proj`, an mla_dense block, `mtp.norm` and the
+    head) against the reference's, 1e-4."""
+    jm, jp, tm, tp = model_pair("deepseek-v3-671b", "unicaim", **PRUNE)
+    jb, tb = _batch(tm.cfg, step=2, b=2, t=21)
+    jo, to = jm.train_outputs(jp, jb), tm.train_outputs(tp, tb)
+    assert set(to) == set(jo) == {"logits", "aux", "mtp_logits"}
+    assert to["mtp_logits"].shape == (2, 20, tm.cfg.vocab_size)
+    for k in ("logits", "mtp_logits"):
+        np.testing.assert_allclose(to_np(to[k]), np.asarray(jo[k]),
+                                   atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(to_np(to["aux"]), np.asarray(jo["aux"]),
+                               rtol=1e-5, atol=1e-8)
+
+
+def test_loss_chunk_takes_no_mtp_loss():
+    """With `loss_chunk` the reference projects the head from
+    `train_hidden` and takes no MTP loss; the port neither: the same
+    metrics and loss."""
+    jm, jp, tm, tp = model_pair("deepseek-v3-671b", "unicaim", **PRUNE)
+    jb, tb = _batch(tm.cfg, step=3)
+    jl, jmet = jtrain.make_loss_fn(jm, loss_chunk=8)(jp, jb)
+    tl, tmet = train.make_loss_fn(tm, loss_chunk=8)(tp, tb)
+    assert set(tmet) == set(jmet) == {"loss", "aux"}
+    np.testing.assert_allclose(to_np(tl), np.asarray(jl), rtol=1e-5)
+    _, full = train.make_loss_fn(tm)(tp, tb)
+    assert "mtp_loss" in full
+    np.testing.assert_allclose(to_np(tmet["loss"]), to_np(full["loss"]),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("t,chunk", [(24, 8), (23, 8), (24, 64)])
@@ -324,9 +366,13 @@ def test_checkpoint_resume_bitexact(tmp_path, dtype):
 
 @pytest.mark.parametrize("policy", ["nothing", "dots"])
 @pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-7b",
-                                  "whisper-base", "grok-1-314b"])
+                                  "whisper-base", "grok-1-314b",
+                                  "deepseek-v3-671b"])
 def test_remat_gives_the_same_gradients(arch, policy):
     cfg = reduced(get_config(arch), **ARCHS.get(arch, {}))
+    with pytest.raises(ValueError, match="remat_policy"):
+        Model(cfg, baselines.unicaim(**PRUNE), device="cpu",
+              remat_policy="everything")
     _, tb = _batch(cfg)
     grads = []
     for remat in (False, True):
@@ -345,21 +391,6 @@ def test_remat_gives_the_same_gradients(arch, policy):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
 
 
-def test_mla_model_refuses_to_train():
-    cfg = reduced(get_config("deepseek-v3-671b"))
-    model = Model(cfg, baselines.unicaim(**PRUNE), device="cpu")
-    params = model.init(0)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="12b"):
-        model.train_outputs(params, batch)
-    with pytest.raises(NotImplementedError, match="12b"):
-        train.make_train_step(model, adamw.AdamWConfig(), 10)(
-            train.init_train_state(model, adamw.AdamWConfig(), 0), batch)
-    with pytest.raises(ValueError):
-        Model(cfg, baselines.unicaim(**PRUNE), device="cpu",
-              remat_policy="everything")
-
-
 def test_cli_trains_on_the_cpu(tmp_path, capsys):
     train.main(["--arch", "granite-3-2b", "--reduced", "--device", "cpu",
                 "--steps", "12", "--batch", "2", "--seq", "16",
@@ -368,6 +399,18 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "done: 12 steps, 0 restarts" in out
     assert CheckpointManager(str(tmp_path)).all_steps() == [10, 12]
+
+
+def test_cli_trains_mla_on_the_cpu(tmp_path, capsys):
+    """`--arch deepseek-v3-671b --reduced --device cpu`: MLA blocks, an MoE
+    block and the MTP head's loss, with remat and int8 moments."""
+    train.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
+                "cpu", "--steps", "6", "--batch", "2", "--seq", "16",
+                "--ckpt-dir", str(tmp_path), "--ckpt-every", "5",
+                "--quantized-opt", "--remat"])
+    out = capsys.readouterr().out
+    assert "done: 6 steps, 0 restarts" in out
+    assert CheckpointManager(str(tmp_path)).all_steps() == [5, 6]
 
 
 def test_train_entry_points_raise_without_a_card(tmp_path):
