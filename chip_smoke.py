@@ -248,6 +248,22 @@ Phases, in order (no failure is caught: any one exits non-zero):
                of its kernel time (torch.profiler); whisper-base at full
                width and depth for 3 steps (448 decoder tokens behind a
                seeded [4, 1500, 512] enc_embed; 6 launches of each a step).
+ 14. mla-train — MLA training, after phase 13's models are freed: the
+               backward's latent route (128 q-heads over one latent, d =
+               576, dv = 512, V a view; B 2 and 4 x 2048, an f32 and a
+               bf16 dout) against its plain version: dq within phase 13's
+               limit plus one dP rounding flip of its row, the latent's
+               gradient du within that limit of the plain dk + [dv, 0];
+               two launches bit-equal; its f32 dout split bit-equal to
+               the plain split; CUDA-event times beside the bound, the
+               plain version and SDPA's backward (the time by kernel is
+               `latent_bwd_times()`, a command of its own); then
+               deepseek-v3-671b at full width cut to its 3 mla_dense
+               blocks and the MTP head, 5 steps at 8 x 256 with
+               int8 moments (4 flash_prefill and 4 flash_prefill_bwd
+               launches a step, finite loss and mtp_loss), layer 0's own
+               inputs beside the plain version (printed), and one 2 x
+               2048 step under remat, profiled.
 
 Every launch count is reset just before the path it counts and read just
 after. The second-to-last line is a JSON object describing every kernel;
@@ -3810,15 +3826,16 @@ def bwd_bound(b, hq, hk, n, d, dout_bytes=4, dv=None):
     """(bound_ms, bound_by, flop, bytes) of the attention backward at head
     dims (d, dv) (dv = d unless given): five products over the causal
     triangle at the bf16 peak, q.k, dS.k and dS^T.q over d, dout.v and
-    P^T.dout over dv; q, k, dq, dk, dv in bf16, v in bf16 unless it is the
-    view of k's first dv columns (MLA's latent, given dv: read with k),
-    and dout in f32 (4 bytes) or bf16 (2), each moved once."""
-    v_read = dv is None or dv == d      # else V is read with K's rows
+    P^T.dout over dv; q, k, dq, dk, dv in bf16, and dout in f32 (4 bytes)
+    or bf16 (2), each moved once. MLA's latent (dv given and below d) is
+    one tensor as K and V: it is read once and its gradient du, d wide,
+    written once in place of dk and dv."""
     dv = d if dv is None else dv
-    v_bytes = 2 * b * hk * n * dv if v_read else 0
+    out_bytes = (2 * b * hk * n * d if dv < d      # the latent's du
+                 else 2 * b * hk * n * (d + 2 * dv))   # dk, v read, dv
     flop = 2 * b * hq * (n * (n + 1) // 2) * (3 * d + 2 * dv)
-    nbytes = (2 * (2 * b * hq * n * d + 2 * b * hk * n * d + b * hk * n * dv)
-              + v_bytes + dout_bytes * b * hq * n * dv)
+    nbytes = (2 * (2 * b * hq * n * d + b * hk * n * d) + out_bytes
+              + dout_bytes * b * hq * n * dv)
     t, by = bound(nbytes, bf16_flops=flop)
     return t, by, flop, nbytes
 
@@ -3833,14 +3850,20 @@ def bwd_kernel_name(text):
     if m:
         return (f"{m.group(1)}<{m.group(2)}, "
                 f"{'f32' if m.group(3) == '1' else 'bf16'} dout>")
-    m = re.search(r"(bwd_dq_latent_kernel|bwd_dkv_latent_kernel)ILb([01])E",
+    m = re.search(r"(bwd_dq_latent_kernel|bwd_du_latent_kernel)ILb([01])E",
                   text)
     if m:
         return f"{m.group(1)}<{'f32' if m.group(2) == '1' else 'bf16'} dout>"
-    if "sum_slices_kernel" in text:
-        return "sum_slices_kernel"
+    for name in LATENT_PLAIN_KERNELS:
+        if name in text:
+            return name
     m = re.search(r"(bwd_dq_kernel|bwd_dkv_kernel)IfLi(\d+)E", text)
     return f"{m.group(1)}<float, {m.group(2)}>" if m else None
+
+
+# the latent route's kernels without a warpgroup product: the f32 dout's
+# split pass and the slices' sum
+LATENT_PLAIN_KERNELS = ("split_dout_kernel", "sum_slices_kernel")
 
 
 def bwd_kernel_report():
@@ -3848,8 +3871,9 @@ def bwd_kernel_report():
     product) instructions of every backward kernel instantiation, read by
     cuobjdump from the built library and printed; fails unless every bf16
     (wgmma) instantiation, the latent route's too, holds HGMMA and spills
-    nothing, and the latent route's slice sum spills nothing. Returns the
-    served head dims' numbers and the latent route's."""
+    nothing, and the latent route's split pass and slice sum spill
+    nothing. Returns the served head dims' numbers and the latent
+    route's."""
     tool = cuobjdump()
     if tool is None:
         print("[train] cuobjdump not found: the backward kernels' registers, "
@@ -3868,7 +3892,7 @@ def bwd_kernel_report():
         elif name and "HGMMA" in line:
             report[name]["hgmma"] += 1
     lat = {n: r for n, r in report.items() if "latent" in n
-           or n == "sum_slices_kernel"}
+           or n in LATENT_PLAIN_KERNELS}
     for n in sorted(lat):
         r = report.pop(n)
         print(f"[mla-train] {n}: {r['registers']} registers, "
@@ -3876,8 +3900,8 @@ def bwd_kernel_report():
               f"(spills), {r['hgmma']} HGMMA instructions in its SASS "
               "(cuobjdump)")
         assert r["stack_bytes"] == r["local_bytes"] == 0, (n, "spills")
-        assert n == "sum_slices_kernel" or r["hgmma"] > 0, (n, "no wgmma")
-    assert len(lat) == 5, sorted(lat)
+        assert n in LATENT_PLAIN_KERNELS or r["hgmma"] > 0, (n, "no wgmma")
+    assert len(lat) == 6, sorted(lat)
     tc = {n: r for n, r in report.items() if "_tc_" in n}
     served = sorted(n for n in tc if any(f"<{d}," in n
                                          for d in (64, 112, 128)))
@@ -4203,7 +4227,8 @@ def train_step_profile(model, opt_cfg, batch):
                if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     bwd = sum(dev_us(e) for e in kernels if "bwd_dq" in e.key
-              or "bwd_dkv" in e.key or "sum_slices" in e.key) / 1e3
+              or "bwd_dkv" in e.key or "bwd_du" in e.key
+              or any(k in e.key for k in LATENT_PLAIN_KERNELS)) / 1e3
     fwd = sum(dev_us(e) for e in kernels if "flash_prefill_" in e.key
               and "bwd" not in e.key or "fold_columns" in e.key) / 1e3
     del state
@@ -4419,11 +4444,19 @@ def limit_reading(x, w, extra=None):
             int((diff > lim).sum()))
 
 
+def plain_latent(q, u, v, dout):
+    """The plain version's dq and the latent's gradient du = dk + [dv, 0],
+    summed in f32 and rounded once (`ref.latent_du`)."""
+    dq, dk, dv = ref.flash_prefill_bwd_ref(q, u, v, dout, scale=LATENT_SCALE)
+    return dq, ref.latent_du(dk, dv)
+
+
 def latent_bwd_check(b, seed, dout_dtype, timed):
     """The latent route (q [B, 128, 2048, 576] over one latent, scale
-    1/sqrt(192)) against its plain version: dk and dv to BWD_TOL x (|ref|
-    + max|ref| of the row), dq to that plus the move one dP element of its
-    row rounding to its other bf16 neighbour makes
+    1/sqrt(192)) against its plain version: du (the latent's gradient
+    through K and V) to BWD_TOL x (|ref| + max|ref| of the row) against the
+    plain dk + [dv, 0], dq to that plus the move one dP element of its row
+    rounding to its other bf16 neighbour makes
     (`ref.flash_prefill_bwd_dq_flip`: where dP - D cancels over a row, as
     on a few early rows of 512 q-heads, another summation order's flip
     moves dq by up to the row's whole size), the elements over the bare
@@ -4433,13 +4466,15 @@ def latent_bwd_check(b, seed, dout_dtype, timed):
     q, u, v, dout = latent_bwd_inputs(b, n, seed, dout_dtype)
     got = bwd_mod.flash_prefill_bwd(q, u, v, dout, LATENT_SCALE)
     again = bwd_mod.flash_prefill_bwd(q, u, v, dout, LATENT_SCALE)
-    want = ref.flash_prefill_bwd_ref(q, u, v, dout, scale=LATENT_SCALE)
+    assert got[2] is None and again[2] is None, "the latent route gives du"
+    want = plain_latent(q, u, v, dout)
     torch.cuda.synchronize()
-    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    same = all(torch.equal(x, y) for x, y in zip(got[:2], again[:2]))
     del again
     flip = ref.flash_prefill_bwd_dq_flip(q, u, v, dout, scale=LATENT_SCALE)
     errs = {}
-    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+    for name, x, w in zip(("dq", "du"), got, want):
+        assert x.shape == w.shape and bool(torch.isfinite(x).all()), name
         bare, over = limit_reading(x, w)
         held = limit_reading(x, w, flip)[0] if name == "dq" else bare
         errs[name] = {"max_abs_err": float((x.float() - w.float()).abs()
@@ -4457,8 +4492,7 @@ def latent_bwd_check(b, seed, dout_dtype, timed):
                                         dout.element_size(), dv=LATENT_DV)
         ms = cuda_ms(lambda: bwd_mod.flash_prefill_bwd(q, u, v, dout,
                                                        LATENT_SCALE), 5, 1)
-        plain = long_ms(lambda: ref.flash_prefill_bwd_ref(
-            q, u, v, dout, scale=LATENT_SCALE), 2)
+        plain = long_ms(lambda: plain_latent(q, u, v, dout), 2)
         out.update(ms=ms, plain_ms=plain, bound_ms=t, bound_by=by, flop=flop,
                    bytes=nbytes)
         line = (f"; kernel {ms:.4f} ms, bound {t:.4f} ms ({by}: {flop:.4g} "
@@ -4481,6 +4515,83 @@ def latent_bwd_check(b, seed, dout_dtype, timed):
     del q, u, v, dout
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def latent_split_check():
+    """The latent route's f32 dout split pass (`bwd_mod.split_dout`)
+    against its plain version (`ref.split_bf16_ref`), bit for bit, on a
+    [4, 128, 256, 512] dout of `ref.split_bf16_cases` (60 binades, zeros
+    of both signs, subnormals, the f32 extremes). Returns whether they
+    agree."""
+    x = ref.split_bf16_cases(
+        (LANES, LATENT_HEADS, 256, LATENT_DV),
+        torch.Generator(device="cuda").manual_seed(SEED + 149))
+    same = torch.equal(bwd_mod.split_dout(x).view(torch.int16),
+                       ref.split_bf16_ref(x).view(torch.int16))
+    print(f"[mla-train] the latent route's dout split pass against "
+          f"split_bf16's plain version on {x.numel()} f32 values: bit-equal "
+          f"{same}")
+    del x
+    torch.cuda.empty_cache()
+    assert same, "the dout split differs from its plain version"
+    return same
+
+
+def kernel_parts_ms(fn, calls=3):
+    """`calls` calls of `fn` under torch.profiler, behind a 1e8-cycle
+    `torch.cuda._sleep` lead so that the profile is running before the
+    first of them reaches the card: the card time of each kernel they
+    launch, by its name, in ms a launch over the launches the profile
+    saw; "not measured" where it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(1e8))
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = {}, {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)\b", e.key)
+        if (e.device_type != DeviceType.CUDA or not m
+                or m.group(1) == "spin_kernel"):      # the lead
+            continue
+        us[m.group(1)] = us.get(m.group(1), 0.0) + getattr(
+            e, "self_device_time_total",
+            getattr(e, "self_cuda_time_total", 0.0))
+        seen[m.group(1)] = seen.get(m.group(1), 0) + e.count
+    return ({k: us[k] / seen[k] / 1e3 for k in us if seen[k]}
+            or "not measured: the profile saw no kernel")
+
+
+def latent_bwd_times(b=LANES):
+    """The latent route at B x 2048 rows, 128 q-heads, with the model's f32
+    dout and a bf16 one: its CUDA-event time and its card time by kernel
+    (`kernel_parts_ms`). A command of its own, in a fresh process (inside
+    this script's long run the profile sees none of the route's kernels,
+    `PERF.md` §7), which also times another checkout's route from that
+    checkout's root:
+    `PYTHONPATH=src python3 -c 'import chip_smoke as c; c.latent_bwd_times()'`.
+    Prints one line and returns {dout: times}."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, u, v, dout = latent_bwd_inputs(b, PROMPT_LEN, SEED + 140 + b, dt)
+
+        def call():
+            bwd_mod.flash_prefill_bwd(q, u, v, dout, LATENT_SCALE)
+
+        out[str(dt)[6:]] = {"ms": cuda_ms(call, 5, 1),
+                            "parts_ms": kernel_parts_ms(call)}
+        del q, u, v, dout
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[mla-train] latent route times at B={b}, N {PROMPT_LEN}, "
+          f"{LATENT_HEADS} q-heads, from {ROOT}: {json.dumps(out)}  "
+          f"[{smi_line()}]")
     return out
 
 
@@ -4513,8 +4624,9 @@ def latent_sdpa_bwd_ms():
 
 def phase_mla_train(smi, compiled):
     """Phase 14: the latent route of the attention backward against its
-    plain version and timed, then deepseek-v3-671b at full width cut to its
-    three mla_dense blocks and the MTP head (MLA_TRAIN_LAYERS) through the
+    plain version (dq, and the latent's gradient du) and timed (CUDA
+    events), its dout split pass bit for bit against its plain version,
+    then deepseek-v3-671b at full width cut to its three mla_dense blocks and the MTP head (MLA_TRAIN_LAYERS) through the
     training CLI's functions: MLA_TRAIN_STEPS steps at TRAIN_BATCH x
     TRAIN_SEQ, int8 moments (4 flash_prefill and 4 flash_prefill_bwd
     launches a step, finite loss and mtp_loss), the kernel on layer 0's
@@ -4527,6 +4639,7 @@ def phase_mla_train(smi, compiled):
         for dt in (torch.float32, torch.bfloat16):
             checks[(b, dt)] = latent_bwd_check(b, SEED + 140 + b, dt,
                                                timed=b == LANES)
+    split_same = latent_split_check()
     sdpa_ms, sdpa_b = latent_sdpa_bwd_ms()
     print(f"[mla-train] F.scaled_dot_product_attention(is_causal=True, K/V "
           f"expanded over {LATENT_HEADS} heads, dv {LATENT_DV}) backward "
@@ -4599,15 +4712,19 @@ def phase_mla_train(smi, compiled):
     held = dict(PLAIN_ON_CARD)
     q, k, v, dout = own["args"]
     sc = own["scale"]
-    want = ref.flash_prefill_bwd_ref(q, k, v, dout, scale=sc)
-    tc = plain_bwd_one_chunk(q, k, v, dout, sc, tc_dp=True)
-    own_r = {"kernel": [bwd_reading(x, w) for x, w in zip(own["out"], want)],
+    dq, dk, dv = ref.flash_prefill_bwd_ref(q, k, v, dout, scale=sc)
+    want = (dq, ref.latent_du(dk, dv))
+    dq, dk, dv = plain_bwd_one_chunk(q, k, v, dout, sc, tc_dp=True)
+    tc = (dq, ref.latent_du(dk, dv))
+    del dq, dk, dv
+    own_r = {"kernel": [bwd_reading(x, w)
+                        for x, w in zip(own["out"][:2], want)],
              "plain, dP on the tensor cores": [
                  bwd_reading(x, w) for x, w in zip(tc, want)]}
     PLAIN_ON_CARD.update(held)
     print(f"[mla-train] the latent route on layer 0's own inputs (step "
           f"{MLA_TRAIN_STEPS - 1}, {TRAIN_BATCH} x {TRAIN_SEQ} rows, dout "
-          f"{str(dout.dtype)[6:]}), worst |err| / limit for dq, dk, dv, all "
+          f"{str(dout.dtype)[6:]}), worst |err| / limit for dq and du, all "
           "rows (rows with a gradient): " + "; ".join(
               f"{name} " + ", ".join(f"{a:.3g} ({b:.3g})" for a, b in r)
               for name, r in own_r.items())
@@ -4667,6 +4784,7 @@ def phase_mla_train(smi, compiled):
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": sdpa_ms, "library_batch": sdpa_b,
         "bf16_dout": {k: b16[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "split_bit_equal": split_same,
         "readings": {f"B{b} {str(dt)[6:]}": {
             **{k: e["reading"] for k, e in c["errors"].items()},
             "over_bare": {k: e["over_bare"] for k, e in c["errors"].items()}}
@@ -4825,8 +4943,10 @@ def main():
     assert held < 1 << 30, held
 
     # 9. the rest of the dense family and the MoE family, full width
+    t = time.monotonic()
     for name, n in phase_family(smi).items():
         launches[name] += n
+    print(f"[family] phase {time.monotonic() - t:.1f}s")
 
     # 10. MLA and the mla_moe family: deepseek-v3-671b, 5 layers
     gc.collect()

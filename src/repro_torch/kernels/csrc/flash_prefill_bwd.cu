@@ -1098,64 +1098,143 @@ int launch_d(int route, int d, const void* q, const void* k, const void* v,
 // 576] as K, V the view of its first 512 columns, scale 1/sqrt(192) passed
 // in; dout [B, Hq, N, 512] f32 (the model's: its ctx stays f32 up to the
 // W_uv product) or bf16. The function and the rounding points are the
-// GQA routes' above (`ref.flash_prefill_bwd_ref`), with dv = 512 != d.
-// Like them it replaces no TPU kernel: the reference differentiates its
-// MLA attention (src/repro/models/mla.py:114, `chunked_causal_attention`
-// at the latent shape) with plain XLA autodiff, and the port's forward
-// there is flash_prefill.cu's latent route, which has no gradient.
+// GQA routes' above (`ref.flash_prefill_bwd_ref`), with dv = 512 != d, but
+// what it returns is dq and the latent's whole gradient
+//   du_j = T(sum over q-heads and rows i >= j of dS_ij q_i
+//            + [T(P_ij) dout_i, 0])      (u's 576 columns; dv's 512 first)
+// summed in f32 and rounded once: K and V are one tensor, so training
+// needs dk + [dv, 0], which autograd would otherwise add through the two
+// views. Like the GQA routes it replaces no TPU kernel: the reference
+// differentiates its MLA attention (src/repro/models/mla.py:114,
+// `chunked_causal_attention` at the latent shape) with plain XLA
+// autodiff, and the port's forward there is flash_prefill.cu's latent
+// route, which has no gradient.
 //
-// Bound: the five products over the causal triangle, q.k, dS.k and
-// dS^T.q over 576 and dout.v and P^T.dout over 512: B Hq N (N + 1) (3 576
-// + 2 512) flop, 5.913e12 at B = 4, N = 2048, 5.98 ms at the 989 TF/s bf16
-// peak (the bytes, 4.59 GB with an f32 dout, take 1.37 ms).
+// Bound: the five products over the causal triangle, q.k, dS.k and dS^T.q
+// over 576 and dout.v and P^T.dout over 512: B Hq N (N + 1) (3 576 + 2
+// 512) flop, 5.913e12 at B = 4, N = 2048, 5.98 ms at the 989 TF/s bf16
+// peak; the bytes (q and dq, an f32 dout, u and du, each moved once: 4.58
+// GB) take 1.37 ms.
 //
-// Why the GQA design does not stretch: its dq kernel keeps dq for 64 rows
-// in one warpgroup's registers, 288 a thread at d = 576 (the cap is 255);
-// its dk/dv kernel keeps dk and dv of 64 keys, 64 x 1088 f32 (278 KB); and
-// a 64-row q tile (72 KB) beside an f32 dout's hi and lo halves (128 KB)
-// leaves 26 KB of the 227 KB a CTA may have. So:
-// - dq kernel (bwd_dq_latent_kernel): one CTA of two warpgroups per
-//   (q-head, 64-row q-block), Q and dout resident, 16-key latent tiles
-//   (18 KB) streamed, one stage with an f32 dout (the shared memory is
-//   then full), two with a bf16 one. Warpgroup 0 makes S = Q K^T and the
-//   online statistics, warpgroup 1 dP = dout V^T, both as m64n16 products
-//   from shared memory; dP goes to warpgroup 0 and dS (bf16 hi and lo)
-//   back through 6 KB of shared memory in the accumulators' fragment
-//   order; each warpgroup adds dS K into its own dq columns (blocks 0-4
-//   and 5-8, 160 and 128 f32 a thread).
-// - dk/dv kernel (bwd_dkv_latent_kernel): one CTA per (64-key block,
-//   slice of up to 16 q-heads, dk or dv), so a CTA holds one of the two
-//   sums split over its two warpgroups, the 64-key latent tile resident
-//   and 16-row q and dout tiles through two stages; warpgroup 0 makes S^T
-//   and P (and dS for dk), warpgroup 1 dP^T for dk. Each slice's sums go
-//   to f32 partials, and sum_slices_kernel adds the slices in order and
-//   rounds to bf16: no atomics, so two launches give the same bits.
-// What holds it back: every logit product is an m64n16 wgmma with both
-// operands in shared memory, so the tensor cores wait on shared-memory
-// reads (2 KB of A for each 16 x 64 x 16 step); the f32 dout's dq kernel
-// has a single latent stage, so each tile's load waits on the last tile's
-// products; warpgroup 1 of a dv CTA idles while warpgroup 0 makes S^T;
-// and the dq kernel makes S and dP twice (two sweeps), the dk CTAs a
-// third time, the dv CTAs S a fourth.
+// Four kernels on one stream:
+// - split_dout_kernel (an f32 dout only): hi = bf16(dout) and lo =
+//   bf16(dout - hi) into a [2, B, Hq, N, 512] bf16 scratch, one elementwise
+//   pass (the values split_bf16 gives), so both kernels below stage an f32
+//   dout's tiles by cp.async like any bf16 tile, in their rings.
+// - bwd_dq_latent_kernel: one CTA of two warpgroups per (q-head, 64-row
+//   q-block), the late q-blocks first, Q and dout (hi, lo) resident, latent
+//   tiles of kT keys streamed through two stages. Warpgroup 0 makes S = Q
+//   K^T and the online statistics, warpgroup 1 dP = dout V^T, both m64nkT
+//   from shared memory; dP (bf16) goes to warpgroup 0 and P (f32) to
+//   warpgroup 1 through shared memory in the accumulators' fragment order,
+//   one CTA barrier a tile; each warpgroup makes dS (bf16 hi and lo) and
+//   adds dS K into its own dq column blocks from registers.
+//   Two sweeps: the first makes m, l and D, the second dq (the GQA
+//   routes' note above: D from the swept dP).
+// - bwd_du_latent_kernel: one CTA per (b, slice of up to 16 q-heads,
+//   64-key block), the 64-key latent tile resident, q and dout tiles of kR
+//   rows (with their rows' m, 1 / l and D) through two stages. Warpgroup 0
+//   makes S^T = K Q^T and P^T once a tile, warpgroup 1 dP^T = V dout^T;
+//   they trade dP^T and P^T as in the dq kernel, each makes dS^T (hi, lo)
+//   and T(P^T), and adds dS^T q into its du column blocks (0-4, 5-8) and
+//   T(P)^T dout into the same accumulators' first 512 columns (0-4, 5-7):
+//   one 64 x 576 f32 sum, dk's register footprint, so no CTA makes dv
+//   apart and S^T is made once a tile. Each slice's sum goes to an f32
+//   partial [slices, B, N, 576].
+// - sum_slices_kernel: adds the slices in order and rounds du to bf16.
+// Each output element is summed by one thread in a fixed order, with no
+// atomics: two launches give the same bits.
+//
+// Tiles and shared memory (a CTA may have 232,448 bytes; 1,024 of them
+// align the swizzle's atoms):
+//   dq, bf16 dout   kT = 32: Q 73,728 + dout 65,536 + 2 x 36,864 tiles +
+//                   12,288 exchange (dP bf16, P f32) = 226,304.
+//   dq, f32 dout    Q, dout hi and lo (200 KB) leave 26 KB, one 16-key
+//                   tile: a single stage. So warpgroup 0 holds q's last
+//                   three column blocks as A fragments in registers (48 a
+//                   thread: the accumulator block that its dq share of
+//                   four leaves spare beside warpgroup 1's five, and 16
+//                   more), which frees 24 KB: kT = 16, Q 49,152 + dout
+//                   131,072 + 2 x 18,432 + 6,144 = 224,256, two tiles in
+//                   flight.
+//   du, bf16 dout   kR = 32: the latent tile 73,728 + 2 x (36,864 q +
+//                   32,768 dout) + 768 stats + 12,288 exchange (dP^T bf16,
+//                   P^T f32) = 227,072.
+//   du, f32 dout    kR = 16 (dout's two halves make a 32-row stage 100 KB):
+//                   73,728 + 2 x (18,432 + 2 x 16,384) + 384 + 6,144 =
+//                   183,680.
+// What limits such a route, and what this design does about each: m64n16
+// logits re-read A (Q, or the latent tile) from shared memory for every
+// 16 keys or rows: m64n32 where the shared memory holds 32-row tiles (a
+// bf16 dout), halving those reads; an f32 dout split by plain loads
+// inside a ring stalls it, and its halves beside Q leave the dq kernel
+// one stage: one split pass, then cp.async at both cotangents, two stages
+// everywhere; a dk and a dv CTA apart would make S four times in all and
+// idle a warpgroup while dv's CTA makes S^T: du in one CTA makes it three
+// times (two sweeps and the du kernel), and no CTA idles a warpgroup.
+// What still holds it back: every logit product takes A from shared
+// memory at n16 or n32 (2 KB of A for 16 or 32 columns of output), and
+// with an f32 dout dP takes two such products: the shared memory's
+// bandwidth bounds them, and they take most of the f32-dout dq kernel's
+// time; the dq kernel makes S and dP twice; the du kernel's q and dout
+// tiles are copied again by every key block at or before their rows, and
+// two stages do not hide the copies wholly; the registers are full (the
+// tile loader's offsets are made afresh in the f32-dout dq kernel, which
+// spills otherwise); a tile's products are waited for before the next
+// tile's (each warpgroup's CUDA-core work overlaps only the other's
+// products: with two stages, a tile's logits issued before the last
+// tile's products would leave its copies no time to land); the exchange
+// costs a CTA barrier a tile beside the ring's.
 
 constexpr int kLatD = 576;                // kv_lora + qk_rope: q and K
 constexpr int kLatDV = 512;               // kv_lora: V, dout
 constexpr int kLatNB = kLatD / 64;        // 64-column blocks of q and K: 9
 constexpr int kLatVB = kLatDV / 64;       // of V and dout: 8
 constexpr int kLatThreads = 256;          // two warpgroups
-constexpr int kLatT = 16;                 // keys of a dq tile, q rows of a
-                                          // dk/dv tile
 constexpr int kLat64 = kB * 128;          // a block of a 64-row tile
-constexpr int kLat16 = kLatT * 128;       // a block of a 16-row tile
 constexpr int kLatQ = kLatNB * kLat64;    // 64 rows of q or K: 73,728
 constexpr int kLatDo = kLatVB * kLat64;   // 64 rows of dout: 65,536
-constexpr int kLatQT = kLatNB * kLat16;   // 16 rows of q or K: 18,432
-constexpr int kLatDoT = kLatVB * kLat16;  // 16 rows of dout: 16,384
-constexpr int kLatX = 3 * 128 * 16;       // the warpgroups' exchange: dP,
-                                          // then dS hi and lo (or T(P)),
-                                          // 16 bytes a thread each
-constexpr int kLatWideFirst = 5;          // warpgroup 0's blocks of dq, dk
-constexpr int kLatVFirst = 4;             // and of dv
+constexpr int kLatXch = 128 * 16;         // an exchange slot: a uint4 a thread
+
+// The dq kernel's shapes (kSplit: an f32 dout, as bf16 hi and lo).
+template <bool kSplit>
+struct LatDq {
+  static constexpr int kT = kSplit ? 16 : 32;  // keys a latent tile
+  static constexpr int kKS = kT / 16;          // its k-steps in dS K
+  static constexpr int kQR = kSplit ? 3 : 0;   // q's blocks in registers
+  static constexpr int kQS = kLatNB - kQR;     // q's blocks in shared memory
+  static constexpr int kW0 = 4;                // warpgroup 0's dq blocks
+  static constexpr int kAcc = kLatNB - kW0;    // accumulator blocks a thread
+  static constexpr int kQX = kSplit ? 16 : 1;  // q's floats past acc[kW0]
+  static constexpr int kTile = kLatNB * kT * 128;
+  static constexpr int kDo = (kSplit ? 2 : 1) * kLatDo;
+  static constexpr size_t kSmem = 1024 + (size_t)kQS * kLat64 + kDo +
+                                  2 * (size_t)kTile + kKS * kLatXch +
+                                  kT * 256;
+};
+static_assert(16 * LatDq<true>::kQR ==
+                  32 * (LatDq<true>::kAcc - LatDq<true>::kW0) +
+                      LatDq<true>::kQX,
+              "q's register blocks fill warpgroup 0's spare accumulator "
+              "block and the 16 floats past it");
+
+// The du kernel's shapes.
+template <bool kSplit>
+struct LatDu {
+  static constexpr int kR = kSplit ? 16 : 32;  // q rows a tile
+  static constexpr int kKS = kR / 16;          // its k-steps in the du sums
+  static constexpr int kQT = kLatNB * kR * 128;   // a q tile
+  static constexpr int kDoT = kLatVB * kR * 128;  // a dout tile (a half)
+  static constexpr int kStage = kQT + (kSplit ? 2 : 1) * kDoT;
+  static constexpr int kW0 = 5;                // warpgroup 0's du blocks
+  static constexpr size_t kSmem = 1024 + (size_t)kLatQ + 2 * (size_t)kStage +
+                                  2 * 3 * kR * sizeof(float) +
+                                  kKS * kLatXch + kR * 256;
+};
+static_assert(LatDq<false>::kSmem <= 232448 && LatDq<true>::kSmem <= 232448 &&
+                  LatDu<false>::kSmem <= 232448 &&
+                  LatDu<true>::kSmem <= 232448,
+              "a latent kernel's shared memory exceeds an sm_90 CTA's");
 
 // The thread's warpgroup (0 or 1), as a value the compiler knows to be the
 // same across the warp, so the warpgroups' products in their branches
@@ -1165,185 +1244,214 @@ __device__ __forceinline__ int warpgroup() {
 }
 
 // Rows [r0, r0 + R) of a bf16 matrix with rows of D elements (zeros past
-// N) into the tile at shared address dst: D / 64 blocks of R swizzled
-// 128-byte rows, by cp.async (not waited for); all 256 threads.
-template <int D, int R>
+// N), its column blocks 0 .. NBL - 1, into the tile at shared address dst:
+// NBL blocks of R swizzled 128-byte rows, by cp.async (not waited for); all
+// 256 threads. Chunk x of the tile, block-major (8 R 16-byte chunks a
+// block), goes to thread x % 256: a thread keeps its chunk of a row, c =
+// x % 8, in every block, and a warp reads four 128-byte row segments.
+// kFresh reads the thread index afresh (volatile), so the offsets are
+// made at each call and not held in registers across a tile loop: the
+// f32-dout dq kernel, whose registers are full, spills without it (and
+// the bf16-dout du kernel with it).
+template <int D, int R, int NBL = D / 64, bool kFresh = false>
 __device__ __forceinline__ void lat_load(uint32_t dst,
                                          const __nv_bfloat16* src, int r0,
                                          int N) {
-  constexpr int kCh = D / 8;              // 16-byte chunks a row
-  for (int x = threadIdx.x; x < R * kCh; x += kLatThreads) {
-    const int r = x / kCh, c = x % kCh;
+  constexpr int kCB = 8 * R;              // chunks a block (a power of 2)
+  constexpr int kAll = kCB * NBL;
+  int tid = threadIdx.x;
+  if constexpr (kFresh) asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tid));
+  const int c = tid & 7;
+#pragma unroll
+  for (int i = 0; i < (kAll + kLatThreads - 1) / kLatThreads; ++i) {
+    const int x = tid + i * kLatThreads;
+    if (kAll % kLatThreads != 0 && x >= kAll) break;
+    const int blk = x / kCB, r = (x >> 3) & (R - 1);
     const bool ok = r0 + r < N;
-    cp_async16(dst + (c >> 3) * (R * 128) + swz(r, c & 7),
-               src + (ok ? (size_t)(r0 + r) * D + c * 8 : 0), ok);
+    cp_async16(dst + blk * (R * 128) + swz(r, c),
+               src + (ok ? (size_t)(r0 + r) * D + blk * 64 + c * 8 : 0),
+               ok);
   }
 }
 
-// The same rows of an f32 dout (rows of 512), split into hi = bf16(x) at
-// hi and lo = bf16(x - hi) at lo, tiles of that layout, by plain loads
-// and stores.
-template <int R>
-__device__ __forceinline__ void lat_split(unsigned char* hi,
-                                          unsigned char* lo,
-                                          const float* src, int r0, int N) {
-  constexpr int kCh = kLatDV / 8;
-  for (int x = threadIdx.x; x < R * kCh; x += kLatThreads) {
-    const int r = x / kCh, c = x % kCh;
-    uint4 h = make_uint4(0u, 0u, 0u, 0u), l = h;
-    if (r0 + r < N) {
-      const float4* p = reinterpret_cast<const float4*>(
-          src + (size_t)(r0 + r) * kLatDV + c * 8);
-      const float4 a = __ldg(p), b = __ldg(p + 1);
-      split_bf16(a.x, a.y, h.x, l.x);
-      split_bf16(a.z, a.w, h.y, l.y);
-      split_bf16(b.x, b.y, h.z, l.z);
-      split_bf16(b.z, b.w, h.w, l.w);
-    }
-    const uint32_t off = (c >> 3) * (R * 128) + swz(r, c & 7);
-    *reinterpret_cast<uint4*>(hi + off) = h;
-    *reinterpret_cast<uint4*>(lo + off) = l;
-  }
+// s[64 x 16] += a b on the tensor cores, for the warpgroup: a [64 x 16]
+// bf16 from registers (the A fragment layout above), b [16 x 16] K-major
+// bf16 in shared memory by descriptor.
+__device__ __forceinline__ void wgmma_n16_rs(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Tiles 0 .. total - 1 through `ring` (kStages > 1), or through one stage:
-// load(i), wait, body(i), and every thread done with the stage.
-template <int kStages, typename Load, typename Body>
-__device__ __forceinline__ void lat_ring(int total, Load load, Body body) {
-  if constexpr (kStages > 1) {
-    ring<kStages>(total, load, body);
-  } else {
-    for (int it = 0; it < total; ++it) {
-      load(it);
-      cp_async_commit();
-      cp_async_wait<0>();
-      fence_proxy_async();
-      __syncthreads();
-      body(it);
-      __syncthreads();
-    }
-  }
-}
-
-// s (+)= A B^T over KS k-steps of 16 columns, issued for the warpgroup (the
-// caller fences, commits and waits): A the 64-row tile at a, B the 16-row
-// tile at b, both K-major; m64n16 products.
-template <int KS>
-__device__ __forceinline__ void lat_n16(float (&s)[2][4], uint32_t a,
-                                        uint32_t b, bool acc) {
+// d (+)= A B^T over the k-steps K0 .. K0 + KS - 1 (16 columns each), issued
+// for the warpgroup (the caller fences, commits and waits): A the 64-row
+// tile at a, B the R-row tile at b, both K-major in 64-column blocks; m64nR
+// products (R = 16 or 32); `acc` false overwrites d at the first.
+template <int K0, int KS, int R>
+__device__ __forceinline__ void lat_nt(float (&d)[R / 2], uint32_t a,
+                                       uint32_t b, bool acc) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+  for (int kk = K0; kk < K0 + KS; ++kk) {
     const uint32_t off = (kk & 3) * 32;
-    wgmma_n16(s, gmma_desc(a + (kk >> 2) * kLat64 + off, 16, 1024),
-              gmma_desc(b + (kk >> 2) * kLat16 + off, 16, 1024),
-              acc || kk > 0);
+    const uint64_t da = gmma_desc(a + (kk >> 2) * kLat64 + off, 16, 1024);
+    const uint64_t db = gmma_desc(b + (kk >> 2) * (R * 128) + off, 16, 1024);
+    const int on = acc || kk > K0;
+    if constexpr (R == 32)
+      wgmma_n32(d, da, db, on);
+    else
+      wgmma_n16(reinterpret_cast<float(&)[2][4]>(d), da, db, on);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void fence_frag(float (&r)[N][4]) {
+// s += Q B^T over the k-steps K0 .. K0 + KS - 1 with Q's A fragments from
+// registers: k-step K0 + i in floats 4 i .. 4 i + 3 of qa, then qx (bf16
+// pairs as float bits); B the 16-row tile at b, K-major; m64n16 products.
+template <int K0, int KS, int NX>
+__device__ __forceinline__ void lat_nt_qreg(float (&d)[8],
+                                            const float (&qa)[32],
+                                            const float (&qx)[NX],
+                                            uint32_t b) {
+  static_assert(4 * KS == 32 + NX, "qa and qx hold the k-steps");
 #pragma unroll
-  for (int i = 0; i < N; ++i) fence_regs(r[i]);
-}
-
-// s = A B^T over the 576 dims, waited for: a 64 x 16 tile of logits.
-__device__ __forceinline__ void lat_logits(float (&s)[2][4], uint32_t a,
-                                           uint32_t b) {
-  fence_frag(s);
-  wgmma_fence();
-  lat_n16<kLatNB * 4>(s, a, b, false);
-  wgmma_commit();
-  wgmma_wait0();
-  fence_frag(s);
-}
-
-// dp = T(A B^T) over the 512 dims of V and dout, waited for and rounded to
-// bf16; an f32 dout is its hi half, then its lo half (lo_a bytes past A's
-// address, or lo_b past B's).
-template <bool kSplit>
-__device__ __forceinline__ void lat_dp(float (&dp)[2][4], uint32_t a,
-                                       uint32_t b, uint32_t lo_a,
-                                       uint32_t lo_b) {
-  fence_frag(dp);
-  wgmma_fence();
-  lat_n16<kLatVB * 4>(dp, a, b, false);
-  if constexpr (kSplit) lat_n16<kLatVB * 4>(dp, a + lo_a, b + lo_b, true);
-  wgmma_commit();
-  wgmma_wait0();
-  fence_frag(dp);
+  for (int i = 0; i < KS; ++i) {
+    const int kk = K0 + i;
+    uint32_t a[4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dp[j][e] = round_bf16(dp[j][e]);
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * i + e;
+      a[e] = __float_as_uint(x < 32 ? qa[x] : qx[x - 32]);
+    }
+    wgmma_n16_rs(d, a, gmma_desc(b + (kk >> 2) * (16 * 128) + (kk & 3) * 32,
+                                 16, 1024));
+  }
 }
 
 // d[i] += A B over the column blocks NB0 .. NB0 + NBW - 1 of B, issued for
-// the warpgroup: A [64 x 16] bf16 from registers, B the 16-row tile at b,
-// MN-major (its 16 rows the contraction).
-template <int NB0, int NBW, int NA>
+// the warpgroup: A (a[kk], k-step kk) bf16 from registers, B the R-row tile
+// at b, MN-major (its rows the contraction).
+template <int NB0, int NBW, int R, int NA>
 __device__ __forceinline__ void lat_rs(float (&d)[NA][32],
-                                       const uint32_t (&a)[4], uint32_t b) {
+                                       const uint32_t (&a)[R / 16][4],
+                                       uint32_t b) {
 #pragma unroll
-  for (int i = 0; i < NBW; ++i)
-    wgmma_n64_rs_tb(d[i], a, gmma_desc(b + (NB0 + i) * kLat16, kLat16,
-                                       1024));
+  for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < NBW; ++i)
+      wgmma_n64_rs_tb(d[i], a[kk],
+                      gmma_desc(b + (NB0 + i) * (R * 128) + kk * 2048,
+                                R * 128, 1024));
 }
 
-// The A fragment of a 64 x 16 accumulator, rounded to bf16, as a uint4
-// (the exchange's unit; a warpgroup's thread w holds the same rows and
-// columns as the other's thread w).
-__device__ __forceinline__ uint4 lat_frag(const float (&x)[2][4]) {
-  return make_uint4(pack2(x[0][0], x[0][1]), pack2(x[0][2], x[0][3]),
-                    pack2(x[1][0], x[1][1]), pack2(x[1][2], x[1][3]));
-}
-// Those of hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void lat_split_frag(uint4& hi, uint4& lo,
-                                               const float (&x)[2][4]) {
-  split_bf16(x[0][0], x[0][1], hi.x, lo.x);
-  split_bf16(x[0][2], x[0][3], hi.y, lo.y);
-  split_bf16(x[1][0], x[1][1], hi.z, lo.z);
-  split_bf16(x[1][2], x[1][3], hi.w, lo.w);
-}
-__device__ __forceinline__ void lat_unfrag(float (&x)[2][4], uint4 w) {
-  const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+// The A fragments a[kk] (bf16 pairs) to exchange slot x (KS uint4 a
+// thread), and back.
+template <int KS>
+__device__ __forceinline__ void lat_put(uint4* x, const uint32_t (&a)[KS][4],
+                                        int wt) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[i >> 1][2 * (i & 1)] = __uint_as_float(v[i] << 16);
-    x[i >> 1][2 * (i & 1) + 1] = __uint_as_float(v[i] & 0xffff0000u);
+  for (int kk = 0; kk < KS; ++kk)
+    x[kk * 128 + wt] = make_uint4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+}
+template <int KS>
+__device__ __forceinline__ void lat_get(uint32_t (&a)[KS][4], const uint4* x,
+                                        int wt) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint4 w = x[kk * 128 + wt];
+    a[kk][0] = w.x;
+    a[kk][1] = w.y;
+    a[kk][2] = w.z;
+    a[kk][3] = w.w;
   }
 }
-__device__ __forceinline__ void lat_regs(uint32_t (&a)[4], uint4 w) {
-  a[0] = w.x;
-  a[1] = w.y;
-  a[2] = w.z;
-  a[3] = w.w;
+// An accumulator's NF floats to exchange slot x (NF / 4 float4 a thread),
+// and back.
+template <int NF>
+__device__ __forceinline__ void lat_putf(float4* x, const float (&v)[NF],
+                                         int wt) {
+#pragma unroll
+  for (int i = 0; i < NF / 4; ++i)
+    x[i * 128 + wt] =
+        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+template <int NF>
+__device__ __forceinline__ void lat_getf(float (&v)[NF], const float4* x,
+                                         int wt) {
+#pragma unroll
+  for (int i = 0; i < NF / 4; ++i) {
+    const float4 w = x[i * 128 + wt];
+    v[4 * i] = w.x;
+    v[4 * i + 1] = w.y;
+    v[4 * i + 2] = w.z;
+    v[4 * i + 3] = w.w;
+  }
+}
+
+// An accumulator's values from its bf16 fragments.
+template <int KS>
+__device__ __forceinline__ void lat_unfrag(float (&d)[8 * KS],
+                                           const uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      d[8 * kk + 2 * i] = __uint_as_float(a[kk][i] << 16);
+      d[8 * kk + 2 * i + 1] = __uint_as_float(a[kk][i] & 0xffff0000u);
+    }
+}
+
+// dp = T(A B^T) over the 512 dims of V and dout, waited for, as bf16 A
+// fragments: A the 64-row tile at a, B the R-row tile at b; an f32 dout is
+// its hi half, then its lo half (lo_a bytes past A's address, or lo_b past
+// B's).
+template <bool kSplit, int R>
+__device__ __forceinline__ void lat_dp(uint32_t (&f)[R / 16][4], uint32_t a,
+                                       uint32_t b, uint32_t lo_a,
+                                       uint32_t lo_b) {
+  float dp[R / 2];
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) dp[i] = 0.f;
+  fence_regs(dp);
+  wgmma_fence();
+  lat_nt<0, 4 * kLatVB, R>(dp, a, b, false);
+  if constexpr (kSplit) lat_nt<0, 4 * kLatVB, R>(dp, a + lo_a, b + lo_b, true);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(dp);
+  to_frag<R / 16>(f, dp);
 }
 
 // dq and the row statistics of the latent route. Grid (ceil(N / 64),
 // B * Hq), the late q-blocks first; q [B*Hq, N, 576], the latent [B, N,
-// 576]. Each tile is 16 keys of the latent: warpgroup 0 makes S = Q K^T
-// (36 m64n16 k-steps), the online statistics, P and dS; warpgroup 1 makes
-// dP = dout V^T (32 k-steps, 64 with an f32 dout) and hands it over; both
-// add dS K into their dq columns (0-319 and 320-575), dS as hi and lo.
-// dout is f32 (kSplit: one latent stage, the shared memory then holding
-// q, dout's two halves and one tile) or bf16 (two stages).
+// 576], dout [B*Hq, N, 512] bf16 (kSplit: its hi half, the lo half lo_off
+// elements after it).
 template <bool kSplit>
 __global__ void __launch_bounds__(kLatThreads, 1) bwd_dq_latent_kernel(
     const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ lat, const void* __restrict__ dout,
+    const __nv_bfloat16* __restrict__ lat,
+    const __nv_bfloat16* __restrict__ dout, size_t lo_off,
     __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int N,
     int Hq, float scale) {
-  constexpr int kStages = kSplit ? 1 : 2;
-  constexpr int kDoBytes = (kSplit ? 2 : 1) * kLatDo;
+  using L = LatDq<kSplit>;
+  constexpr int kT = L::kT, kKS = L::kKS, kQS = L::kQS, kW0 = L::kW0;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   unsigned char* sm =
       tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
   const uint32_t s_q = smem_u32(sm);
-  const uint32_t s_do = s_q + kLatQ;
-  const uint32_t s_ring = s_do + kDoBytes;
-  uint4* xdp = reinterpret_cast<uint4*>(sm + kLatQ + kDoBytes +
-                                        kStages * kLatQT);
-  uint4* xds = xdp + 128;               // hi [128], lo [128]
+  const uint32_t s_do = s_q + kQS * kLat64;  // dout, or hi, then lo
+  const uint32_t s_ring = s_do + L::kDo;
+  uint4* xdp = reinterpret_cast<uint4*>(sm + kQS * kLat64 + L::kDo +
+                                        2 * L::kTile);   // dP, bf16
+  float4* xp = reinterpret_cast<float4*>(xdp + kKS * 128);  // P, f32
   const int nqb = (N + kB - 1) / kB;
   const int qb = nqb - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -1353,97 +1461,129 @@ __global__ void __launch_bounds__(kLatThreads, 1) bwd_dq_latent_kernel(
   const int row0 = qb * kB;
   const int ra = row0 + 16 * warp + g;  // the thread's rows: ra, ra + 8
   const bool full_rows = row0 + kB <= N;
-  const int ntiles = min(4 * (qb + 1), (N + kLatT - 1) / kLatT);
+  const int ntiles = min((qb + 1) * (kB / kT), (N + kT - 1) / kT);
+  const int nfull = qb * (kB / kT);     // tiles wholly before row0
   const float sl = scale * kLog2e;
   const size_t nbh = (size_t)gridDim.y * N;
   const __nv_bfloat16* kh = lat + (size_t)(bh / Hq) * N * kLatD;
+  const __nv_bfloat16* qh = q + (size_t)bh * N * kLatD;
 
-  lat_load<kLatD, kB>(s_q, q + (size_t)bh * N * kLatD, row0, N);
+  lat_load<kLatD, kB, kQS>(s_q, qh, row0, N);
+  lat_load<kLatDV, kB>(s_do, dout + (size_t)bh * N * kLatDV, row0, N);
   if constexpr (kSplit)
-    lat_split<kB>(sm + kLatQ, sm + kLatQ + kLatDo,
-                  static_cast<const float*>(dout) + (size_t)bh * N * kLatDV,
-                  row0, N);
-  else
-    lat_load<kLatDV, kB>(s_do,
-                         static_cast<const __nv_bfloat16*>(dout) +
-                             (size_t)bh * N * kLatDV,
-                         row0, N);
+    lat_load<kLatDV, kB>(s_do + kLatDo,
+                         dout + lo_off + (size_t)bh * N * kLatDV, row0, N);
+  float acc[L::kAcc][32], qx[L::kQX];
+#pragma unroll
+  for (int i = 0; i < L::kAcc; ++i)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[i][x] = 0.f;
+  // warpgroup 0: q's last kQR blocks as A fragments (k-step i of them in
+  // floats 4 i .. 4 i + 3 of acc[kW0], then qx), from device memory
+  if constexpr (L::kQR > 0) {
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 4 * L::kQR; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = ra + 8 * (e & 1);
+          const int col = 64 * kQS + 16 * i + 8 * (e >> 1) + 2 * t;
+          const float w = __uint_as_float(
+              row < N ? *reinterpret_cast<const uint32_t*>(
+                            qh + (size_t)row * kLatD + col)
+                      : 0u);
+          if (4 * i + e < 32)
+            acc[kW0][4 * i + e] = w;
+          else
+            qx[4 * i + e - 32] = w;
+        }
+    }
+  }
   auto load = [&](int kt) {
-    lat_load<kLatD, kLatT>(s_ring + (kt % kStages) * kLatQT, kh, kt * kLatT,
-                           N);
+    lat_load<kLatD, kT, kLatNB, true>(s_ring + (kt & 1) * L::kTile, kh,
+                                      kt * kT, N);
   };
   // warpgroup 0: the tile's logits in base-2 units, masked
-  auto logits = [&](float (&s)[2][4], uint32_t tile, int kt) {
-    lat_logits(s, s_q, tile);
-    const bool full = kt < 4 * qb && full_rows;
+  auto logits = [&](float (&s)[kT / 2], uint32_t tile, int kt) {
+    fence_regs(s);
+    wgmma_fence();
+    lat_nt<0, 4 * kQS, kT>(s, s_q, tile, false);
+    if constexpr (L::kQR > 0)
+      lat_nt_qreg<4 * kQS, 4 * L::kQR>(s, acc[kW0], qx, tile);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    const bool full = kt < nfull && full_rows;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = ra + 8 * (e >> 1);
-        const int col = kt * kLatT + 8 * j + 2 * t + (e & 1);
+        const int col = kt * kT + 8 * j + 2 * t + (e & 1);
         const bool live = full || (col <= row && col < N && row < N);
-        s[j][e] = live ? __fmul_rn(s[j][e], sl) : kNegInf;
+        s[4 * j + e] = live ? __fmul_rn(s[4 * j + e], sl) : kNegInf;
       }
   };
-  // warpgroup 1: the tile's dP, to the exchange
-  auto dp_out = [&](uint32_t tile) {
-    float dp[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-    lat_dp<kSplit>(dp, s_do, tile, kLatDo, 0);
-    xdp[wt] = lat_frag(dp);
+  // warpgroup 1: the tile's dP, to the exchange (and to dp)
+  auto dp_out = [&](uint32_t tile, float (&dp)[kT / 2]) {
+    uint32_t f[kKS][4];
+    lat_dp<kSplit, kT>(f, s_do, tile, kLatDo, 0);
+    lat_put<kKS>(xdp, f, wt);
+    lat_unfrag<kKS>(dp, f);
+  };
+  auto dp_in = [&](float (&dp)[kT / 2]) {
+    uint32_t f[kKS][4];
+    lat_get<kKS>(f, xdp, wt);
+    lat_unfrag<kKS>(dp, f);
   };
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, dn[2] = {0.f, 0.f};
   float c[2] = {0.f, 0.f};              // the rows' dP at key 0
-  float s[2][4], dp[2][4];
+  float s[kT / 2], dp[kT / 2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  for (int i = 0; i < kT / 2; ++i) s[i] = dp[i] = 0.f;
   // sweep 1: m, l and sum exp(s - m) (dP - c), online
-  lat_ring<kStages>(ntiles, load, [&](int kt) {
-    const uint32_t tile = s_ring + (kt % kStages) * kLatQT;
+  ring<2>(ntiles, load, [&](int kt) {
+    const uint32_t tile = s_ring + (kt & 1) * L::kTile;
     float m_new[2], alpha[2], le[2];
     if (wg == 0) {
       logits(s, tile, kt);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float tmax = fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
-                                 fmaxf(s[1][2 * h], s[1][2 * h + 1]));
+        float tmax = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kT / 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
         m_new[h] = fmaxf(m[h], quad_max(tmax));
         alpha[h] = exp2f(m[h] - m_new[h]);
         le[h] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
           for (int x = 0; x < 2; ++x) {
-            const float e = exp2f(s[j][2 * h + x] - m_new[h]);
-            s[j][2 * h + x] = e;
+            const float e = exp2f(s[4 * j + 2 * h + x] - m_new[h]);
+            s[4 * j + 2 * h + x] = e;
             le[h] += e;
           }
       }
     } else {
-      dp_out(tile);
+      dp_out(tile, dp);
     }
     __syncthreads();
     if (wg == 0) {
-      lat_unfrag(dp, xdp[wt]);
+      dp_in(dp);
       if (kt == 0) {                    // key 0: lane t = 0 of the quad
-        c[0] = __shfl_sync(kFull, dp[0][0], lane & ~3);
-        c[1] = __shfl_sync(kFull, dp[0][2], lane & ~3);
+        c[0] = __shfl_sync(kFull, dp[0], lane & ~3);
+        c[1] = __shfl_sync(kFull, dp[2], lane & ~3);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float de = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
           for (int x = 0; x < 2; ++x)
-            de = fmaf(s[j][2 * h + x], dp[j][2 * h + x] - c[h], de);
+            de = fmaf(s[4 * j + 2 * h + x], dp[4 * j + 2 * h + x] - c[h], de);
         l[h] = l[h] * alpha[h] + quad_sum(le[h]);
         dn[h] = dn[h] * alpha[h] + quad_sum(de);
         m[h] = m_new[h];
@@ -1451,12 +1591,14 @@ __global__ void __launch_bounds__(kLatThreads, 1) bwd_dq_latent_kernel(
     }
   });
   float rl[2], dd[2];                   // 1 / max(l, 1e-30), D
+  float* xdd = reinterpret_cast<float*>(xp);  // D, to warpgroup 1
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lc = fmaxf(l[h], 1e-30f);
     rl[h] = 1.f / lc;
     dd[h] = c[h] + dn[h] / lc;
     const int row = ra + 8 * h;
+    if (wg == 0) xdd[2 * wt + h] = dd[h];
     if (wg == 0 && t == 0 && row < N) {
       const size_t o = (size_t)bh * N + row;
       stats[o] = m[h];
@@ -1464,68 +1606,57 @@ __global__ void __launch_bounds__(kLatThreads, 1) bwd_dq_latent_kernel(
       stats[2 * nbh + o] = dd[h];
     }
   }
+  __syncthreads();
+  if (wg == 1) {
+    dd[0] = xdd[2 * wt];
+    dd[1] = xdd[2 * wt + 1];
+  }
 
-  // sweep 2: dS, and dq += dS k as (hi + lo) k
-  float acc[kLatWideFirst][32];
-#pragma unroll
-  for (int i = 0; i < kLatWideFirst; ++i)
-#pragma unroll
-    for (int x = 0; x < 32; ++x) acc[i][x] = 0.f;
-  lat_ring<kStages>(ntiles, load, [&](int kt) {
-    const uint32_t tile = s_ring + (kt % kStages) * kLatQT;
+  // sweep 2: P goes to warpgroup 1 and dP to warpgroup 0; each makes dS
+  // and adds dS k into its dq columns as (hi + lo) k
+  uint32_t a_hi[kKS][4], a_lo[kKS][4];
+  ring<2>(ntiles, load, [&](int kt) {
+    const uint32_t tile = s_ring + (kt & 1) * L::kTile;
     if (wg == 0) {
       logits(s, tile, kt);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = exp2f(s[j][e] - m[e >> 1]) * rl[e >> 1];
+      for (int i = 0; i < kT / 2; ++i)
+        s[i] = exp2f(s[i] - m[(i >> 1) & 1]) * rl[(i >> 1) & 1];
+      lat_putf<kT / 2>(xp, s, wt);
     } else {
-      dp_out(tile);
+      dp_out(tile, dp);
     }
     __syncthreads();
-    uint32_t a_hi[4], a_lo[4];
-    if (wg == 0) {
-      lat_unfrag(dp, xdp[wt]);
+    if (wg == 0)
+      dp_in(dp);
+    else
+      lat_getf<kT / 2>(s, xp, wt);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = __fmul_rn(s[j][e] * (dp[j][e] - dd[e >> 1]), scale);
-      uint4 hi, lo;
-      lat_split_frag(hi, lo, s);
-      xds[wt] = hi;
-      xds[128 + wt] = lo;
-      lat_regs(a_hi, hi);
-      lat_regs(a_lo, lo);
-    }
-    __syncthreads();
-    if (wg == 1) {
-      lat_regs(a_hi, xds[wt]);
-      lat_regs(a_lo, xds[128 + wt]);
-    }
+    for (int i = 0; i < kT / 2; ++i)
+      s[i] = __fmul_rn(s[i] * (dp[i] - dd[(i >> 1) & 1]), scale);
+    split_frag<kKS>(a_hi, a_lo, s);
     fence_regs(acc);
     wgmma_fence();
     if (wg == 0) {
-      lat_rs<0, kLatWideFirst>(acc, a_hi, tile);
-      lat_rs<0, kLatWideFirst>(acc, a_lo, tile);
+      lat_rs<0, kW0, kT>(acc, a_hi, tile);
+      lat_rs<0, kW0, kT>(acc, a_lo, tile);
     } else {
-      lat_rs<kLatWideFirst, kLatNB - kLatWideFirst>(acc, a_hi, tile);
-      lat_rs<kLatWideFirst, kLatNB - kLatWideFirst>(acc, a_lo, tile);
+      lat_rs<kW0, kLatNB - kW0, kT>(acc, a_hi, tile);
+      lat_rs<kW0, kLatNB - kW0, kT>(acc, a_lo, tile);
     }
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
   });
-  const int nb0 = wg == 0 ? 0 : kLatWideFirst;
-  const int nbw = wg == 0 ? kLatWideFirst : kLatNB - kLatWideFirst;
+  const int nb0 = wg == 0 ? 0 : kW0;
+  const int nbw = wg == 0 ? kW0 : kLatNB - kW0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = ra + 8 * h;
     if (row >= N) continue;
     __nv_bfloat16* out = dq + ((size_t)bh * N + row) * kLatD;
 #pragma unroll
-    for (int i = 0; i < kLatWideFirst; ++i) {
+    for (int i = 0; i < L::kAcc; ++i) {
       if (i >= nbw) continue;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -1537,196 +1668,163 @@ __global__ void __launch_bounds__(kLatThreads, 1) bwd_dq_latent_kernel(
   }
 }
 
-// One CTA of the dk/dv kernel of the latent route: the sums of dk (kDK:
-// dS^T q, 576 columns) or of dv (T(P)^T dout, 512 columns) of 64 keys over
-// one slice of the q-heads, in head order, then row order, into that
-// slice's f32 partials part[slice][b][key][column]. The 64-key latent
-// tile stays in shared memory; 16-row q and dout tiles (with their rows'
-// m, 1 / max(l, 1e-30) and D) come through a ring of two stages. Warpgroup
-// 0 makes S^T = K Q^T (36 m64n16 k-steps) and P (and, for dk, dS);
-// warpgroup 1 makes dP^T = V dout^T for dk and hands it over; each adds
-// into its column blocks (dk: 0-4 and 5-8; dv: 0-3 and 4-7) from
-// registers, the other's share handed over through shared memory.
-template <bool kDK, bool kSplit>
-__device__ __forceinline__ void dkv_latent_cta(
-    unsigned char* sm, const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ lat, const void* __restrict__ dout,
-    const float* __restrict__ stats, float* __restrict__ part, int B,
-    int N, int Hq, int slices, float scale) {
-  constexpr int kStages = 2;
-  constexpr int kDoT = (kSplit ? 2 : 1) * kLatDoT;
-  constexpr int kStage = kLatQT + kDoT;  // a q tile and its dout (hi, lo)
-  constexpr int kW = kDK ? kLatD : kLatDV;
-  constexpr int kNB = kW / 64;
-  constexpr int kFirst = kDK ? kLatWideFirst : kLatVFirst;
+// The latent's gradient over one slice of the q-heads: one CTA per (b,
+// slice, 64-key block), du += dS^T q (hi, then lo) + [T(P)^T dout, 0]
+// over the slice's heads in order, then the kR-row q tiles at or after
+// the key block, into part[slice][b][key][576] f32. The 1-D grid holds
+// the (b, slice) streams fastest, so the CTAs in flight hold a few
+// neighbouring key blocks of every stream (the key blocks of one stream
+// fastest measured slower on the card). Runs after bwd_dq_latent_kernel,
+// whose stats it reads; dout as there.
+template <bool kSplit>
+__global__ void __launch_bounds__(kLatThreads, 1) bwd_du_latent_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ lat,
+    const __nv_bfloat16* __restrict__ dout, size_t lo_off,
+    const float* __restrict__ stats, float* __restrict__ part, int B, int N,
+    int Hq, int slices, float scale) {
+  using L = LatDu<kSplit>;
+  constexpr int kR = L::kR, kKS = L::kKS, kW0 = L::kW0;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* sm =
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
   const uint32_t s_k = smem_u32(sm);
   const uint32_t s_ring = s_k + kLatQ;
-  float* st_ring =                      // [kStages][3][16]: m, 1 / l, D
-      reinterpret_cast<float*>(sm + kLatQ + kStages * kStage);
-  uint4* xdp = reinterpret_cast<uint4*>(st_ring + kStages * 3 * kLatT);
-  uint4* xds = xdp + 128;
-  const int bs = blockIdx.x >> 1;
+  float* st_ring =                      // [2][3][kR]: m, 1 / l, D
+      reinterpret_cast<float*>(sm + kLatQ + 2 * L::kStage);
+  uint4* xdp = reinterpret_cast<uint4*>(st_ring + 2 * 3 * kR);  // dP^T
+  float4* xp = reinterpret_cast<float4*>(xdp + kKS * 128);  // P^T, f32
+  const int nbs = B * slices;
+  const int cta = blockIdx.x;
+  const int bs = cta % nbs, kb = cta / nbs;
   const int b = bs / slices, slice = bs % slices;
   const int hs = Hq / slices;
-  const int col0 = blockIdx.y * kB;
+  const int col0 = kb * kB;
   const int wg = warpgroup(), wt = threadIdx.x & 127;
   const int warp = wt >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int ka = col0 + 16 * warp + g;  // the thread's keys: ka, ka + 8
   const float sl = scale * kLog2e;
-  const int nqt = (N + kLatT - 1) / kLatT;
-  const int qt0 = col0 / kLatT;         // the first q tile at or after it
+  const int nqt = (N + kR - 1) / kR;
+  const int qt0 = col0 / kR;            // the first q tile at or after it
   const int per_head = nqt - qt0;
   const size_t nbh = (size_t)B * Hq * N;
 
   lat_load<kLatD, kB>(s_k, lat + (size_t)b * N * kLatD, col0, N);
   auto load = [&](int it) {
     const int bh = b * Hq + slice * hs + it / per_head;
-    const int r0 = (qt0 + it % per_head) * kLatT;
-    const int stg = it % kStages;
-    const uint32_t dst = s_ring + stg * kStage;
-    lat_load<kLatD, kLatT>(dst, q + (size_t)bh * N * kLatD, r0, N);
+    const int r0 = (qt0 + it % per_head) * kR;
+    const int stg = it & 1;
+    const uint32_t dst = s_ring + stg * L::kStage;
+    const __nv_bfloat16* dh = dout + (size_t)bh * N * kLatDV;
+    lat_load<kLatD, kR>(dst, q + (size_t)bh * N * kLatD, r0, N);
+    lat_load<kLatDV, kR>(dst + L::kQT, dh, r0, N);
     if constexpr (kSplit)
-      lat_split<kLatT>(sm + kLatQ + stg * kStage + kLatQT,
-                       sm + kLatQ + stg * kStage + kLatQT + kLatDoT,
-                       static_cast<const float*>(dout) +
-                           (size_t)bh * N * kLatDV,
-                       r0, N);
-    else
-      lat_load<kLatDV, kLatT>(dst + kLatQT,
-                              static_cast<const __nv_bfloat16*>(dout) +
-                                  (size_t)bh * N * kLatDV,
-                              r0, N);
-    if (threadIdx.x < 3 * kLatT) {      // the tile's rows' stats
-      const int w = threadIdx.x / kLatT, r = threadIdx.x % kLatT;
+      lat_load<kLatDV, kR>(dst + L::kQT + L::kDoT, dh + lo_off, r0, N);
+    if (threadIdx.x < 3 * kR) {         // the tile's rows' stats
+      const int w = threadIdx.x / kR, r = threadIdx.x % kR;
       const bool ok = r0 + r < N;
-      cp_async4(smem_u32(st_ring + (stg * 3 + w) * kLatT + r),
+      cp_async4(smem_u32(st_ring + (stg * 3 + w) * kR + r),
                 stats + w * nbh + (ok ? (size_t)bh * N + r0 + r : 0), ok);
     }
   };
 
-  float acc[kFirst][32];
+  float acc[kW0][32];
 #pragma unroll
-  for (int i = 0; i < kFirst; ++i)
+  for (int i = 0; i < kW0; ++i)
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[i][x] = 0.f;
-  float s[2][4], dp[2][4];
+  float s[kR / 2], dp[kR / 2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-  ring<kStages>(hs * per_head, load, [&](int it) {
-    const int r0 = (qt0 + it % per_head) * kLatT;
-    const int stg = it % kStages;
-    const uint32_t s_qt = s_ring + stg * kStage, s_dt = s_qt + kLatQT;
-    const float* st = st_ring + stg * 3 * kLatT;
+  for (int i = 0; i < kR / 2; ++i) s[i] = dp[i] = 0.f;
+  uint32_t a_hi[kKS][4], a_lo[kKS][4], a_p[kKS][4];
+  ring<2>(hs * per_head, load, [&](int it) {
+    const int r0 = (qt0 + it % per_head) * kR;
+    const int stg = it & 1;
+    const uint32_t s_qt = s_ring + stg * L::kStage, s_dt = s_qt + L::kQT;
+    const float* st = st_ring + stg * 3 * kR;
     if (wg == 0) {                      // P^T (rows past N: m = 0, 1/l = 0)
-      lat_logits(s, s_k, s_qt);
+      fence_regs(s);
+      wgmma_fence();
+      lat_nt<0, 4 * kLatNB, kR>(s, s_k, s_qt, false);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
       const bool full =
-          col0 + kB - 1 <= r0 && r0 + kLatT <= N && col0 + kB <= N;
+          col0 + kB - 1 <= r0 && r0 + kR <= N && col0 + kB <= N;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < kR / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = ka + 8 * (e >> 1), lr = 8 * j + 2 * t + (e & 1);
           const int row = r0 + lr;
           const bool live = full || (key <= row && row < N && key < N);
-          const float x = live ? __fmul_rn(s[j][e], sl) : kNegInf;
-          s[j][e] = exp2f(x - st[lr]) * st[kLatT + lr];
+          const float x = live ? __fmul_rn(s[4 * j + e], sl) : kNegInf;
+          s[4 * j + e] = exp2f(x - st[lr]) * st[kR + lr];
         }
-    } else if constexpr (kDK) {
-      lat_dp<kSplit>(dp, s_k, s_dt, 0, kLatDoT);
-      xdp[wt] = lat_frag(dp);
+      lat_putf<kR / 2>(xp, s, wt);
+    } else {                            // dP^T, to the exchange
+      uint32_t f[kKS][4];
+      lat_dp<kSplit, kR>(f, s_k, s_dt, 0, L::kDoT);
+      lat_put<kKS>(xdp, f, wt);
+      lat_unfrag<kKS>(dp, f);
     }
-    uint32_t a0[4], a1[4];
-    if constexpr (kDK) {
-      __syncthreads();
-      if (wg == 0) {                    // dS^T, as hi and lo
-        lat_unfrag(dp, xdp[wt]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int lr = 8 * j + 2 * t + (e & 1);
-            dp[j][e] = __fmul_rn(s[j][e] * (dp[j][e] - st[2 * kLatT + lr]),
-                                 scale);
-          }
-        uint4 hi, lo;
-        lat_split_frag(hi, lo, dp);
-        xds[wt] = hi;
-        xds[128 + wt] = lo;
-      }
-      __syncthreads();
-      lat_regs(a0, xds[wt]);
-      lat_regs(a1, xds[128 + wt]);
-      fence_regs(acc);
-      wgmma_fence();
-      if (wg == 0) {
-        lat_rs<0, kFirst>(acc, a0, s_qt);
-        lat_rs<0, kFirst>(acc, a1, s_qt);
-      } else {
-        lat_rs<kFirst, kNB - kFirst>(acc, a0, s_qt);
-        lat_rs<kFirst, kNB - kFirst>(acc, a1, s_qt);
-      }
+    __syncthreads();
+    if (wg == 0) {
+      uint32_t f[kKS][4];
+      lat_get<kKS>(f, xdp, wt);
+      lat_unfrag<kKS>(dp, f);
     } else {
-      if (wg == 0) xds[wt] = lat_frag(s);  // T(P^T)
-      __syncthreads();
-      lat_regs(a0, xds[wt]);
-      fence_regs(acc);
-      wgmma_fence();
-      if (wg == 0) {
-        lat_rs<0, kFirst>(acc, a0, s_dt);
-        if constexpr (kSplit) lat_rs<0, kFirst>(acc, a0, s_dt + kLatDoT);
-      } else {
-        lat_rs<kFirst, kNB - kFirst>(acc, a0, s_dt);
-        if constexpr (kSplit)
-          lat_rs<kFirst, kNB - kFirst>(acc, a0, s_dt + kLatDoT);
+      lat_getf<kR / 2>(s, xp, wt);
+    }
+    // dS^T as hi and lo, and T(P^T), in each warpgroup
+#pragma unroll
+    for (int j = 0; j < kR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lr = 8 * j + 2 * t + (e & 1);
+        dp[4 * j + e] =
+            __fmul_rn(s[4 * j + e] * (dp[4 * j + e] - st[2 * kR + lr]),
+                      scale);
       }
+    split_frag<kKS>(a_hi, a_lo, dp);
+    to_frag<kKS>(a_p, s);
+    fence_regs(acc);
+    wgmma_fence();
+    if (wg == 0) {
+      lat_rs<0, kW0, kR>(acc, a_hi, s_qt);
+      lat_rs<0, kW0, kR>(acc, a_lo, s_qt);
+      lat_rs<0, kW0, kR>(acc, a_p, s_dt);
+      if constexpr (kSplit) lat_rs<0, kW0, kR>(acc, a_p, s_dt + L::kDoT);
+    } else {
+      lat_rs<kW0, kLatNB - kW0, kR>(acc, a_hi, s_qt);
+      lat_rs<kW0, kLatNB - kW0, kR>(acc, a_lo, s_qt);
+      lat_rs<kW0, kLatVB - kW0, kR>(acc, a_p, s_dt);
+      if constexpr (kSplit)
+        lat_rs<kW0, kLatVB - kW0, kR>(acc, a_p, s_dt + L::kDoT);
     }
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
   });
-  const int nb0 = wg == 0 ? 0 : kFirst;
-  const int nbw = wg == 0 ? kFirst : kNB - kFirst;
-  float* out = part + ((size_t)slice * B + b) * N * kW;
+  const int nb0 = wg == 0 ? 0 : kW0;
+  const int nbw = wg == 0 ? kW0 : kLatNB - kW0;
+  float* out = part + ((size_t)slice * B + b) * N * kLatD;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = ka + 8 * h;
     if (key >= N) continue;
 #pragma unroll
-    for (int i = 0; i < kFirst; ++i) {
+    for (int i = 0; i < kW0; ++i) {
       if (i >= nbw) continue;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * (nb0 + i) + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(out + (size_t)key * kW + col) =
+        *reinterpret_cast<float2*>(out + (size_t)key * kLatD + col) =
             make_float2(acc[i][4 * j + 2 * h], acc[i][4 * j + 2 * h + 1]);
       }
     }
   }
-}
-
-// dk and dv partials of the latent route. Grid (2 B slices, ceil(N / 64)):
-// block x = 2 (b slices + slice) + role (0: dk, 1: dv), block y the key
-// block, so the key blocks with the most q rows after them start first.
-// Runs after bwd_dq_latent_kernel, whose stats it reads.
-template <bool kSplit>
-__global__ void __launch_bounds__(kLatThreads, 1) bwd_dkv_latent_kernel(
-    const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ lat, const void* __restrict__ dout,
-    const float* __restrict__ stats, float* __restrict__ dk_part,
-    float* __restrict__ dv_part, int B, int N, int Hq, int slices,
-    float scale) {
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  unsigned char* sm =
-      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
-  if ((blockIdx.x & 1) == 0)
-    dkv_latent_cta<true, kSplit>(sm, q, lat, dout, stats, dk_part, B, N, Hq,
-                                 slices, scale);
-  else
-    dkv_latent_cta<false, kSplit>(sm, q, lat, dout, stats, dv_part, B, N,
-                                  Hq, slices, scale);
 }
 
 // out[i] = bf16(the sum over s of part[s][i]), s in order, in f32; four
@@ -1751,58 +1849,74 @@ __global__ void sum_slices_kernel(const float* __restrict__ part,
   }
 }
 
-constexpr size_t dq_latent_smem_bytes(bool split) {
-  return 1024 + (size_t)kLatQ + (split ? 2 : 1) * kLatDo +
-         (split ? 1 : 2) * kLatQT + kLatX;
+// hi[i] = bf16(x[i]) and lo[i] = bf16(x[i] - hi[i]) (split_bf16's values),
+// eight elements a thread (count a multiple of 8, 32-byte aligned rows).
+__global__ void split_dout_kernel(const float* __restrict__ x,
+                                  __nv_bfloat16* __restrict__ hi,
+                                  __nv_bfloat16* __restrict__ lo,
+                                  size_t count) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x * 8;
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+       i < count; i += stride) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x + i));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+    uint4 h, l;
+    split_bf16(a.x, a.y, h.x, l.x);
+    split_bf16(a.z, a.w, h.y, l.y);
+    split_bf16(b.x, b.y, h.z, l.z);
+    split_bf16(b.z, b.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
 }
-constexpr size_t dkv_latent_smem_bytes(bool split) {
-  return 1024 + (size_t)kLatQ + 2 * (kLatQT + (split ? 2 : 1) * kLatDoT) +
-         2 * 3 * kLatT * sizeof(float) + kLatX;
+
+cudaError_t launch_split(const void* x, void* out, size_t count,
+                         cudaStream_t stream) {
+  auto* hi = static_cast<__nv_bfloat16*>(out);
+  const size_t blocks = (count / 8 + 255) / 256;
+  split_dout_kernel<<<(unsigned)(blocks < 2112 ? blocks : 2112), 256, 0,
+                      stream>>>(static_cast<const float*>(x), hi, hi + count,
+                                count);
+  return cudaGetLastError();
 }
-static_assert(dq_latent_smem_bytes(true) <= 232448,
-              "the dq kernel's shared memory exceeds an sm_90 CTA's");
-static_assert(dkv_latent_smem_bytes(true) <= 232448,
-              "the dk/dv kernel's shared memory exceeds an sm_90 CTA's");
 
 template <bool kSplit>
 int launch_latent(const void* q, const void* lat, const void* dout,
-                  void* dq, void* dk, void* dv, void* stats, void* dk_part,
-                  void* dv_part, int B, int Hq, int N, int slices,
-                  float scale, cudaStream_t stream) {
+                  void* split, void* dq, void* du, void* stats, void* part,
+                  int B, int Hq, int N, int slices, float scale,
+                  cudaStream_t stream) {
   using T = __nv_bfloat16;
   const int nb = (N + kB - 1) / kB;
+  const size_t count = (size_t)B * Hq * N * kLatDV;
+  cudaError_t err;
+  if constexpr (kSplit) {
+    err = launch_split(dout, split, count, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const T* d = static_cast<const T*>(kSplit ? split : dout);
   auto kq = bwd_dq_latent_kernel<kSplit>;
-  auto kkv = bwd_dkv_latent_kernel<kSplit>;
-  const size_t smem_q = dq_latent_smem_bytes(kSplit);
-  const size_t smem_kv = dkv_latent_smem_bytes(kSplit);
-  cudaError_t err = prefer_smem(kq, smem_q);
+  auto ku = bwd_du_latent_kernel<kSplit>;
+  err = prefer_smem(kq, LatDq<kSplit>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  err = prefer_smem(kkv, smem_kv);
+  err = prefer_smem(ku, LatDu<kSplit>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  kq<<<dim3(nb, B * Hq), kLatThreads, smem_q, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(lat), dout,
+  kq<<<dim3(nb, B * Hq), kLatThreads, LatDq<kSplit>::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(lat), d, count,
       static_cast<T*>(dq), static_cast<float*>(stats), N, Hq, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3(2 * B * slices, nb), kLatThreads, smem_kv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(lat), dout,
-      static_cast<const float*>(stats), static_cast<float*>(dk_part),
-      static_cast<float*>(dv_part), B, N, Hq, slices, scale);
+  ku<<<B * slices * nb, kLatThreads, LatDu<kSplit>::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(lat), d, count,
+      static_cast<const float*>(stats), static_cast<float*>(part), B, N, Hq,
+      slices, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t counts[2] = {(size_t)B * N * kLatD, (size_t)B * N * kLatDV};
-  void* outs[2] = {dk, dv};
-  const float* parts[2] = {static_cast<const float*>(dk_part),
-                           static_cast<const float*>(dv_part)};
-  for (int i = 0; i < 2; ++i) {
-    const size_t blocks = (counts[i] / 4 + 255) / 256;
-    sum_slices_kernel<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0,
-                        stream>>>(parts[i], static_cast<T*>(outs[i]),
-                                  counts[i], slices);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const size_t total = (size_t)B * N * kLatD;
+  const size_t blocks = (total / 4 + 255) / 256;
+  sum_slices_kernel<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0,
+                      stream>>>(static_cast<const float*>(part),
+                                static_cast<T*>(du), total, slices);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1844,39 +1958,52 @@ int flash_prefill_bwd_launch(int kind, int dout_kind, const void* q,
                   static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of the larger of the latent route's kernels, in
+// Dynamic shared memory of the largest of the latent route's kernels, in
 // bytes.
 size_t flash_prefill_bwd_latent_smem_bytes() {
-  const size_t a = dq_latent_smem_bytes(true), b = dkv_latent_smem_bytes(true);
-  return a > b ? a : b;
+  const size_t sizes[] = {LatDq<true>::kSmem, LatDq<false>::kSmem,
+                          LatDu<true>::kSmem, LatDu<false>::kSmem};
+  size_t most = 0;
+  for (size_t x : sizes) most = x > most ? x : most;
+  return most;
 }
 
 // The latent route (MLA: d = 576, dv = 512, V the latent's first 512
-// columns, one latent "kv head"; bf16): the dq kernel, the dk/dv kernel
-// and the two sums of its slices, on `stream`; returns cudaGetLastError()
-// (0 on success) and never synchronises.
-//   dout_kind  0 = f32 (split into bf16 hi and lo), 1 = bf16
+// columns, one latent "kv head"; bf16) on `stream`: an f32 dout's split,
+// the dq kernel, the du kernel and the sum of its slices; returns
+// cudaGetLastError() (0 on success) and never synchronises.
+//   dout_kind  0 = f32 (split into bf16 hi and lo in `split`), 1 = bf16
 //   q [B,Hq,N,576] and dq, the latent [B,N,576] (k, and v = its first 512
-//   columns, read from its rows), dout [B,Hq,N,512], dk [B,N,576], dv
-//   [B,N,512] bf16; stats [3,B*Hq,N] f32 scratch; dk_part [slices,B,N,576]
-//   and dv_part [slices,B,N,512] f32 scratch: the sums of each slice of
-//   Hq / slices q-heads; all contiguous and 16-byte aligned, Hq a multiple
-//   of slices
+//   columns, read from its rows), dout [B,Hq,N,512], du [B,N,576] (the
+//   latent's gradient through K and V) bf16; stats [3,B*Hq,N] f32
+//   scratch; split [2,B,Hq,N,512] bf16 scratch (f32 dout only); part
+//   [slices,B,N,576] f32 scratch: the sums of each slice of Hq / slices
+//   q-heads; all contiguous and 16-byte aligned, Hq a multiple of slices
 int flash_prefill_bwd_latent_launch(int dout_kind, const void* q,
                                     const void* lat, const void* dout,
-                                    void* dq, void* dk, void* dv,
-                                    void* stats, void* dk_part,
-                                    void* dv_part, int B, int Hq, int N,
-                                    int slices, float scale, void* stream) {
+                                    void* split, void* dq, void* du,
+                                    void* stats, void* part, int B, int Hq,
+                                    int N, int slices, float scale,
+                                    void* stream) {
   if (B <= 0 || Hq <= 0 || N <= 0 || slices <= 0 || Hq % slices ||
-      dout_kind < 0 || dout_kind > 1)
+      dout_kind < 0 || dout_kind > 1 ||
+      (dout_kind == 0 && split == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dout_kind == 0)
-    return launch_latent<true>(q, lat, dout, dq, dk, dv, stats, dk_part,
-                               dv_part, B, Hq, N, slices, scale, s);
-  return launch_latent<false>(q, lat, dout, dq, dk, dv, stats, dk_part,
-                              dv_part, B, Hq, N, slices, scale, s);
+    return launch_latent<true>(q, lat, dout, split, dq, du, stats, part, B,
+                               Hq, N, slices, scale, s);
+  return launch_latent<false>(q, lat, dout, split, dq, du, stats, part, B,
+                              Hq, N, slices, scale, s);
+}
+
+// The latent route's f32 dout split alone: out [2, count] bf16 = hi and lo
+// of x [count] f32 (count a multiple of 8, both 16-byte aligned); returns
+// cudaGetLastError().
+int flash_prefill_bwd_split_launch(const void* x, void* out, size_t count,
+                                   void* stream) {
+  if (count % 8) return (int)cudaErrorInvalidValue;
+  return (int)launch_split(x, out, count, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -15,7 +15,7 @@ from repro_torch.device import kernel_capable
 from repro_torch.kernels import ref
 from repro_torch.kernels.approx_score import approx_score as _approx_kernel
 from repro_torch.kernels.flash_prefill import (
-    LATENT, flash_prefill as _flash_kernel)
+    LATENT, check_latent_v, flash_prefill as _flash_kernel)
 from repro_torch.kernels.flash_prefill_bwd import (
     flash_prefill_bwd as _flash_bwd_kernel)
 from repro_torch.kernels.fused_decode import fused_decode as _fused_kernel
@@ -157,18 +157,31 @@ def prefill_attention(q, k, v, acc=None, *, row0: int = 0, length=None,
 def prefill_attention_bwd(q, k, v, dout, *, scale=None, chunk: int = 512):
     """The backward of `prefill_attention`'s out over a whole prompt (row0
     0, every row live): q [B,Hq,N,d], k [B,Hk,N,d], v [B,Hk,N,dv], dout
-    [B,Hq,N,dv] → (dq, dk, dv) (`ref.flash_prefill_bwd_ref`). On the card
-    the `flash_prefill_bwd` kernel, with q cast to K's dtype, all made
-    contiguous (copies where they are not) but MLA's latent V ((d, dv) =
-    `LATENT`), the view of k's first dv columns, which the kernel's latent
-    route reads where it lies; a bf16 dout goes to bf16 K/V's route as it
-    is, any other is cast to f32 (which the bf16 routes split into bf16 hi
-    and lo halves). `chunk` only shapes the plain version's loop."""
-    if not _on_card(q, "flash_prefill_bwd"):
-        return ref.flash_prefill_bwd_ref(q, k, v, dout, scale=scale,
-                                         chunk=chunk)
-    keep = dout.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
+    [B,Hq,N,dv] → (dq, dk, dv) (`ref.flash_prefill_bwd_ref`). MLA's latent
+    shape ((d, dv) = `LATENT`, Hk = 1), whose v must be the view of k's
+    first dv columns, gives (dq, du, None) instead: du the latent's whole
+    gradient, dk + [dv, 0] summed in f32 and rounded once
+    (`ref.latent_du`), which is what autograd would add into it through
+    the two views. On the card the `flash_prefill_bwd` kernel, with q cast
+    to K's dtype, all made contiguous (copies where they are not) but the
+    latent V, which its latent route reads where it lies; a bf16 dout goes
+    to bf16 K/V's route as it is, any other is cast to f32 (which the bf16
+    routes split into bf16 hi and lo halves). `chunk` only shapes the
+    plain version's loop."""
     latent = (q.shape[-1], v.shape[-1]) == LATENT
+    if latent:                          # du holds V's share: one tensor
+        b, hk, n, d = k.shape
+        if hk != 1:
+            raise ValueError(f"prefill_attention_bwd: the latent shape "
+                             f"{LATENT} takes one latent, got Hk = {hk}")
+        check_latent_v(v.reshape(b, n, -1), k.reshape(b, n, d),
+                       (b, n, v.shape[-1]), k.dtype, k.device,
+                       "prefill_attention_bwd")
+    if not _on_card(q, "flash_prefill_bwd"):
+        dq, dk, dv = ref.flash_prefill_bwd_ref(q, k, v, dout, scale=scale,
+                                               chunk=chunk)
+        return (dq, ref.latent_du(dk, dv), None) if latent else (dq, dk, dv)
+    keep = dout.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
     dq, dk, dv = _flash_bwd_kernel(
         q.to(k.dtype).contiguous(), k.contiguous(),
         v if latent else v.contiguous(),
@@ -181,8 +194,10 @@ class _CausalAttention(torch.autograd.Function):
     """Differentiable causal prompt attention: `prefill_attention`'s out
     forward (its column sums dropped), cast to `out_dtype`, and
     `prefill_attention_bwd` backward, which so receives the cotangent in
-    `out_dtype`. k and v may be views of one tensor (MLA's latent and its
-    first dv columns): autograd then adds their gradients into it."""
+    `out_dtype`. At MLA's latent shape k and v are views of one tensor
+    (the latent and its first dv columns): the backward returns the
+    latent's whole gradient as k's and None as v's, so autograd takes it
+    through k's view alone."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, chunk, out_dtype):

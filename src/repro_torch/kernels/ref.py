@@ -258,6 +258,37 @@ def flash_prefill_bwd_ref(q, k, v, dout, *, scale=None, chunk: int = 512):
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
+def latent_du(dk, dv):
+    """The latent's gradient from `flash_prefill_bwd_ref`'s dk [B,1,N,d]
+    and dv [B,1,N,dv] (MLA: K the latent, V the view of its first dv
+    columns): dk + [dv, 0], summed in f32 and rounded once to dk's dtype,
+    the sum autograd makes of the two views' gradients (the plain version
+    of the kernel's latent-route du)."""
+    pad = torch.nn.functional.pad(dv.float(), (0, dk.shape[-1] - dv.shape[-1]))
+    return (dk.float() + pad).to(dk.dtype)
+
+
+def split_bf16_ref(x):
+    """An f32 tensor as bf16 hi = bf16(x) and lo = bf16(x - hi), stacked
+    [2, *x.shape]: the plain version of the latent route's dout split."""
+    hi = x.to(torch.bfloat16)
+    return torch.stack((hi, (x - hi.float()).to(torch.bfloat16)))
+
+
+def split_bf16_cases(shape, generator):
+    """f32 values of `shape` (at least 8 elements) on `generator`'s device
+    to hold a dout split to `split_bf16_ref` on: normal values over 60
+    binades, the first eight zeros of both signs, subnormals, the f32
+    extremes and two values beside a bf16 rounding tie."""
+    dev = generator.device
+    x = torch.randn(shape, generator=generator, device=dev)
+    x = x * torch.exp2(torch.randint(-30, 30, x.shape, generator=generator,
+                                     device=dev).float())
+    x.view(-1)[:8] = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 3e38, -3e38,
+                                   1.0 + 2 ** -9, 1.0 - 2 ** -10], device=dev)
+    return x
+
+
 def flash_prefill_bwd_dq_flip(q, k, v, dout, *, scale=None,
                               chunk: int = 256):
     """How far each element of `flash_prefill_bwd_ref`'s dq moves when one

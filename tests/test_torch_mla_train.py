@@ -11,12 +11,18 @@ at the latent width, `mla_train`, and the latent route of the
   `ops.causal_attention`, autograd adding K's and V's into the latent's
   (bf16: each of the two within its `_bound`, plus half a bf16 ulp of the
   sum: 2^-8 max|du|);
-- the latent route's algorithm emulated in PyTorch (`emulate_latent`):
-  64-row q-blocks over 16-key tiles with the online statistics; dk and dv
-  over 64-key blocks and 16-row q tiles, each slice of q-heads summed apart
-  and the slices added in order; dS and an f32 dout as bf16 hi + lo),
-  against the plain version, to `_assert_kernel_close`, also on a latent
-  whose rows share a large common vector;
+- the latent route's algorithm emulated in PyTorch (`emulate_latent`): an
+  f32 dout split once into bf16 hi + lo; 64-row q-blocks over latent tiles
+  of 32 keys (16 with an f32 dout) with the online statistics; the
+  latent's gradient du over 64-key blocks and q tiles of as many rows, dS^T
+  q and T(P)^T dout in one f32 sum, each slice of q-heads summed apart and
+  the slices added in order; dS as bf16 hi + lo), against the plain
+  version (du: its dk + [dv, 0] summed in f32 and rounded once,
+  `ref.latent_du`), to `_assert_kernel_close`, also on a latent whose rows
+  share a large common vector;
+- u's gradient through `ops.causal_attention` bit for bit the same whether
+  the backward returns (du, None) or the plain (dk, dv); the refusal of a
+  V that is not K's view; `ref.split_bf16_ref`;
 - `mla_train` against the reference's at reduced deepseek-v3 (latent 40,
   4 heads), its out and the gradients of x and every weight, f32, 1e-5
   relative to each tensor's largest value;
@@ -26,12 +32,13 @@ at the latent width, `mla_train`, and the latent route of the
   its other bf16 neighbour does to dq, every (row, key) of a small case in
   both directions;
 - on a card only (`-m gpu`): the latent route against its plain version
-  at Hq 4 to 128 and ragged N, with an f32 and a bf16 dout (dk and dv to
+  at Hq 4 to 128 and ragged N, with an f32 and a bf16 dout (du to
   `_assert_kernel_close`, dq to that plus the flip bound: the kernel sums
   dout · v in another order, so it may round a dP element near a
   rounding midpoint the other way, which on a row where dP - D cancels
   moves dq by up to the row's size), two launches bit-equal, one count a
-  backward, and its refusal of a V that is not the view of K.
+  backward, its refusal of a V that is not the view of K, and the dout
+  split bit for bit against `ref.split_bf16_ref`.
 """
 from __future__ import annotations
 
@@ -139,21 +146,26 @@ def test_causal_attention_latent_gradient_matches_reference(dtype, n,
 def emulate_latent(q, u, dout, scale, slices=None):
     """The latent route of the `flash_prefill_bwd` kernel in PyTorch: q
     [B,Hq,N,576] and the latent u [B,N,576] bf16, dout [B,Hq,N,512] f32 or
-    bf16 → (dq, dk [B,1,N,576], dv [B,1,N,512]) bf16.
+    bf16 → (dq, du [B,1,N,576]) bf16, du the latent's gradient through K
+    and V.
 
-    dq kernel: per 64-row q-block, 16-key tiles up to the block's last row
-    (and N); logits in base-2 units (scale log2(e)) masked past the row,
-    past N and on rows past N; sweep 1 carries m, l and sum exp2(s - m)
-    (dP - dP_i0) online, D = dP_i0 + that sum / max(l, 1e-30); sweep 2
-    makes P = exp2(s - m) / max(l, 1e-30) and dS = P (dP - D) scale and
-    adds dS k, dS as bf16 hi + lo. dk/dv kernel: per 64-key block and slice
-    of q-heads (`bwd_mod.latent_slices`, or `slices`), the heads in order,
-    then the 16-row q tiles at or after the block; dk += dS^T q (hi + lo),
-    dv += T(P)^T dout, into the slice's f32 partial; the partials added in
-    slice order. dP = T(dout v) throughout; an f32 dout is the operand as
-    bf16 hi + lo; products in f32."""
+    An f32 dout is split first into bf16 hi and lo (the split pass); the
+    kernels take it as the operand hi + lo. dq kernel: per 64-row q-block,
+    latent tiles of T keys (32 with a bf16 dout, 16 with an f32 one) up to
+    the block's last row (and N); logits in
+    base-2 units (scale log2(e)) masked past the row, past N and on rows
+    past N; sweep 1 carries m, l and sum exp2(s - m) (dP - dP_i0) online, D
+    = dP_i0 + that sum / max(l, 1e-30); sweep 2 makes P = exp2(s - m) /
+    max(l, 1e-30) and dS = P (dP - D) scale and adds dS k, dS as bf16 hi +
+    lo. du kernel: per 64-key block and slice of q-heads
+    (`bwd_mod.latent_slices`, or `slices`), the heads in order, then the
+    q tiles of T rows at or after the block; du += dS^T q (hi + lo) +
+    [T(P)^T dout, 0] in one f32 sum, the slice's partial; the partials
+    added in slice order and rounded once. dP = T(dout v) throughout;
+    products in f32."""
     b, hq, n, _ = q.shape
     slices = slices or bwd_mod.latent_slices(hq)
+    tt = 32 if dout.dtype == torch.bfloat16 else 16
     hs = hq // slices
     sl = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
         math.log2(math.e), dtype=torch.float32)
@@ -166,7 +178,6 @@ def emulate_latent(q, u, dout, scale, slices=None):
     qf, kf = q.float(), u.float()[:, None]
     vf = kf[..., :DV]
     do = dout.float() if dout.dtype == torch.bfloat16 else split(dout)
-    rows_all = torch.arange(n)
 
     def mask(rows, cols):               # [rows, cols]: live logits
         return ((cols[None, :] <= rows[:, None]) & (cols[None, :] < n)
@@ -183,14 +194,14 @@ def emulate_latent(q, u, dout, scale, slices=None):
     for qb in range(nqb):
         rows = qb * 64 + torch.arange(64)
         qt, dt = tile(qf, rows), tile(do, rows)
-        ntiles = min(4 * (qb + 1), -(-n // 16))
+        ntiles = min((qb + 1) * (64 // tt), -(-n // tt))
         m = torch.full((b, hq, 64), -1e30)
         l_ = torch.zeros((b, hq, 64))
         dn = torch.zeros((b, hq, 64))
         c = torch.zeros((b, hq, 64))
 
         def scores(kt):
-            cols = kt * 16 + torch.arange(16)
+            cols = kt * tt + torch.arange(tt)
             kk, vv = tile(kf, cols), tile(vf, cols)
             s = torch.where(mask(rows, cols),
                             (qt @ kk.transpose(-1, -2)) * sl, neg)
@@ -216,18 +227,16 @@ def emulate_latent(q, u, dout, scale, slices=None):
             p = torch.exp2(s - m[..., None]) * rl[..., None]
             ds = p * (dp - dd[..., None]) * scale
             dq[..., rows[live], :] += (split(ds) @ kk)[..., live, :]
-    dk_part = torch.zeros((slices, b, n, D))
-    dv_part = torch.zeros((slices, b, n, DV))
+    part = torch.zeros((slices, b, n, D))
     for kb in range(nqb):
         cols = kb * 64 + torch.arange(64)
         kk, vv = tile(kf[:, 0], cols), tile(vf[:, 0], cols)
         live_k = cols < n
         for sc in range(slices):
-            gk = torch.zeros((b, 64, D))
-            gv = torch.zeros((b, 64, DV))
+            gu = torch.zeros((b, 64, D))
             for h in range(sc * hs, (sc + 1) * hs):
-                for r0 in range(kb * 64, -(-n // 16) * 16, 16):
-                    rows = r0 + torch.arange(16)
+                for r0 in range(kb * 64 // tt * tt, -(-n // tt) * tt, tt):
+                    rows = r0 + torch.arange(tt)
                     ok = rows < n
                     m, rl, dd = (torch.where(ok, x[:, h][:, rows.clamp(
                         max=n - 1)], torch.zeros(())) for x in stats)
@@ -238,33 +247,40 @@ def emulate_latent(q, u, dout, scale, slices=None):
                     dp = (vv @ dt.transpose(-1, -2)).to(
                         torch.bfloat16).float()
                     ds = p * (dp - dd[:, None, :]) * scale
-                    gk += split(ds) @ qt
-                    gv += p.to(torch.bfloat16).float() @ dt
-            dk_part[sc, :, cols[live_k]] = gk[:, live_k]
-            dv_part[sc, :, cols[live_k]] = gv[:, live_k]
-    dk, dv = dk_part[0], dv_part[0]
+                    gu += split(ds) @ qt
+                    gu[..., :DV] += p.to(torch.bfloat16).float() @ dt
+            part[sc, :, cols[live_k]] = gu[:, live_k]
+    du = part[0]
     for sc in range(1, slices):
-        dk, dv = dk + dk_part[sc], dv + dv_part[sc]
-    return (dq.to(torch.bfloat16), dk[:, None].to(torch.bfloat16),
-            dv[:, None].to(torch.bfloat16))
+        du = du + part[sc]
+    return dq.to(torch.bfloat16), du[:, None].to(torch.bfloat16)
+
+
+def _plain_latent(q, u, dout):
+    """The plain version's (dq, du) on the same inputs."""
+    dq, dk, dv = ref.flash_prefill_bwd_ref(q, *_views(u), dout, scale=SCALE)
+    return dq, ref.latent_du(dk, dv)
 
 
 @pytest.mark.parametrize("hq,n,dout_dtype,slices", [
     (4, 150, torch.float32, None), (4, 96, torch.bfloat16, None),
-    (6, 70, torch.float32, 3), (2, 129, torch.bfloat16, 2)])
+    (6, 70, torch.float32, 3), (2, 129, torch.bfloat16, 2),
+    (3, 161, torch.bfloat16, 1), (2, 83, torch.float32, 1)])
 def test_latent_route_algorithm_matches_plain_version(hq, n, dout_dtype,
                                                       slices):
-    """The latent route's blocking (16-key tiles against 64-row q-blocks,
-    the ragged last block and tile, 16-row q tiles against 64-key blocks,
-    q-head slices summed apart and added in order) and its roundings (dS
-    and an f32 dout as bf16 hi + lo), against the plain version on the
-    same bf16 inputs, to `_assert_kernel_close`."""
+    """The latent route's blocking (latent tiles of 32 keys with a bf16
+    dout, 16 with an f32 one, against 64-row q-blocks; q tiles of as many
+    rows against 64-key blocks; the ragged last block and tile; q-head
+    slices summed apart and added in order, one slice among them) and its
+    roundings (dS and the pre-split f32 dout as bf16 hi + lo, du summed
+    through K and V in f32 and rounded once), against the plain version on
+    the same bf16 inputs (du: `ref.latent_du`), to `_assert_kernel_close`."""
     q, u, dout = (torch.from_numpy(x) for x in
                   _latent_inputs(1, hq, n, seed=hq * 1000 + n))
     q, u = q.to(torch.bfloat16), u.to(torch.bfloat16)
     dout = dout.to(dout_dtype)
     got = emulate_latent(q, u, dout, SCALE, slices)
-    want = ref.flash_prefill_bwd_ref(q, *_views(u), dout, scale=SCALE)
+    want = _plain_latent(q, u, dout)
     for a, w in zip(got, want):
         assert a.shape == w.shape
         _assert_kernel_close(a, w)
@@ -273,7 +289,7 @@ def test_latent_route_algorithm_matches_plain_version(hq, n, dout_dtype,
 def test_latent_route_algorithm_holds_a_latent_with_a_common_component():
     """Latent rows that share a large common vector (u_j = c + delta_j, |c|
     about 8 |delta|, as a model's normed latents do): sum_j dS_ij = 0
-    cancels c out of dq and dk only as far as the products keep dS, which
+    cancels c out of dq and du only as far as the products keep dS, which
     the route's hi + lo operands keep to 2^-16 (dS rounded to bf16 alone
     misses `_assert_kernel_close` here)."""
     rng = np.random.default_rng(17)
@@ -286,9 +302,64 @@ def test_latent_route_algorithm_holds_a_latent_with_a_common_component():
             for x in (q, u))
     dout = torch.from_numpy(dout.astype(np.float32))
     got = emulate_latent(q, u, dout, SCALE)
-    want = ref.flash_prefill_bwd_ref(q, *_views(u), dout, scale=SCALE)
+    want = _plain_latent(q, u, dout)
     for a, w in zip(got, want):
         _assert_kernel_close(a, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_latent_gradient_as_du_equals_the_views_sum(dtype, monkeypatch):
+    """u's gradient through `ops.causal_attention` at the latent shape is
+    the same tensor, bit for bit, whether the backward returns (du, None),
+    as it does, or the plain (dk, dv), which autograd adds through the two
+    views; q's too."""
+    q, u, dout = _latent_inputs(1, 4, 70, seed=9)
+
+    def grads():
+        tq = torch.from_numpy(q).to(dtype).requires_grad_(True)
+        tu = torch.from_numpy(u).to(dtype).requires_grad_(True)
+        out = ops.causal_attention(tq, *_views(tu), scale=SCALE, chunk=32)
+        out.backward(torch.from_numpy(dout))
+        return tq.grad, tu.grad
+
+    as_du = grads()
+    monkeypatch.setattr(
+        ops, "prefill_attention_bwd",
+        lambda q, k, v, dout, scale=None, chunk=512:
+        ref.flash_prefill_bwd_ref(q, k, v, dout, scale=scale, chunk=chunk))
+    as_views = grads()
+    assert as_du[1].dtype == dtype
+    assert torch.equal(as_du[0], as_views[0])
+    assert torch.equal(as_du[1], as_views[1])
+
+
+def test_latent_backward_refuses_a_v_that_is_not_the_view():
+    """The latent shape's backward returns the latent's whole gradient, so
+    `ops.prefill_attention_bwd` refuses a V that is not the view of K's
+    first 512 columns, on the CPU as the wrapper does on the card."""
+    q, u, dout = (torch.from_numpy(x) for x in _latent_inputs(1, 2, 8, 0))
+    k, v = _views(u)
+    with pytest.raises(ValueError, match="view"):
+        ops.prefill_attention_bwd(q, k, v.contiguous(), dout, scale=SCALE)
+    dq, du, none = ops.prefill_attention_bwd(q, k, v, dout, scale=SCALE)
+    assert none is None and du.shape == k.shape
+
+
+def test_split_bf16_ref_keeps_dout_to_2_to_the_minus_16():
+    """`ref.split_bf16_ref`, the plain version of the route's dout split:
+    hi is dout rounded to bf16, lo what is left rounded again, hi + lo
+    within 2^-16 relative of dout (one ulp of lo at most), zeros and
+    signs kept."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 512)).astype(np.float32))
+    x[0, :3] = torch.tensor([0.0, -0.0, 1.0 + 2 ** -9])
+    hi, lo = ref.split_bf16_ref(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    assert torch.equal(lo, (x - hi.float()).to(torch.bfloat16))
+    err = (hi.float() + lo.float() - x).abs()
+    assert bool((err <= 2.0 ** -16 * x.abs()).all())
+    assert torch.equal(torch.signbit(hi[0, :2]), torch.signbit(x[0, :2]))
 
 
 def test_latent_slices_cover_the_heads():
@@ -415,9 +486,10 @@ def _needs_card():
                                     (1, 128, 200)])
 def test_latent_backward_kernel_matches_plain_version_on_card(b, hq, n):
     """The latent route with an f32 and a bf16 dout against the plain
-    version at ragged N, q at half the latent's scale: dk and dv within
-    `_assert_kernel_close`, dq within that plus the flip bound, two
-    launches bit-equal, one count a backward."""
+    version at ragged N, q at half the latent's scale: du (the latent's
+    gradient) within `_assert_kernel_close` of the plain dk + [dv, 0]
+    (`ref.latent_du`), dq within that plus the flip bound, two launches
+    bit-equal, one count a backward."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(hq + n)
     u = torch.randn((b, n, D), generator=gen, device="cuda").to(
@@ -431,17 +503,32 @@ def test_latent_backward_kernel_matches_plain_version_on_card(b, hq, n):
         again = ops.prefill_attention_bwd(q, *_views(u), cot, scale=SCALE)
         torch.cuda.synchronize()
         assert bwd_mod.LAUNCHES["flash_prefill_bwd"] == before + 2
-        want = ref.flash_prefill_bwd_ref(q, *_views(u), cot, scale=SCALE)
+        assert got[2] is None and again[2] is None
+        want = _plain_latent(q, u, cot)
         flip = ref.flash_prefill_bwd_dq_flip(q, *_views(u), cot,
                                              scale=SCALE)
-        for a, a2, w in zip(got, again, want):
-            assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
+        for a, a2, w in zip(got[:2], again[:2], want):
+            assert a.dtype == torch.bfloat16 and a.shape == w.shape
+            assert torch.equal(a, a2)
         _assert_kernel_close(got[1], want[1])
-        _assert_kernel_close(got[2], want[2])
         diff = (got[0].float() - want[0].float()).abs()
         mag = want[0].float().abs()
         limit = 2.0 ** -7 * (mag + mag.amax(-1, keepdim=True)) + flip
         assert bool((diff <= limit).all()), float((diff - limit).max())
+
+
+@pytest.mark.gpu
+def test_latent_dout_split_matches_plain_split_on_card():
+    """The route's split pass (`bwd_mod.split_dout`) against
+    `ref.split_bf16_ref`, bit for bit, on `ref.split_bf16_cases`: values
+    over 60 binades, zeros of both signs, subnormals and the f32
+    extremes."""
+    _needs_card()
+    x = ref.split_bf16_cases((2, 4, 64, DV),
+                             torch.Generator(device="cuda").manual_seed(3))
+    got = bwd_mod.split_dout(x)
+    want = ref.split_bf16_ref(x)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.gpu
