@@ -118,6 +118,35 @@ Phases, in order (no failure is caught: any one exits non-zero):
                quarantine and retry add, the card ms and device events of
                the sentinel and the mask, blocks and ms from a deadline's
                expiry to its free lane, and retry_after.
+  8b. sharded — the lane-sharded ServeLoop on phase 4's weights (full
+               width and depth): phase 4's 8 requests through
+               ServeLoop(mesh=2), 2 shards x 2 lanes on max(1, cards)
+               cards, bf16 KV with select_blocks 1 (ragged_decode) and
+               int8 KV with select_blocks 4 (fused_decode): the decode
+               kernel launches cache layers x shards a step, flash_prefill
+               cache layers a prompt pass, nothing else; the per-shard
+               token counters sum to the total; the streams are compared
+               with phase 4's one-shard run of the same configuration,
+               and where they part the first step is printed, each shard's
+               requests through a one-shard loop of 2 lanes must stream
+               as that shard did, and 4-lane and 2-lane batches fed the
+               same tokens must agree on top-1 in TEACHER_AGREE_MIN of 64
+               steps. Printed: tok/s, p50 TTFT, each shard's tokens and
+               tok/s, launches a step.
+  8c. mesh  — the collective paths in a world of 4 spawned ranks (NCCL
+               with a card each, else gloo, every rank on this card),
+               after longchat-7b's weights are freed: the slot-sharded
+               decode at longchat-7b's full-width layer (4 lanes x 32
+               kv-heads, d 128, S 1088, select_k 128, 4 blocks over the
+               ranks), bf16 and int8 KV, 24 steps from a prefilled cache,
+               against the unsharded blocked decode on the card;
+               deepseek-v3's latent race at full width (128 heads, latent
+               576, S 1088, full budget) against dense latent attention;
+               grok-1-314b's MoE layer with moe_ep (8 experts of 6144 x
+               32768 over the 4 ranks, f32 weights, 4 x 64 tokens)
+               against apply_moe; each within MESH_ATOL. Printed: the
+               backend, which collectives it took on CUDA tensors, where
+               each collective's operands lived, every worst error.
   9. family  — the rest of the dense family and the MoE family at full
                width, random bf16 weights from the seed, each model freed
                before the next: starcoder2-3b (LayerNorm, tanh-GELU, qkv
@@ -172,13 +201,9 @@ Phases, in order (no failure is caught: any one exits non-zero):
                launches a decode step, 13 flash_prefill launches a prompt
                pass, nothing else; the prompt pass through flash_prefill
                and through its plain version keep the same positions in
-               each of the 13 caches (at least 99%, bf16 and int8); their
-               teacher-forced top-1 agreement over 16 steps is printed
-               under unicaim and under the dense policy, there beside its
-               noise floor (two plain versions apart only in the softmax
-               denominators' rounding, which at this depth agree on fewer
-               than 55 of 64 themselves), and so is the decode kernel's
-               against the composed path. For
+               each of the 13 caches (at least 99%, bf16 and int8; their
+               teacher-forced top-1 agreement over 16 steps is printed).
+               For
                each model: a decode step and a 4 x 2048 prompt pass
                profiled (the SSD blocks' share by CUDA events,
                flash_prefill's by the profiler), the prefix cache's
@@ -273,7 +298,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import gc
 import itertools
 import json
@@ -294,10 +318,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core import baselines, quant, topk  # noqa: E402
-from repro_torch.core.attention import decode_attention  # noqa: E402
-from repro_torch.core.cache import (FIELDS,  # noqa: E402
-                                    protected_mask, write_token)
+from repro_torch.core import baselines, quant, scoring, topk  # noqa: E402
+from repro_torch.core.attention import (decode_attention,  # noqa: E402
+                                        shard_cache, shard_rows, slot_layout)
+from repro_torch.core.cache import (FIELDS, init_cache,  # noqa: E402
+                                    prefill_fill, protected_mask,
+                                    write_token)
 from repro_torch.kernels import approx_score as approx_mod  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
@@ -307,6 +333,7 @@ from repro_torch.kernels import fused_decode as fused_mod  # noqa: E402
 from repro_torch.kernels import gather_attention as gather_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_decode as ragged_mod  # noqa: E402
+from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
                                       ServeLoop, _next_token_lanes,
                                       bucket_length, decode_block,
@@ -318,10 +345,13 @@ from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.prefix_cache import _tree_nbytes  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
+from repro_torch.models.mla import _mla_blocked_shardmap  # noqa: E402
 from repro_torch.models.transformer import Model, layer_params  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import fault  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, flood  # noqa: E402
+from repro_torch.runtime.sharding import (ProcessMesh,  # noqa: E402
+                                          all_gather, use_mesh)
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.surgery import (state_lane_insert,  # noqa: E402
                                  state_lane_slice)
@@ -2986,6 +3016,391 @@ def phase_prefill_profile(cfg, params, model):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b ([sharded]): the lane-sharded ServeLoop on phase 4's weights
+# ---------------------------------------------------------------------------
+
+SHARDS = 2                         # ServeLoop(mesh=2): 2 shards x 2 lanes
+SHARDED_RUNS = (("bf16", 1), ("int8", 4))
+
+
+def first_parting(got, want):
+    """[(request, the first step where its streams part)] of the unequal
+    streams."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            out.append((i, next((j for j, (a, b) in enumerate(zip(g, w))
+                                 if a != b), min(len(g), len(w)))))
+    return out
+
+
+def sharded_teacher(cfg, params, model, steps=16):
+    """The batch size alone: the 4 served prompts prefilled and decoded as
+    one 4-lane batch (the one-shard loop's) and as two 2-lane ones (the
+    shards'), fed the same tokens (the 4-lane side's greedy choices) for
+    `steps` steps → the top-1 agreement over steps x LANES."""
+    batch = served_batch(cfg)
+    n = LANES // SHARDS
+    logits, st = model.prefill(params, batch)
+    halves = [model.prefill(params, {k: v[i * n:(i + 1) * n]
+                                     for k, v in batch.items()})
+              for i in range(SHARDS)]
+    tok = torch.argmax(logits, -1)
+    agree = int((torch.cat([h[0] for h in halves]).argmax(-1) == tok).sum())
+    states = [h[1] for h in halves]
+    for _ in range(steps - 1):
+        lk, st = model.decode_step(params, st, tok)
+        parts = []
+        for i in range(SHARDS):
+            lh, states[i] = model.decode_step(params, states[i],
+                                              tok[i * n:(i + 1) * n])
+            parts.append(lh)
+        tok = torch.argmax(lk, -1)
+        agree += int((torch.cat(parts).argmax(-1) == tok).sum())
+    return agree
+
+
+def phase_sharded(cfg, params, smi, one_shard):
+    """Phase 4's 8 requests through `ServeLoop(mesh=SHARDS)`: bf16 KV with
+    select_blocks 1 (ragged_decode) and int8 KV with select_blocks 4
+    (fused_decode). Each decode step launches the kernel once per cache
+    layer per shard, each prompt pass flash_prefill once per cache layer,
+    nothing else. The streams are compared with phase 4's one-shard run of
+    the same configuration (`one_shard[(kv, blocks)]`); where they part,
+    the first step of each parting is printed, each shard's requests are
+    served again by a one-shard loop of lanes_per_shard lanes (its streams
+    must equal that shard's), and the gate becomes the teacher-forced
+    top-1 agreement of 4-lane and 2-lane batches (TEACHER_AGREE_MIN).
+    Returns the launches of each kernel."""
+    launches = {"ragged_decode": 0, "fused_decode": 0, "flash_prefill": 0}
+    mesh = make_serve_mesh(SHARDS)
+    lps = LANES // SHARDS
+    print(f"[sharded] ServeLoop(mesh={SHARDS}) over {mesh}: {SHARDS} shards "
+          f"x {lps} lanes on {torch.cuda.device_count()} card(s)  [{smi}]")
+    prompts = served_prompts(cfg.vocab_size)
+    for kv, blocks in SHARDED_RUNS:
+        t = time.monotonic()
+        prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
+                                  select_k=PROMPT_LEN // 16,
+                                  select_blocks=blocks, fused=True,
+                                  kv_dtype=kv)
+        kernel = "fused_decode" if blocks > 1 else "ragged_decode"
+        model = Model(cfg, prune, device="cuda")
+        layers = model.attn_layer_count()
+        loop = ServeLoop(model, params, lanes=LANES, max_new=NEW_TOKENS,
+                         block=8, mesh=mesh, device="cuda")
+        handles = [(loop.submit(Request(prompt=p, max_new=m)), m)
+                   for p, m in prompts]
+        torch.cuda.synchronize()
+        reset_launches()
+        for name in PLAIN_ON_CARD:
+            PLAIN_ON_CARD[name] = 0
+        t0 = time.monotonic()
+        stats = loop.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = launch_counts()
+        n = counts.pop(kernel)
+        flash = counts.pop("flash_prefill")
+        c = loop.counters
+        steps = c["decode_steps"]
+        agg = loop.aggregate()
+        toks = sum(len(s.tokens) for s in stats)
+        shard_rows = ", ".join(
+            f"shard {i}: {agg[f'shard{i}_tokens']:.0f} tokens, "
+            f"{agg[f'shard{i}_tok_s']:.1f} tok/s" for i in range(SHARDS))
+        print(f"  sharded serve {cfg.name} kv={kv} select_blocks={blocks}: "
+              f"{len(stats)} requests, {toks} tokens in {wall:.3f}s = "
+              f"{toks / wall:.1f} tok/s, p50 TTFT {agg['p50_ttft_s']:.3f}s; "
+              f"{shard_rows}; {agg['tokens_per_dispatch']:.2f} tokens a "
+              f"block dispatch; {steps} decode steps a shard, "
+              f"{c['prefill_dispatches']} prefills ({c['grouped_requests']} "
+              f"requests group-admitted); {kernel} launches {n} = {layers} "
+              f"layers x {SHARDS} shards x {steps} steps: "
+              f"{n == layers * SHARDS * steps} ({n / max(steps, 1):.0f} a "
+              f"step); flash_prefill launches {flash} = {layers} x "
+              f"{c['prefill_dispatches']}; plain prompt attention on the card "
+              f"{PLAIN_ON_CARD}; other kernels {counts}  [{smi}]")
+        assert all(h.done and len(h.tokens) == m for h, m in handles)
+        assert c["nonfinite_lanes"] == 0
+        assert n == layers * SHARDS * steps and n > 0
+        assert flash == layers * c["prefill_dispatches"] and flash > 0
+        assert not any(PLAIN_ON_CARD.values()), PLAIN_ON_CARD
+        assert not any(counts.values()), counts
+        assert sum(agg[f"shard{i}_tokens"] for i in range(SHARDS)) == toks
+        launches[kernel] += n
+        launches["flash_prefill"] += flash
+        got = [h.tokens for h, _ in handles]
+        parted = first_parting(got, one_shard[(kv, blocks)])
+        print(f"  streams against phase 4's one-shard loop ({LANES} lanes): "
+              f"{len(prompts) - len(parted)} of {len(prompts)} equal; parted "
+              f"(request, first step): {parted}")
+        if parted:
+            for sh in range(SHARDS):
+                mine = [i for i, (h, _) in enumerate(handles)
+                        if h.stats.lane // lps == sh]
+                solo = ServeLoop(model, params, lanes=lps,
+                                 max_new=NEW_TOKENS, block=8, device="cuda")
+                hs = [solo.submit(Request(prompt=prompts[i][0],
+                                          max_new=prompts[i][1]))
+                      for i in mine]
+                solo.run()
+                same = [h.tokens for h in hs] == [got[i] for i in mine]
+                print(f"  shard {sh}'s requests {mine} through a one-shard "
+                      f"loop of {lps} lanes: streams equal the shard's "
+                      f"{same}")
+                assert same, sh
+            agree = sharded_teacher(cfg, params, model)
+            print(f"  teacher-forced, {LANES}-lane batch vs {SHARDS} x {lps}-"
+                  f"lane batches from the same prompts: top-1 equal in "
+                  f"{agree} of {16 * LANES} (held to {TEACHER_AGREE_MIN})")
+            assert agree >= TEACHER_AGREE_MIN, agree
+        print(f"[sharded] kv={kv} select_blocks={blocks} phase "
+              f"{time.monotonic() - t:.1f}s")
+        del loop, handles, stats, model
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the [mesh] phase: the collective paths in a 4-rank world
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_STEPS = 80                    # 64 appends fill the cache, 16 evict
+MESH_EVICTING_MIN = 8
+MESH_ATOL = 2e-4                   # the CPU tests' tolerance
+
+
+def mesh_backend() -> str:
+    """NCCL with a card a rank, gloo otherwise (NCCL refuses two ranks on
+    one card)."""
+    return "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+
+
+def mesh_decode(mesh, dev, kv):
+    """longchat-7b's full-width decode layer (4 lanes x 32 kv-heads, d 128,
+    S 1088, select_k 128) under the slot-sharded race over 4 blocks, from a
+    prefilled cache, MESH_STEPS steps, against the port's unsharded blocked
+    decode on the whole cache on this card (plain PyTorch both: the fused
+    kernels are not used on a shard). The prefill keeps 1024 of the 1088
+    slots, so the steps past the 64th evict, each choosing its write slot
+    by the all-gather of every rank's (min, index). Returns (worst out
+    |d|, worst acc |d|, positions equal, evicting steps, the device of the
+    collectives' operands)."""
+    b, h, d, nb = LANES, 32, 128, 4
+    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
+                              select_k=PROMPT_LEN // 16, select_blocks=nb,
+                              fused=False, kv_dtype=kv)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    whole = prefill_fill(init_cache(b, h, d, prune.slots, prune,
+                                    torch.bfloat16, device=dev),
+                         rnd(b, h, PROMPT_LEN, d), rnd(b, h, PROMPT_LEN, d),
+                         rnd(b, h, PROMPT_LEN).abs(), prune)
+    cache = shard_cache(whole, mesh, nb)
+    worst, evicting = 0.0, 0
+    for _ in range(MESH_STEPS):
+        q, kn, vn = rnd(b, h, d), rnd(b, h, d), rnd(b, h, d)
+        evicting += int(bool((whole.fill >= prune.slots).all()))
+        plain = decode_attention(whole, q, kn, vn, prune)
+        with use_mesh(mesh):
+            out = decode_attention(cache, *(shard_rows(x, mesh, nb, b)
+                                            for x in (q, kn, vn)), prune)
+        worst = max(worst, float((out - shard_rows(plain, mesh, nb, b)
+                                  ).abs().max()))
+    want = shard_cache(whole, mesh, nb)
+    acc = float((cache.acc - want.acc).abs().max())
+    same = all(torch.equal(getattr(cache, f), getattr(want, f))
+               for f in ("valid", "pos", "fill", "step"))
+    return worst, acc, same, evicting, str(cache.acc.device)
+
+
+def mesh_latent(mesh, dev, kv):
+    """deepseek-v3-671b's latent race at full width (128 heads over one
+    576-wide latent, S 1088, 4 blocks) at full budget (select_k = S, as the
+    reference's own shard_map test) against dense latent attention over
+    the whole cache on this card. Returns the worst ctx |d|."""
+    mcfg = get_config("deepseek-v3-671b")
+    m = mcfg.mla
+    b, hq, lat, s = LANES, mcfg.n_heads, m.latent_dim, PROMPT_LEN // 2 + 64
+    scale_dim = m.qk_nope_dim + m.qk_rope_dim
+    prune = baselines.unicaim(heavy=s - 64, reserve=64, select_k=s,
+                              select_blocks=4, fused=False, kv_dtype=kv)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cache = init_cache(b, 1, lat, s, prune, torch.bfloat16, device=dev,
+                       latent=True)
+    for _ in range(s - 24):                      # 24 slots stay empty
+        write_token(cache, torch.randn((b, 1, lat), generator=gen,
+                                       device=dev), None, prune)
+    q = torch.randn((b, hq, lat), generator=gen, device=dev)
+    qq, qs = quant.quantize_query(q, prune.query_bits)
+    mirror = cache.kq if cache.kq is not None else cache.k
+    s_apx = scoring.approx_scores(qq, qs, mirror, cache.kscale, cache.valid)
+    biased = topk.apply_selection_bias(
+        topk.gqa_group_scores(s_apx, 1), protected_mask(cache, prune),
+        ~cache.valid)
+    u = cache.k_values()[:, 0].float()
+    logits = torch.einsum("bhk,bsk->bhs", q, u) / math.sqrt(scale_dim)
+    logits = torch.where(cache.valid[:, 0][:, None, :], logits,
+                         torch.full_like(logits, topk.NEG_INF))
+    want = torch.einsum("bhs,bsk->bhk", torch.softmax(logits, -1),
+                        u[:, :, :m.kv_lora_rank])
+    local = shard_cache(cache, mesh, 4)
+    _, slot_axes = slot_layout(mesh, 4, b)
+    step = s // mesh.size(slot_axes)
+    mine = biased[..., mesh.coord(slot_axes) * step:][..., :step]
+    with use_mesh(mesh):
+        ctx = _mla_blocked_shardmap(local, q, mine, prune,
+                                    m.kv_lora_rank, scale_dim)
+    return float((ctx - want).abs().max())
+
+
+def mesh_moe(mesh, dev, rank):
+    """grok-1-314b's MoE layer at full width (8 experts of d 6144 x ff
+    32768, swiglu, top-2, capacity factor 8, f32 weights as the
+    reference's test) through `transformer._moe` with moe_ep: 2 experts a
+    rank, 4 x 64 tokens. Rank 0 also makes every expert and runs
+    `apply_moe`; every rank's y is gathered there. Returns (the worst
+    |d| over the ranks' y, the aux |d|) on rank 0, (None, None) elsewhere."""
+    cfg = get_config("grok-1-314b")
+    cfg = dataclasses.replace(cfg, moe_ep=True, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    mo, d, ff = cfg.moe, cfg.d_model, cfg.moe.d_ff_expert
+    e_loc = mo.n_experts // mesh.shape["model"]
+    gen = torch.Generator(device=dev)
+    me = mesh.coord("model")
+    mine = range(me * e_loc, (me + 1) * e_loc)
+    every = range(mo.n_experts) if rank == 0 else mine
+    # each expert from its own seed, drawn in place (rank 0: all 8, 19.3 GB)
+    stack = {"wi": (d, ff), "wg": (d, ff), "wo": (ff, d)}
+    stack = {k: torch.empty((len(every),) + shp, device=dev)
+             for k, shp in stack.items()}
+    for i, e in enumerate(every):
+        gen.manual_seed(SEED + 100 + e)
+        for k, w in stack.items():
+            torch.randn(w.shape[1:], generator=gen, device=dev, out=w[i])
+            w[i] /= math.sqrt(w.shape[1])
+    gen.manual_seed(SEED + 99)
+    router = torch.randn((d, mo.n_experts), generator=gen,
+                         device=dev) / math.sqrt(d)
+    x = torch.randn((LANES, 64, d), generator=gen, device=dev)
+    local = {k: v[mine.start - every.start:][:e_loc] for k, v in
+             stack.items()}
+    with use_mesh(mesh):
+        y, aux = transformer_mod._moe({"router": router, **local}, x, cfg)
+    ys = all_gather(y, mesh.group("model"))
+    if rank != 0:
+        return None, None
+    y_ref, aux_ref = moe_mod.apply_moe({"router": router, **stack}, x, cfg)
+    return (float((ys - y_ref[None]).abs().max()),
+            abs(float(aux) - float(aux_ref)))
+
+
+def mesh_rank(rank, world, store, out_dir):
+    """One rank of the [mesh] phase (a spawned process): join the world,
+    run the three collective paths on this rank's card and write
+    `rank{rank}.json`."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = mesh_backend()
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    mesh_type = "cuda" if backend == "nccl" else "cpu"
+
+    def mesh_of(shape):
+        return ProcessMesh(init_device_mesh(mesh_type, shape,
+                                            mesh_dim_names=("data",
+                                                            "model")))
+    res = {"backend": backend, "device": str(dev)}
+    m14 = mesh_of((1, world))
+    t = time.monotonic()
+    for kv in ("bf16", "int8"):
+        res[f"decode_{kv}"] = mesh_decode(m14, dev, kv)
+        res[f"latent_{kv}"] = mesh_latent(m14, dev, kv)
+    res["decode_s"] = time.monotonic() - t
+    t = time.monotonic()
+    res["moe"] = mesh_moe(m14, dev, rank)
+    res["moe_s"] = time.monotonic() - t
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(smi):
+    """The [mesh] phase: MESH_RANKS spawned ranks (NCCL with a card each,
+    else gloo sharing this card) run the slot-sharded decode at
+    longchat-7b's full-width layer (bf16 and int8 KV, against the unsharded
+    blocked decode), deepseek-v3's latent race at full width (against dense
+    latent attention) and grok-1's MoE layer with moe_ep (against
+    apply_moe), each within MESH_ATOL; the decode must evict in at least
+    MESH_EVICTING_MIN steps. Prints the backend, the device of the
+    collectives' operands, and every worst error. Every rank is joined or
+    killed."""
+    out = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t = time.monotonic()
+    # a fresh interpreter a rank, whoever imported this module
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+         f"chip_smoke.mesh_rank({r}, {MESH_RANKS}, "
+         f"{str(out / 'store')!r}, {str(out)!r})"], cwd=ROOT)
+        for r in range(MESH_RANKS)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert codes == [0] * MESH_RANKS, codes
+    ranks = [json.load(open(out / f"rank{r}.json"))
+             for r in range(MESH_RANKS)]
+    r0 = ranks[0]
+    operands = sorted({x[4] for r in ranks for k, x in r.items()
+                       if k.startswith("decode_") and k != "decode_s"})
+    print(f"[mesh] {MESH_RANKS} ranks, backend {r0['backend']} on "
+          f"{sorted({r['device'] for r in ranks})}; the collectives' "
+          f"operands on {operands}  [{smi}]")
+    for kv in ("bf16", "int8"):
+        dec = [r[f"decode_{kv}"] for r in ranks]
+        lat = [r[f"latent_{kv}"] for r in ranks]
+        worst_out = max(x[0] for x in dec)
+        worst_acc = max(x[1] for x in dec)
+        print(f"  slot-sharded decode, longchat-7b layer (4 lanes x 32 "
+              f"kv-heads, d 128, S 1088, select_k 128, 4 blocks over "
+              f"'model'), kv={kv}, {MESH_STEPS} steps from a prefilled cache, "
+              f"against the unsharded blocked decode: out max|d| "
+              f"{worst_out:.3g} (atol {MESH_ATOL}), acc max|d| "
+              f"{worst_acc:.3g}, valid/pos/fill/step equal "
+              f"{all(x[2] for x in dec)}, evicting steps "
+              f"{min(x[3] for x in dec)} (at least {MESH_EVICTING_MIN})")
+        print(f"  deepseek-v3 latent race (128 heads, latent 576, S 1088, 4 "
+              f"blocks, full budget), kv={kv}, against dense latent "
+              f"attention: ctx max|d| {max(lat):.3g} (atol {MESH_ATOL})")
+        assert worst_out <= MESH_ATOL and all(x[2] for x in dec), dec
+        assert worst_acc <= MESH_ATOL, dec
+        assert min(x[3] for x in dec) >= MESH_EVICTING_MIN, dec
+        assert max(lat) <= MESH_ATOL, lat
+    y_err, aux_err = r0["moe"]
+    print(f"  grok-1-314b MoE layer with moe_ep (8 experts of 6144 x "
+          f"32768 over 4 ranks, top-2, capacity factor 8, f32, 4 x 64 "
+          f"tokens) against apply_moe: y max|d| {y_err:.3g} over every "
+          f"rank's y (atol {MESH_ATOL}), aux |d| {aux_err:.3g}; decode and "
+          f"latent checks {r0['decode_s']:.1f}s, MoE {r0['moe_s']:.1f}s a "
+          f"rank")
+    assert y_err <= MESH_ATOL and aux_err <= 1e-6, r0["moe"]
+    print(f"[mesh] phase {time.monotonic() - t:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the rest of the dense family and the MoE family, full width
 # ---------------------------------------------------------------------------
 
@@ -3170,17 +3585,15 @@ MLA_LAYERS = 5        # deepseek-v3-671b's 61 layers cut to 3 mla_dense + 2
 
 
 def plain_prefill_attention(q, k, v, acc=None, *, row0=0, length=None,
-                            obs_window=0, chunk=512, scale=None,
-                            den_f64=True):
+                            obs_window=0, chunk=512, scale=None):
     """ops.prefill_attention's plain version (with the latent route's
-    f64 denominators, unless `den_f64` is False), run on the card: the
-    check's other prompt pass (never the served path). 128 query rows at a
-    time, so its [B, 128, rows, N] f64 denominator sums fit beside the
-    model."""
+    f64 denominators), run on the card: the check's other prompt pass
+    (never the served path). 128 query rows at a time, so its [B, 128,
+    rows, N] f64 denominator sums fit beside the model."""
     out, col = ref.prefill_attention_ref(q, k, v, row0=row0, length=length,
                                          obs_window=obs_window,
                                          chunk=min(chunk, 128), scale=scale,
-                                         den_f64=den_f64)
+                                         den_f64=True)
     if acc is None:
         return out, col
     acc += col
@@ -3241,21 +3654,18 @@ def mla_serve(cfg, params, kv, smi, chunk=0, **knobs):
     return flash, [h.tokens for h, _ in handles], model
 
 
-def prompt_teacher(cfg, params, model, steps=16, batch=None, side=None):
+def prompt_teacher(cfg, params, model, steps=16, batch=None):
     """`batch` (by default the 4 served prompts in the 4 x 2048 bucket)
     through the kernel's prompt pass and through the plain version on the
     card (a check only): the share of each cache layer's kept positions the
     two passes agree on (the worst lane and kv-head), then `steps` decode
     steps from each state fed the same tokens (the kernel side's greedy
     choices), the top-1 agreement over steps x LANES and the plain side's
-    top-2 gap where they part. `side` (label, function), a stand-in for
-    ops.prefill_attention, replaces the kernel's side: with another plain
-    version it measures the check's noise floor. Returns (the worst
-    layer's kept share, the top-1 agreement, a decode step's wall in ms:
-    host clock around a synchronised step)."""
+    top-2 gap where they part. Returns (the worst layer's kept share, the
+    top-1 agreement, a decode step's wall in ms: host clock around a
+    synchronised step)."""
     batch = batch or served_batch(cfg)
     served = ops.prefill_attention
-    label, first_side = side or ("flash_prefill", served)
 
     def prefill(attend):
         ops.prefill_attention = attend
@@ -3264,7 +3674,7 @@ def prompt_teacher(cfg, params, model, steps=16, batch=None, side=None):
         finally:
             ops.prefill_attention = served
 
-    logits, st = prefill(first_side)
+    logits, st = prefill(served)
     logits_p, st_p = prefill(plain_prefill_attention)
     kept = []
     for li in range(model.attn_layer_count()):
@@ -3294,7 +3704,8 @@ def prompt_teacher(cfg, params, model, steps=16, batch=None, side=None):
     step_ms = float(np.median(walls))
     print(f"  teacher-forced {cfg.name}, {cfg.num_layers} layers, policy "
           f"{model.prune.policy}, kv={model.prune.kv_dtype}: the prompt pass "
-          f"through {label} vs the plain version (f64 denominators) on the "
+          f"through flash_prefill vs the plain version (f64 denominators) on "
+          f"the "
           f"card: "
           f"kept positions agree on {[round(k, 5) for k in kept]} (worst "
           f"lane and kv-head, by cache layer), first-token logits max|d| "
@@ -3569,13 +3980,9 @@ def phase_ssm(smi):
     with bf16 and int8 KV and select_blocks 1 and 4 (13 decode-kernel
     launches a step, 13 flash_prefill launches a prompt pass), the kernel's
     prompt pass against the plain one (kept positions in each of the 13
-    caches >= KEPT_MIN, bf16 and int8), the teacher-forced top-1 agreement
-    under unicaim and under the dense policy beside its noise floor (two
-    plain versions apart only in the softmax denominators' rounding) and
-    the decode kernel against the composed path, all printed (the floor
-    lies below TEACHER_AGREE_MIN on this model: `PERF.md` §6), a decode
-    step and a prompt pass profiled, a prefix-cache exact hit. Returns the
-    launches of each kernel."""
+    caches >= KEPT_MIN, bf16 and int8; the teacher-forced top-1 agreement
+    printed), a decode step and a prompt pass profiled, a prefix-cache
+    exact hit. Returns the launches of each kernel."""
     t_all = time.monotonic()
     launches = dict.fromkeys(launch_counts(), 0)
 
@@ -3629,20 +4036,7 @@ def phase_ssm(smi):
     for kv, model in served.items():
         kept, _, step_ms = prompt_teacher(cfg, params, model, batch=batch)
         assert kept >= KEPT_MIN, (kv, kept, KEPT_MIN)
-    phase_teacher(cfg, params, served["bf16"], batch=batch, hold=False)
-    exact = Model(cfg, baselines.dense(PROMPT_LEN + 64), device="cuda")
-    _, agree, _ = prompt_teacher(cfg, params, exact, batch=batch)
-    _, floor, _ = prompt_teacher(
-        cfg, params, exact, batch=batch,
-        side=("the plain version with f32 denominators", functools.partial(
-            plain_prefill_attention, den_f64=False)))
-    print(f"[ssm] {cfg.name} dense policy, teacher-forced top-1 of "
-          f"{16 * LANES}: kernel vs plain {agree}, plain vs plain (the "
-          f"denominators' rounding alone: the noise floor) {floor}; printed, "
-          f"not held to {TEACHER_AGREE_MIN}: at 94 bf16 blocks the floor "
-          f"itself lies below it")
-    del exact
-    print(f"[ssm] {cfg.name} teacher-forced {time.monotonic() - t:.1f}s")
+    print(f"[ssm] {cfg.name} kept positions {time.monotonic() - t:.1f}s")
     model = served["bf16"]
     logits, st = model.prefill(params, batch)
     phase_profile(params, model, st, torch.argmax(logits, -1))
@@ -4873,12 +5267,14 @@ def main():
           f"made on the card in {time.monotonic() - t:.1f}s")
     watch_plain_prompt_attention()
     launches = dict.fromkeys(launch_counts(), 0)
+    one_shard = {}                     # phase 4's streams, for [sharded]
     for blocks in (1, 4):
         for kv in ("bf16", "int8"):
             tag = f"kv={kv} select_blocks={blocks}"
             t = time.monotonic()
             kernel, n, flash, model, whole, _ = phase_serve(cfg, params, kv,
                                                             smi, blocks)
+            one_shard[(kv, blocks)] = [h.tokens for h in whole]
             launches[kernel] += n
             launches["flash_prefill"] += flash
             print(f"[serve] {tag} phase {time.monotonic() - t:.1f}s")
@@ -4932,6 +5328,12 @@ def main():
     for name, n in phase_faults(cfg, params, smi).items():
         launches[name] += n
     print(f"[faults] phase {time.monotonic() - t:.1f}s")
+
+    # 8b. the lane-sharded ServeLoop on the same weights
+    t = time.monotonic()
+    for name, n in phase_sharded(cfg, params, smi, one_shard).items():
+        launches[name] += n
+    print(f"[sharded] phase {time.monotonic() - t:.1f}s")
     # longchat-7b's weights and every loop that holds them (the handles of
     # phase 4) go before the next model is made
     del params, whole, sliced
@@ -4941,6 +5343,9 @@ def main():
     print(f"[family] before phase 9: {held / 2 ** 30:.3f} GiB still "
           f"allocated on the card (longchat-7b's 13.5 GB freed)")
     assert held < 1 << 30, held
+
+    # 8c. the collective paths in a 4-rank world
+    phase_mesh(smi)
 
     # 9. the rest of the dense family and the MoE family, full width
     t = time.monotonic()

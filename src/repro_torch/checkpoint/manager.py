@@ -15,9 +15,11 @@ crash mid-save never leaves a restorable partial one.
 A tree is nested dicts, lists and tuples (NamedTuples such as the training
 state) of tensors; None is an empty node, as in JAX. `restore` takes a
 tree of the same structure (tensors, or `spec_like`'s specs) and puts each
-leaf in that leaf's dtype on that leaf's device. Restoring onto another
-layout of cards (the reference's `shardings`) waits for the multi-GPU
-slice (ROADMAP.md Queue A item 11).
+leaf in that leaf's dtype on that leaf's device; with `shardings` (a tree
+of `runtime.sharding.NamedSharding`) each leaf becomes a DTensor laid out
+on that sharding's mesh, which may be another layout of cards than the one
+that saved (elastic restore). A state of DTensors is saved whole: every
+rank gathers each leaf (`full_tensor`, a collective) and rank 0 writes.
 """
 from __future__ import annotations
 
@@ -50,7 +52,13 @@ def spec_like(tree) -> Any:
                                  for t in leaves(tree)]))
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor") and hasattr(t, "placements")
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
+    if _is_dtensor(t):
+        t = t.full_tensor()                      # a collective
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:                # its bits
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -77,11 +85,20 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, block: bool = False):
         """Copy to host memory synchronously, write asynchronously (or
-        before returning, with `block` or without `async_save`)."""
+        before returning, with `block` or without `async_save`). A state of
+        DTensors is gathered on every rank and written by rank 0 alone; a
+        blocking save then returns on every rank once it is committed."""
         flat = flatten_with_paths(state)
         paths = [p for p, _ in flat]
         host = [_to_host(t) for _, t in flat]     # device → host (sync)
         dtypes = [str(t.dtype).replace("torch.", "") for _, t in flat]
+        sharded = any(_is_dtensor(t) for _, t in flat)
+        if sharded:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                if block or not self.async_save:
+                    dist.barrier()
+                return
         self.wait()
         t = threading.Thread(target=self._write, args=(step, paths, host,
                                                        dtypes))
@@ -89,6 +106,9 @@ class CheckpointManager:
         self._pending = t
         if block or not self.async_save:
             self.wait()
+            if sharded:
+                import torch.distributed as dist
+                dist.barrier()
 
     def _write(self, step: int, paths: List[str], host, dtypes):
         try:
@@ -144,9 +164,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """The checkpoint of `step` in the structure of `like` (tensors or
-        LeafSpecs), each leaf in that leaf's dtype on its device."""
+        LeafSpecs), each leaf in that leaf's dtype on its device; with
+        `shardings` (a tree like `like` of NamedShardings) each leaf a
+        DTensor holding this rank's shard on that sharding's mesh (every
+        rank reads the file and cuts its own shard: no communication)."""
         final = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(final, "tree.json")) as f:
             meta = json.load(f)
@@ -154,15 +177,20 @@ class CheckpointManager:
         if len(meta["leaves"]) != len(targets):
             raise ValueError(f"checkpoint has {len(meta['leaves'])} leaves, "
                              f"target {len(targets)}")
+        shards = (leaves(shardings) if shardings is not None
+                  else [None] * len(targets))
         out = []
         with np.load(os.path.join(final, "arrays.npz")) as data:
-            for i, (leaf, t) in enumerate(zip(meta["leaves"], targets)):
+            for i, (leaf, t, sh) in enumerate(zip(meta["leaves"], targets,
+                                                  shards)):
                 a = _from_host(data[f"a{i}"], leaf["dtype"])   # one at a time
-                out.append(a.to(device=t.device, dtype=t.dtype))
+                a = a.to(device=t.device, dtype=t.dtype)
+                out.append(a if sh is None else sh.apply(a))
         return unflatten(like, iter(out))
 
-    def restore_latest(self, like: Any) -> Optional[Any]:
+    def restore_latest(self, like: Any, shardings: Any = None
+                       ) -> Optional[Any]:
         step = self.latest_step()
         if step is None:
             return None
-        return self.restore(step, like)
+        return self.restore(step, like, shardings)

@@ -9,6 +9,20 @@ Prefill: causal attention that also returns the per-token accumulated
 attention column sums (the `flash_prefill` kernel on the card), over the
 whole prompt or one chunk of it, then the one-shot static pruning.
 
+Slot-sharded decode: over a process mesh whose axes `_slot_axes` can
+split the slots into the `select_blocks` blocks of the blocked race, each
+rank holds only its shard of the cache (its batch rows on the batch axes,
+its slot block on the slot axes; `shard_cache`, which records the block in
+`cache.shard`), races its own k/nb winners, gathers and attends locally,
+and combines by an all-reduce of the row max and one of the denominators
+and partial outputs (`_blocked_attend_shardmap`). The layout is the
+cache's own, not the active mesh's: a whole cache decodes unsharded under
+any mesh. The other cross-slot choices of the step agree with the
+unsharded step: the write slot (one all-gather of each rank's eviction
+candidate) and the accumulated probabilities' softmax. As in the
+reference, the fused kernels are not used under a mesh or on a shard, and
+the local body is plain PyTorch.
+
 The cache is updated IN PLACE: `decode_attention` takes a cache whose
 tensors may be views into the layer-stacked buffers.
 """
@@ -21,10 +35,12 @@ import torch
 
 from repro_torch.configs.base import PruneConfig
 from repro_torch.core import quant, scoring, topk
-from repro_torch.core.cache import KVCache, protected_mask, write_token
+from repro_torch.core.cache import (KVCache, SlotShard, protected_mask,
+                                    write_token)
 from repro_torch.core.topk import NEG_INF
 from repro_torch.device import kernel_capable
 from repro_torch.kernels import ops
+from repro_torch.runtime import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +126,121 @@ def _gathered_attend_blocked(cache: KVCache, q: torch.Tensor,
     return out.reshape(b, hq, -1)
 
 
+def _slot_axes(mesh, nb: int) -> Tuple[str, ...]:
+    """Greedy prefix of (model, data, pod) whose sizes multiply to nb."""
+    shape = sharding.mesh_shape(mesh)
+    axes, prod = [], 1
+    for a in ("model", "data", "pod"):
+        if a in shape and prod < nb:
+            axes.append(a)
+            prod *= shape[a]
+    return tuple(axes) if prod == nb else ()
+
+
+def slot_layout(mesh, nb: int, batch: int
+                ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(batch axes, slot axes) of the slot-sharded decode over `mesh`: the
+    slots split over `_slot_axes(mesh, nb)`, the batch rows over the other
+    data axes that divide `batch` (the reference's shard_map specs)."""
+    slot_axes = _slot_axes(mesh, nb)
+    shape = sharding.mesh_shape(mesh)
+    batch_axes = tuple(a for a in ("pod", "data")
+                       if a in shape and a not in slot_axes
+                       and batch % shape[a] == 0)
+    return batch_axes, slot_axes
+
+
+def _block(x: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
+    step = x.shape[dim] // n
+    return x.narrow(dim, i * step, step)
+
+
+def shard_rows(x: torch.Tensor, mesh, nb: int, batch: int) -> torch.Tensor:
+    """This rank's batch rows of a [batch, ...] tensor under
+    `slot_layout` (a view)."""
+    mesh = sharding.as_mesh(mesh)
+    axes, _ = slot_layout(mesh, nb, batch)
+    return _block(x, 0, mesh.coord(axes), mesh.size(axes)) if axes else x
+
+
+def shard_cache(cache: KVCache, mesh, nb: int) -> KVCache:
+    """This rank's shard of a whole [B, Hk, S, ·] cache under
+    `slot_layout` over a process mesh: its batch rows and its slot block
+    (a copy), with the block in `shard` when the slots split (a decode
+    step on it then runs the slot-sharded race of `nb` blocks)."""
+    mesh = sharding.as_mesh(mesh)
+    b = cache.k.shape[0]
+    batch_axes, slot_axes = slot_layout(mesh, nb, b)
+    bi, bn = ((mesh.coord(batch_axes), mesh.size(batch_axes))
+              if batch_axes else (0, 1))
+    si, sn = mesh.coord(slot_axes), mesh.size(slot_axes)
+
+    def cut(a):
+        a = _block(a, 0, bi, bn)
+        return _block(a, 2, si, sn) if a.dim() > 2 else a
+    out = cache.map(lambda a: cut(a).clone())
+    if slot_axes:
+        s = out.slots
+        out.shard = SlotShard(mesh.group(slot_axes), si * s, s * sn)
+    return out
+
+
+def check_slot_shard(cache: KVCache, prune: PruneConfig,
+                     latent: bool = False) -> None:
+    """Refuse a decode step on a slot-sharded cache unless `prune` runs the
+    race the reference shards (unicaim, select_blocks > 1 — one block a
+    rank —; for a GQA cache the top-k race too, while MLA's `latent` race
+    ignores select_mode). Called before the step writes anything."""
+    shard = cache.shard
+    if shard is None:
+        return
+    blocks = shard.total // cache.slots
+    if (prune.policy != "unicaim" or prune.select_blocks != blocks
+            or (not latent and prune.select_mode != "topk")):
+        raise ValueError(
+            f"a cache slot-sharded over {blocks} ranks needs the unicaim "
+            f"blocked race with select_blocks={blocks}"
+            f"{'' if latent else ' and select_mode=topk'}; got "
+            f"policy={prune.policy} select_blocks={prune.select_blocks} "
+            f"select_mode={prune.select_mode}")
+
+
+def _blocked_attend_shardmap(cache: KVCache, q: torch.Tensor,
+                             biased: torch.Tensor, prune: PruneConfig,
+                             group) -> torch.Tensor:
+    """Shard-local top-k + gather + flash-decode combine: this rank races
+    its own slot block (k/select_blocks winners), gathers and attends
+    locally, and only the softmax statistics and the [B,Hq,dv] partial
+    outputs cross `group`: one all-reduce of the row max, one of the
+    denominators with the partial outputs. q [B,Hq,d] → out [B,Hq,dv]."""
+    b, hq, d = q.shape
+    hk = cache.k.shape[1]
+    g = hq // hk
+    k_loc = prune.select_k // prune.select_blocks
+    _, idx = topk.exact_topk(biased, k_loc)                     # [B,Hk,kl]
+
+    def rows(x):
+        return torch.gather(x, 2, idx[..., None].expand(-1, -1, -1,
+                                                        x.shape[-1]))
+
+    k_sel, v_sel = rows(cache.k), rows(cache.v)
+    valid_sel = torch.gather(cache.valid, 2, idx)
+    if cache.quantized_kv:
+        k_sel = k_sel.float() * torch.gather(cache.kscale, 2, idx)[..., None]
+        v_sel = v_sel.float() * torch.gather(cache.vscale, 2, idx)[..., None]
+    logits = torch.matmul(q.reshape(b, hk, g, d).float(),
+                          k_sel.float().transpose(-1, -2)) / math.sqrt(d)
+    logits = torch.where(valid_sel[:, :, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    m = sharding.all_reduce(logits.amax(dim=-1, keepdim=True), "max", group)
+    e = torch.exp(logits - m) * (logits > NEG_INF / 2)         # [B,Hk,g,kl]
+    o = torch.matmul(e, v_sel.float())                         # [B,Hk,g,dv]
+    oz = sharding.all_reduce(torch.cat([o, e.sum(dim=-1, keepdim=True)], -1),
+                             "sum", group)
+    out = oz[..., :-1] / torch.clamp(oz[..., -1:], min=1e-30)
+    return out.reshape(b, hq, -1)
+
+
 def _fused_enabled(prune: PruneConfig, device: torch.device) -> bool:
     """fused="auto" runs the kernel on an sm_90 card, composed elsewhere."""
     if prune.fused == "auto":
@@ -119,10 +250,13 @@ def _fused_enabled(prune: PruneConfig, device: torch.device) -> bool:
 
 def _fused_eligible(cache: KVCache, prune: PruneConfig) -> bool:
     """The fused engine covers the paper-default decode configuration; the
-    threshold race, exact accumulation and MLA's latent cache (no V) stay
-    on the composed path."""
+    threshold race, exact accumulation, MLA's latent cache (no V) and any
+    active mesh stay on the composed path (under a mesh the composed path
+    owns distribution, as in the reference)."""
     if not (_fused_enabled(prune, cache.k.device)
             and prune.policy == "unicaim"):
+        return False
+    if sharding.active_mesh() is not None or cache.shard is not None:
         return False
     if prune.select_mode != "topk" or prune.accumulate != "approx":
         return False
@@ -183,7 +317,12 @@ def decode_attention(cache: KVCache, q: torch.Tensor, k_new: torch.Tensor,
     q: [B, Hq, d] current query (post-RoPE); k_new: [B, Hk, d], v_new:
     [B, Hk, dv] current token (post-RoPE). `active` ([B] bool, optional)
     freezes the other lanes' cache rows. Returns the attention output
-    [B, Hq, dv] f32 (rows of inactive lanes are not meaningful)."""
+    [B, Hq, dv] f32 (rows of inactive lanes are not meaningful).
+
+    On a slot-sharded cache (`shard_cache`; module docstring), `cache` is
+    this rank's shard and q, k_new and v_new are its batch rows
+    (`shard_rows`)."""
+    check_slot_shard(cache, prune)
     write_token(cache, k_new, v_new, prune, active)
     return _policy_attend(cache, q, prune, active)
 
@@ -192,9 +331,12 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Post-write half of a decode step: policy dispatch (dense / h2o /
     unicaim fused, or composed with the global top-k, the block-local race
-    or the threshold race) + charge-domain accumulation."""
+    — slot-sharded on a sharded cache — or the threshold race) +
+    charge-domain accumulation."""
     head_dim = q.shape[-1]
     hk = cache.k.shape[1]
+    shard = cache.shard
+    group = None if shard is None else shard.group
 
     if prune.policy in ("dense", "streaming"):
         out, _ = _dense_attend(cache, q, head_dim)
@@ -235,14 +377,17 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
     elif prune.select_blocks > 1:
         biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
         nb = prune.select_blocks
-        s = biased.shape[-1]
+        s = biased.shape[-1] if shard is None else shard.total
         if s % nb or prune.select_k % nb:
             raise ValueError(f"blocked selection needs S={s} and select_k="
                              f"{prune.select_k} divisible by select_blocks="
                              f"{nb}")
-        _, idx = topk.exact_topk(biased.reshape(b, hk, nb, s // nb),
-                                 prune.select_k // nb)  # [B,Hk,nb,k_loc]
-        out = _gathered_attend_blocked(cache, q, idx, head_dim)
+        if shard is not None:
+            out = _blocked_attend_shardmap(cache, q, biased, prune, group)
+        else:
+            _, idx = topk.exact_topk(biased.reshape(b, hk, nb, s // nb),
+                                     prune.select_k // nb)  # [B,Hk,nb,kl]
+            out = _gathered_attend_blocked(cache, q, idx, head_dim)
     else:
         biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
         _, idx = topk.exact_topk(biased, prune.select_k)         # [B,Hk,k]
@@ -250,12 +395,12 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
 
     # charge-domain mode: same-cycle accumulation of approximate probs
     if prune.accumulate == "approx":
-        probs_acc = scoring.score_probs(s_approx, head_dim)
+        probs_acc = scoring.score_probs(s_approx, head_dim, group)
     else:  # 'exact' — full-precision probabilities (ablation)
         # the reference scores `cache.k` as stored: in int8 mode the codes,
         # without their scales (ROADMAP, quirks of the reference)
         probs_acc = scoring.score_probs(
-            scoring.exact_scores(q, cache.k, cache.valid), head_dim)
+            scoring.exact_scores(q, cache.k, cache.valid), head_dim, group)
     _set_acc(cache, scoring.accumulate(cache.acc, probs_acc, hk,
                                        prune.acc_decay), active)
     return out

@@ -14,16 +14,27 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import PruneConfig
 from repro_torch.core import quant
 from repro_torch.core.topk import exact_topk
+from repro_torch.runtime import sharding
 
 FIELDS = ("k", "v", "kq", "kscale", "vscale", "acc", "valid", "pos", "fill",
           "step")
+
+
+@dataclass(frozen=True)
+class SlotShard:
+    """This rank's block of a slot axis sharded over a process group: the
+    cache it holds is global slots [offset, offset + its slots) of
+    `total`; every rank of `group` holds the same batch rows."""
+    group: Any
+    offset: int
+    total: int
 
 
 @dataclass
@@ -39,6 +50,10 @@ class KVCache:
     pos: torch.Tensor                # [B, Hk, S] int32 (absolute; -1 empty)
     fill: torch.Tensor               # [B] int32 slots filled
     step: torch.Tensor               # [B] int32 tokens seen (next abs pos)
+    # Optional[SlotShard], not a field (the fields are the reference's
+    # ten): set by `attention.shard_cache` on one rank's slot block, whose
+    # decode step races and writes over every rank's slots
+    shard = None
 
     @property
     def slots(self) -> int:
@@ -60,9 +75,11 @@ class KVCache:
         return self.v
 
     def map(self, fn) -> "KVCache":
-        """Apply `fn` to every present field."""
-        return KVCache(*(None if getattr(self, f) is None
-                         else fn(getattr(self, f)) for f in FIELDS))
+        """Apply `fn` to every present field (the slot shard is kept)."""
+        out = KVCache(*(None if getattr(self, f) is None
+                        else fn(getattr(self, f)) for f in FIELDS))
+        out.shard = self.shard
+        return out
 
     def layer(self, li: int) -> "KVCache":
         """Views of layer `li` of a layer-stacked cache: writes through them
@@ -235,21 +252,39 @@ def evictable_mask(cache: KVCache, prune: PruneConfig) -> torch.Tensor:
 
 
 def _choose_slot(cache: KVCache, prune: PruneConfig) -> torch.Tensor:
-    """Per-(B, Hk) write slot: append while space, else policy eviction."""
+    """Per-(B, Hk) write slot: append while space, else policy eviction.
+    On a slot-sharded cache, the slot is a global index over all ranks'
+    slots."""
     b, hk, s = cache.acc.shape
+    shard = cache.shard
+    total = s if shard is None else shard.total
     append = cache.fill[:, None].long().expand(b, hk)
     if prune.policy == "streaming":
         # ring over the non-sink region (StreamingLLM)
-        window = s - prune.sink_tokens
+        window = total - prune.sink_tokens
         ring = prune.sink_tokens + torch.remainder(
             cache.step[:, None].long() - prune.sink_tokens, window)
-        return torch.where(cache.fill[:, None] < s, append, ring.expand(b, hk))
+        return torch.where(cache.fill[:, None] < total, append,
+                           ring.expand(b, hk))
     # unicaim / h2o: argmin accumulated score among evictable slots; the
     # first index wins a tie (torch.argmin documents it, as lax does)
     score = torch.where(evictable_mask(cache, prune), cache.acc,
                         torch.full_like(cache.acc, float("inf")))
-    evict = torch.argmin(score, dim=-1)                         # [B,Hk]
-    full = cache.fill[:, None] >= s
+    if shard is None:
+        evict = torch.argmin(score, dim=-1)                     # [B,Hk]
+    else:
+        # each rank's (min, global index of its first min), gathered in
+        # f64 (exact for both); the lowest global index wins a tie, as the
+        # unsharded argmin's first index does
+        val, idx = score.min(dim=-1)
+        pair = torch.stack([val.double(), (idx + shard.offset).double()])
+        both = sharding.all_gather(pair, shard.group)          # [n,2,B,Hk]
+        vals, idxs = both[:, 0], both[:, 1]
+        best = vals.min(dim=0, keepdim=True).values
+        evict = torch.where(vals == best, idxs,
+                            torch.full_like(idxs, float("inf"))).amin(
+                                dim=0).long()
+    full = cache.fill[:, None] >= total
     return torch.where(full, evict, append)
 
 
@@ -257,8 +292,10 @@ def _token_writes(cache: KVCache, k_new: torch.Tensor,
                   v_new: Optional[torch.Tensor], prune: PruneConfig,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Slot choice + per-field row values for a one-token insert.
-    Returns (slot [B, Hk] int64, {field: [B, Hk, ·] value at slot})."""
+    Returns (slot [B, Hk] int64 — global on a slot-sharded cache —,
+    {field: [B, Hk, ·] value at slot})."""
     b, hk, _ = cache.acc.shape
+    shard = cache.shard
     slot = _choose_slot(cache, prune)
     vals: Dict[str, torch.Tensor] = {}
     if cache.quantized_kv:
@@ -273,10 +310,13 @@ def _token_writes(cache: KVCache, k_new: torch.Tensor,
             vals["kq"], vals["kscale"] = quant.quantize(k_new,
                                                         prune.score_bits)
     if prune.init_new_score == "mean":
-        denom = torch.clamp(cache.valid.sum(dim=-1), min=1)
-        vals["acc"] = (torch.where(cache.valid, cache.acc,
-                                   torch.zeros_like(cache.acc)).sum(dim=-1)
-                       / denom)
+        num = torch.where(cache.valid, cache.acc,
+                          torch.zeros_like(cache.acc)).sum(dim=-1)
+        count = cache.valid.sum(dim=-1).float()
+        if shard is not None:
+            num, count = sharding.all_reduce(torch.stack([num, count]),
+                                             "sum", shard.group)
+        vals["acc"] = num / torch.clamp(count, min=1)
     else:
         vals["acc"] = torch.zeros((b, hk), dtype=torch.float32,
                                   device=cache.acc.device)
@@ -294,19 +334,32 @@ def write_token(cache: KVCache, k_new: torch.Tensor,
     k_new: [B, Hk, dh]; v_new: [B, Hk, dv]. `cache` may hold views into a
     layer-stacked cache (`KVCache.layer`); the writes land there.
     `active` ([B] bool, optional) freezes the other lanes: their slot keeps
-    its old row and their fill/step stay, without a host sync."""
+    its old row and their fill/step stay, without a host sync. On a
+    slot-sharded cache (`cache.shard`, one rank's block), the slot is
+    chosen over every rank's slots and only the rank holding it writes the
+    row: the eviction candidates are all-gathered on every step, the
+    appending ones too, since skipping the gather while the cache fills
+    would take a host sync."""
     b, hk, s = cache.acc.shape
+    shard = cache.shard
     slot, vals = _token_writes(cache, k_new, v_new, prune)
+    keep = None if active is None else active[:, None].expand(b, hk)
+    if shard is not None:
+        slot = slot - shard.offset
+        mine = (slot >= 0) & (slot < s)
+        keep = mine if keep is None else keep & mine
+        slot = slot.clamp(0, s - 1)
     bi = torch.arange(b, device=slot.device)[:, None]
     hi = torch.arange(hk, device=slot.device)[None, :]
     for f, val in vals.items():
         dst = getattr(cache, f)
-        if active is not None:
+        if keep is not None:
             old = dst[bi, hi, slot]
-            m = active.reshape((b,) + (1,) * (val.dim() - 1))
+            m = keep.reshape((b, hk) + (1,) * (val.dim() - 2))
             val = torch.where(m, val.to(dst.dtype), old)
         dst[bi, hi, slot] = val.to(dst.dtype)
-    fill = torch.clamp(cache.fill + 1, max=s)
+    fill = torch.clamp(cache.fill + 1,
+                       max=s if shard is None else shard.total)
     step = cache.step + 1
     if active is not None:
         fill = torch.where(active, fill, cache.fill)

@@ -10,6 +10,7 @@ import math
 import torch
 
 from repro_torch.core.topk import NEG_INF
+from repro_torch.runtime import sharding
 
 # the widest contraction of ±127 codes whose partial sums all stay below
 # 2^24, where f32 still holds every integer: 1040 · 127² = 16,774,160
@@ -53,12 +54,20 @@ def exact_scores(q: torch.Tensor, k: torch.Tensor,
     return raw.reshape(b, hq, s)
 
 
-def score_probs(scores: torch.Tensor, head_dim: int) -> torch.Tensor:
-    """Masked softmax over slots: scores [B,Hq,S] → probs [B,Hq,S]."""
+def score_probs(scores: torch.Tensor, head_dim: int,
+                group=None) -> torch.Tensor:
+    """Masked softmax over slots: scores [B,Hq,S] → probs [B,Hq,S]. With a
+    process `group`, the slot axis is sharded over it (each rank holds its
+    block of the slots): the row max and the denominator are reduced over
+    the group, so each rank gets its block of the whole softmax."""
     logits = scores / math.sqrt(head_dim)
-    logits = logits - logits.amax(dim=-1, keepdim=True)
-    e = torch.exp(logits) * (scores > NEG_INF / 2)
+    m = logits.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = sharding.all_reduce(m, "max", group)
+    e = torch.exp(logits - m) * (scores > NEG_INF / 2)
     z = e.sum(dim=-1, keepdim=True)
+    if group is not None:
+        z = sharding.all_reduce(z, "sum", group)
     return e / torch.clamp(z, min=1e-30)
 
 

@@ -9,9 +9,9 @@ Two sources behind one interface, `batch(step, batch_size)` → int32 numpy
   * MemmapSource — packed uint16/uint32 token files.
 
 `DataPipeline` takes this process's slice of the global batch, prefetches
-batches on a background thread and puts them on the model's device. It has
-no mesh: sharding the batch across cards waits for the multi-GPU slice
-(ROADMAP.md Queue A item 11).
+batches on a background thread and puts them on the model's device; under
+an active process mesh (`runtime.sharding.use_mesh`) each array is laid out
+by the `batch` rule as a DTensor, every rank keeping its rows.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.runtime import sharding
 
 
 class SyntheticSource:
@@ -109,8 +110,14 @@ class DataPipeline:
     def __next__(self) -> dict:
         batch = self._q.get()
         self.step += 1
-        return {k: torch.as_tensor(v).to(self.device)
+        return {k: self._place(torch.as_tensor(v).to(self.device))
                 for k, v in batch.items()}
+
+    @staticmethod
+    def _place(x: torch.Tensor):
+        """`x` laid out by the `batch` rule on the active process mesh
+        (a DTensor), or as it is without one."""
+        return sharding.distribute(x, ("batch",) + (None,) * (x.dim() - 1))
 
     def close(self):
         self._stop.set()

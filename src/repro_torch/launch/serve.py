@@ -33,11 +33,18 @@ request token-identically (`max_retries`, then outcome "failed"); a
 request ends with one outcome: done, cancelled, deadline, rejected or
 failed.
 
-Not ported yet: meshes (the port serves one shard).
+Lane sharding (`ServeLoop(mesh=n | LaneMesh)`, `launch/mesh.py`): the lane
+batch splits into `shards` contiguous blocks of `lanes_per_shard` lanes,
+each with its own `DecodeState`, tokens and generators on its shard's
+device; decode runs `decode_block_lanes` once per shard
+(`decode_block_lanes_sharded`), and nothing reads across shards.
+Admission fills the shard with the most free lanes, one shard's lanes a
+round, so a grouped prefill splices into one shard's state only.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import math
 import time
@@ -50,12 +57,14 @@ import torch
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import baselines
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.launch.prefix_cache import PrefixCache, RowsEntry, StateEntry
 from repro_torch.models.transformer import (DecodeState, Model,
                                             PrefillChunkState)
 from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.surgery import (cache_prefix_rows, state_lane_insert,
                                  state_lane_slice, state_lanes_insert)
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Prompt-length buckets: prompts are right-padded to a small doubling grid
@@ -96,6 +105,25 @@ def _check_device(model: Model, device) -> None:
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(f"device={dev} but the model lives on {model.device}")
+
+
+def _same_device(dev: torch.device, model_dev: torch.device) -> torch.device:
+    """`dev`, or the model's own device object when both name one device
+    (``cuda`` and ``cuda:0`` are one card when card 0 is current)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    if dev.type == model_dev.type and index(dev) == index(model_dev):
+        return model_dev
+    return dev
+
+
+def _model_on(model: Model, params, dev: torch.device):
+    """A copy of the model facade on `dev`, and the params copied there."""
+    m = copy.copy(model)
+    m.device = dev
+    return m, tree_map(lambda t: t.to(dev), params)
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +313,49 @@ def decode_block_lanes(model: Model, params, state, tok: torch.Tensor,
             tok = torch.argmax(logits, -1)
     return (state, tok, active, rem, finite, torch.stack(toks),
             torch.stack(emits))
+
+
+def decode_block_lanes_sharded(models: Sequence[Model], params: Sequence,
+                               states: Sequence, toks: Sequence[torch.Tensor],
+                               active: np.ndarray, rem: np.ndarray,
+                               eos: Union[int, np.ndarray],
+                               gens: Sequence[torch.Generator],
+                               temperature: np.ndarray, top_k: np.ndarray,
+                               top_p: np.ndarray, steps: int = 1,
+                               fault: Optional[np.ndarray] = None):
+    """`decode_block_lanes` over a lane batch split into shards.
+
+    Shard i owns the contiguous lanes [i·n, (i+1)·n) (n = lanes / shards):
+    `models[i]`, `params[i]`, `states[i]` and `toks[i]` live on its device,
+    and every [lanes] host array (`active`, `rem`, `eos` when per-lane,
+    the knobs, the generators, the [steps, lanes] `fault` mask's columns)
+    is cut to its lanes. Lanes are independent — attention, sampling and
+    the stop and budget masks never read across the lane axis — so each
+    shard runs the block on its own lanes alone and nothing crosses
+    shards. Every shard's block is dispatched before any is read, so the
+    shards' devices overlap; on one card they run in turn.
+
+    Returns (states, toks, active [lanes], rem [lanes], finite [lanes],
+    toks [steps, lanes], emitted [steps, lanes]), the per-lane outputs on
+    the host."""
+    shards = len(states)
+    n = len(active) // shards
+    outs = []
+    for i in range(shards):
+        cut = slice(i * n, (i + 1) * n)
+        dev = toks[i].device
+        e = eos if np.isscalar(eos) else torch.as_tensor(eos[cut],
+                                                         device=dev)
+        outs.append(decode_block_lanes(
+            models[i], params[i], states[i], toks[i],
+            torch.as_tensor(active[cut], device=dev),
+            torch.as_tensor(rem[cut], device=dev), e, gens[cut],
+            temperature[cut], top_k[cut], top_p[cut], steps=steps,
+            fault=(None if fault is None or not fault[:, cut].any()
+                   else fault[:, cut])))
+    host = [[x.cpu().numpy() for x in o[2:]] for o in outs]
+    cat = [np.concatenate(parts, axis=-1) for parts in zip(*host)]
+    return ([o[0] for o in outs], [o[1] for o in outs], *cat)
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +631,21 @@ class ServeLoop:
     `shed_requests`, `quarantined_lanes`, `retried_requests`,
     `failed_requests`, `degrade_down`, `degrade_up`, `chaos_faults`,
     `chaos_stalls`, `chaos_blackouts`.
+
+    Lane sharding (`mesh=n` or a `launch.mesh.LaneMesh`): `lanes` must
+    divide into `shards` blocks of `lanes_per_shard` contiguous lanes, and
+    shard i keeps its own `DecodeState`, carried tokens and generators on
+    `mesh.devices[i]` (`shard_states`, `shard_toks`); the params are copied
+    once per distinct device. Each decode block runs `decode_block_lanes`
+    once per shard (`decode_block_lanes_sharded`); nothing reads across
+    shards, and per-lane arithmetic does not depend on the other lanes, so
+    the streams are the unsharded loop's. Admission fills one shard a
+    round, the one with the most free lanes (`shard_free_lanes`, lowest
+    index on ties): a grouped prefill runs on that shard's device and
+    splices into its state only; a preempted lane's capture resumes on
+    whichever shard frees a lane; a chaos blackout hides its shard's free
+    lanes. `aggregate()` adds `shards`, `shard{i}_tokens`, `shard{i}_tok_s`
+    and `tokens_per_dispatch`.
     """
 
     def __init__(self, model: Model, params, lanes: int, max_new: int = 64,
@@ -573,7 +659,8 @@ class ServeLoop:
                  max_queue: int = 0,
                  degrade: Union[str, Sequence[Dict[str, int]], None] = None,
                  degrade_high: int = 0, degrade_low: int = 0,
-                 chaos: Optional[ChaosConfig] = None, device="cuda"):
+                 chaos: Optional[ChaosConfig] = None, mesh=None,
+                 device="cuda"):
         _check_device(model, device)
         if model.cfg.frontend != "none":
             what = ("an enc-dec model takes its encoder's frames "
@@ -586,6 +673,33 @@ class ServeLoop:
         self.model = model
         self.params = params
         self.lanes = lanes
+        # lane sharding: `mesh` is a LaneMesh (or a shard count, for
+        # `make_serve_mesh`); shard i owns lanes [i·n, (i+1)·n) on
+        # mesh.devices[i]
+        if isinstance(mesh, int):
+            mesh = make_serve_mesh(mesh, device=model.device)
+        self.mesh = mesh
+        self.shards = 1
+        devices = [model.device]
+        if mesh is not None:
+            assert list(mesh.shape) == ["data"], (
+                f"serve mesh must be 1-D over data: {mesh}")
+            self.shards = int(mesh.shape["data"])
+            assert lanes % self.shards == 0, (
+                f"lanes={lanes} not divisible by {self.shards} shards")
+            devices = list(mesh.devices)
+        self.lanes_per_shard = lanes // self.shards
+        self._shard_tokens = np.zeros(self.shards, np.int64)
+        self._shard_dev = [_same_device(d, model.device) for d in devices]
+        # one model and one copy of the params per distinct device: shards
+        # on the same card share them
+        by_dev = {}
+        for dev in self._shard_dev:
+            if dev not in by_dev:
+                by_dev[dev] = ((model, params) if dev == model.device
+                               else _model_on(model, params, dev))
+        self._shard_model = [by_dev[d][0] for d in self._shard_dev]
+        self._shard_params = [by_dev[d][1] for d in self._shard_dev]
         self.max_new = max_new
         self.eos = eos
         self.block = max(1, block)
@@ -614,9 +728,8 @@ class ServeLoop:
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
-        self.device = model.device
-        self.state = None
-        self.tok = None
+        self._states: List[Optional[DecodeState]] = [None] * self.shards
+        self._toks: List[Optional[torch.Tensor]] = [None] * self.shards
         self.active = np.zeros(lanes, bool)
         self.remaining = np.zeros(lanes, np.int32)
         self.outputs: List[List[int]] = [[] for _ in range(lanes)]
@@ -628,10 +741,11 @@ class ServeLoop:
         self.lane_eos = np.full(lanes, self.eos, np.int64)
         self._lane_prio = np.zeros(lanes, np.int64)
         # the loop's own stream (host) seeds requests without a pinned
-        # seed; each lane's carry lives on the model's device
+        # seed; each lane's carry lives on its shard's device
         self._gen = torch.Generator().manual_seed(sample_seed)
-        self._lane_gens = [torch.Generator(device=self.device)
-                           .manual_seed(sample_seed) for _ in range(lanes)]
+        self._lane_gens = [
+            torch.Generator(device=self._shard_dev[self._shard_of(lane)])
+            .manual_seed(sample_seed) for lane in range(lanes)]
         # scheduler state: `_arrivals` holds not-yet-arrived requests in
         # arrival order; once arrived they move into their class deque
         # (keyed (-priority, bucket): min() is the highest class, shortest
@@ -691,6 +805,65 @@ class ServeLoop:
         self._rounds = 0                       # run() iterations
         self._blackout_on = False
         self._block_s_ema: Optional[float] = None   # wall s a decode block
+
+    # -- shards --------------------------------------------------------------
+
+    @property
+    def state(self) -> Optional[DecodeState]:
+        """The decode state of a one-shard loop (`shard_states` holds a
+        sharded loop's, one a shard)."""
+        if self.shards != 1:
+            raise AttributeError("a sharded ServeLoop keeps one state a "
+                                 "shard: see shard_states")
+        return self._states[0]
+
+    @property
+    def tok(self) -> Optional[torch.Tensor]:
+        """The carried next token of every lane of a one-shard loop."""
+        if self.shards != 1:
+            raise AttributeError("a sharded ServeLoop keeps one token "
+                                 "tensor a shard: see shard_toks")
+        return self._toks[0]
+
+    @property
+    def shard_states(self) -> List[Optional[DecodeState]]:
+        return list(self._states)
+
+    @property
+    def shard_toks(self) -> List[Optional[torch.Tensor]]:
+        return list(self._toks)
+
+    def _shard_of(self, lane: int) -> int:
+        """Shard owning `lane`: each shard holds a contiguous block of
+        lanes_per_shard lanes."""
+        return lane // self.lanes_per_shard
+
+    def _local(self, lane: int) -> Tuple[int, int]:
+        """(shard, the lane's row in that shard's state)."""
+        return lane // self.lanes_per_shard, lane % self.lanes_per_shard
+
+    def shard_free_lanes(self) -> List[List[int]]:
+        """Free lanes grouped by shard — the scheduler's shard-local
+        admission view. A lane is free without a request; a sliced
+        prefill's reserved lane is not. A chaos blackout hides its shard's
+        free lanes while it lasts (resident lanes keep decoding) and counts
+        once an interval; rounds keep ticking, so it expires. Without a
+        mesh this is one list."""
+        reserved = None if self._pending is None else self._pending.lane
+        free: List[List[int]] = [[] for _ in range(self.shards)]
+        for i in range(self.lanes):
+            if self._lane_rid[i] is None and i != reserved:
+                free[self._shard_of(i)].append(i)
+        black = False
+        if self.chaos is not None and self.chaos.blackout_shard >= 0:
+            for sh in range(self.shards):
+                if self.chaos.blacked_out(self._rounds, sh):
+                    black = True
+                    free[sh] = []
+        if black and not self._blackout_on:
+            self.counters["chaos_blackouts"] += 1
+        self._blackout_on = black
+        return free
 
     def _now(self) -> float:
         return 0.0 if self._t0 is None else time.monotonic() - self._t0
@@ -980,24 +1153,15 @@ class ServeLoop:
     # -- scheduling ----------------------------------------------------------
 
     def _free_lanes(self) -> List[int]:
-        """Lanes without a request; a sliced prefill's reserved lane is not
-        free. A chaos blackout of shard 0 (the port's one shard) hides
-        every free lane while it lasts (resident lanes keep decoding) and
-        counts once an interval; rounds keep ticking, so it expires."""
-        reserved = None if self._pending is None else self._pending.lane
-        free = [i for i in range(self.lanes)
-                if self._lane_rid[i] is None and i != reserved]
-        black = self._blackout_active()
-        if black:
-            free = []
-            if not self._blackout_on:
-                self.counters["chaos_blackouts"] += 1
-        self._blackout_on = black
-        return free
+        """The free lanes of the shard admission fills next: the one with
+        the most free lanes, the lowest index on ties (empty when no shard
+        has one)."""
+        return max(self.shard_free_lanes(), key=len)
 
     def _blackout_active(self) -> bool:
         return (self.chaos is not None and self.chaos.blackout_shard >= 0
-                and self.chaos.blacked_out(self._rounds, 0))
+                and any(self.chaos.blacked_out(self._rounds, sh)
+                        for sh in range(self.shards)))
 
     def _needs_chunking(self, bucket: int) -> bool:
         return 0 < self.chunk_prefill < bucket
@@ -1107,10 +1271,14 @@ class ServeLoop:
     # -- admission -------------------------------------------------------------
 
     def _ensure_state(self) -> None:
-        if self.state is None:
-            self.state = self.model.init_decode_state(self.lanes)
-            self.tok = torch.zeros(self.lanes, dtype=torch.long,
-                                   device=self.device)
+        """Every shard's empty state and token tensor, on its device."""
+        for sh in range(self.shards):
+            if self._states[sh] is None:
+                self._states[sh] = self._shard_model[sh].init_decode_state(
+                    self.lanes_per_shard)
+                self._toks[sh] = torch.zeros(self.lanes_per_shard,
+                                             dtype=torch.long,
+                                             device=self._shard_dev[sh])
 
     def _admit_lane(self, lane: int, req: Request) -> None:
         """Solo whole-bucket admission: an exact-prompt hit in the prefix
@@ -1140,10 +1308,12 @@ class ServeLoop:
         lengths = np.concatenate([lengths, np.repeat(lengths[:1], gp - g)])
         # exact-length rows (buckets=None: a recurrent model, or asked for)
         # need no length mask, and an SSM or hybrid model refuses one
-        logits, fresh = self.model.prefill_group(
-            self.params, torch.as_tensor(rows, device=self.device),
+        sh = self._shard_of(lanes[0])
+        dev = self._shard_dev[sh]
+        logits, fresh = self._shard_model[sh].prefill_group(
+            self._shard_params[sh], torch.as_tensor(rows, device=dev),
             None if self.buckets is None
-            else torch.as_tensor(lengths, device=self.device))
+            else torch.as_tensor(lengths, device=dev))
         logits = logits[:g]
         self.counters["prefill_dispatches"] += 1
         if g > 1:
@@ -1211,12 +1381,16 @@ class ServeLoop:
         lanes[i]); each lane's first token follows its request's rule."""
         self.counters["nonfinite_lanes"] += int(
             (~torch.isfinite(logits).all(dim=-1)).sum())
-        src = np.full(self.lanes, -1, np.int64)
-        src[lanes] = np.arange(len(group))
-        state_lanes_insert(self.state, src, fresh)
+        sh = self._shard_of(lanes[0])
+        rows = [self._local(lane)[1] for lane in lanes]
+        assert all(self._shard_of(lane) == sh for lane in lanes), lanes
+        src = np.full(self.lanes_per_shard, -1, np.int64)
+        src[rows] = np.arange(len(group))
+        state_lanes_insert(self._states[sh], src, fresh)
         gens = [self._seed_keys(r, lane) for lane, r in zip(lanes, group)]
-        lane_t = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
-        self.tok[lane_t] = self._first_tokens(logits, group, gens)
+        lane_t = torch.as_tensor(rows, dtype=torch.long,
+                                 device=self._shard_dev[sh])
+        self._toks[sh][lane_t] = self._first_tokens(logits, group, gens)
         self.counters["admit_dispatches"] += 1
         now = self._now()
         for lane, req in zip(lanes, group):
@@ -1276,8 +1450,9 @@ class ServeLoop:
         self._ensure_state()
         rs = req.resume
         req.resume = None
-        state_lane_insert(self.state, lane, rs.state)
-        self.tok[lane] = rs.tok
+        sh, row = self._local(lane)
+        state_lane_insert(self._states[sh], row, rs.state)
+        self._toks[sh][row] = rs.tok
         self.counters["admit_dispatches"] += 1
         self.active[lane] = rs.rem > 0
         self.remaining[lane] = rs.rem
@@ -1297,9 +1472,10 @@ class ServeLoop:
         arrival rank."""
         rid = self._lane_rid[lane]
         req = self._req_by_rid[rid]
-        fresh = state_lane_slice(self.state, lane)
+        sh, row = self._local(lane)
+        fresh = state_lane_slice(self._states[sh], row)
         req.resume = _ResumeState(
-            state=fresh, tok=int(self.tok[lane]),
+            state=fresh, tok=int(self._toks[sh][row]),
             rem=int(self.remaining[lane]),
             key=self._lane_gens[lane].get_state(),
             outputs=list(self.outputs[lane]))
@@ -1478,10 +1654,11 @@ class ServeLoop:
         token through the request's rule, so a greedy repeat reproduces the
         original stream."""
         t0 = time.perf_counter()
-        state_lane_insert(self.state, lane, entry.state)
+        sh, row = self._local(lane)
+        state_lane_insert(self._states[sh], row, entry.state)
         gens = [self._seed_keys(req, lane)]
-        self.tok[lane] = self._first_tokens(
-            entry.logits.to(self.device)[None], [req], gens)[0]
+        self._toks[sh][row] = self._first_tokens(
+            entry.logits.to(self._shard_dev[sh])[None], [req], gens)[0]
         self.prefix_host_s["splice_s"] += time.perf_counter() - t0
         self.counters["admit_dispatches"] += 1
         self.counters["prefix_copies"] += 1
@@ -1612,14 +1789,15 @@ class ServeLoop:
         ws = math.ceil(req.bucket / c) * c
         padded = np.zeros(ws, req.prompt.dtype)
         padded[:len(req.prompt)] = req.prompt
+        model = self._shard_model[self._shard_of(lane)]
         if rows is not None:
-            pstate = self.model.resume_prefill_chunk_state(
+            pstate = model.resume_prefill_chunk_state(
                 rows.k, rows.v, rows.acc, ws)
             base = rows.depth
             self.counters["prefix_copies"] += 1
             self.counters["prefix_tokens_reused"] += base
         else:
-            pstate = self.model.init_prefill_chunk_state(1, ws)
+            pstate = model.init_prefill_chunk_state(1, ws)
             base = 0
         self._pending = _ChunkedPrefill(
             req=req, lane=lane, bucket=ws, padded=padded, pstate=pstate,
@@ -1640,12 +1818,14 @@ class ServeLoop:
             return False
         c = self.chunk_prefill
         row0 = p.next_chunk * c
+        sh = self._shard_of(p.lane)
+        model, params = self._shard_model[sh], self._shard_params[sh]
         tok_c = torch.as_tensor(p.padded[None, row0:row0 + c],
-                                device=self.device)
+                                device=model.device)
         length = torch.as_tensor([len(p.req.prompt)], dtype=torch.int32,
-                                 device=self.device)
-        p.x_last, p.pstate = self.model.prefill_chunk(
-            self.params, p.pstate, tok_c, row0, length)
+                                 device=model.device)
+        p.x_last, p.pstate = model.prefill_chunk(
+            params, p.pstate, tok_c, row0, length)
         self.counters["chunk_dispatches"] += 1
         p.next_chunk += 1
         q = p.next_chunk * c
@@ -1660,8 +1840,8 @@ class ServeLoop:
                 "cpu", copy=True)))
             self.prefix_host_s["insert_s"] += time.perf_counter() - t0
         if p.next_chunk >= p.n_chunks:
-            logits, fresh = self.model.prefill_finalize(
-                self.params, p.pstate, p.x_last, row0, length)
+            logits, fresh = model.prefill_finalize(
+                params, p.pstate, p.x_last, row0, length)
             self.counters["prefill_dispatches"] += 1
             self._pending = None
             self._splice([p.lane], [p.req], logits, fresh, bucket=p.bucket,
@@ -1682,14 +1862,12 @@ class ServeLoop:
         mask for this block index rides in (only a mask with a set bit is
         passed). Lanes the sentinel flagged are quarantined and their
         requests retried (`_quarantine_lane`), never finished."""
-        dev = self.device
         steps = self._effective_block()
         eos = self.lane_eos
         # one stop token for every lane stays a Python scalar: the greedy
         # block then copies nothing more to the card than before per-lane
         # stop tokens
-        eos = (int(eos[0]) if (eos == eos[0]).all()
-               else torch.as_tensor(eos, device=dev))
+        eos = int(eos[0]) if (eos == eos[0]).all() else eos
         fault = None
         if self.chaos is not None and self.chaos.any_faults:
             blk = self.counters["decode_blocks"]
@@ -1702,21 +1880,22 @@ class ServeLoop:
             if mask.any():
                 fault = mask
         t_disp = time.monotonic()
-        (self.state, self.tok, active, rem, finite, toks,
-         emits) = decode_block_lanes(
-            self.model, self.params, self.state, self.tok,
-            torch.as_tensor(self.active, device=dev),
-            torch.as_tensor(self.remaining, device=dev), eos,
-            self._lane_gens, self.lane_temp, self.lane_topk, self.lane_topp,
-            steps=steps, fault=fault)
+        (self._states, self._toks, active, rem, finite, host_toks,
+         host_emit) = decode_block_lanes_sharded(
+            self._shard_model, self._shard_params, self._states, self._toks,
+            self.active, self.remaining, eos, self._lane_gens,
+            self.lane_temp, self.lane_topk, self.lane_topp, steps=steps,
+            fault=fault)
         self.counters["decode_blocks"] += 1
         self.counters["decode_steps"] += steps
-        host_toks = toks.cpu().numpy()                     # [steps, lanes]
-        host_emit = emits.cpu().numpy()
         was_active = self.active.copy()
-        self.active = active.cpu().numpy()
-        self.remaining = rem.cpu().numpy().astype(np.int32)
-        poison = was_active & ~finite.cpu().numpy()
+        self.active = active
+        self.remaining = rem.astype(np.int32)
+        poison = was_active & ~finite
+        # per-shard emission accounting (the host's, the only traffic
+        # between shards)
+        self._shard_tokens += host_emit.sum(axis=0).reshape(
+            self.shards, self.lanes_per_shard).sum(axis=1)
         # the block's wall, the card's work included (the dispatch returns
         # before the card finishes; the copies above wait for it): an EMA
         # feeds the backpressure hint `retry_after`
@@ -1799,10 +1978,11 @@ class ServeLoop:
     def _lane_occupancy(self, lane: int) -> float:
         """The lane's mean fill over its cache layers, as a share of the
         slots (0.0 for a model with no cache)."""
-        kv = self.state.kv
+        sh, row = self._local(lane)
+        kv = self._states[sh].kv
         if kv is None:
             return 0.0
-        return float(kv.fill[:, lane].float().mean()) / kv.slots
+        return float(kv.fill[:, row].float().mean()) / kv.slots
 
     # -- driver ----------------------------------------------------------------
 
@@ -1892,6 +2072,15 @@ class ServeLoop:
         wall = max(max(s.t_done for s in self.completed)
                    - min(s.t_arrival for s in self.completed), 1e-9)
         ttfts = [s.ttft for s in self.completed]
+        if self.shards > 1:
+            # per-shard throughput and tokens per decode-block dispatch
+            out["shards"] = float(self.shards)
+            for i, t in enumerate(self._shard_tokens):
+                out[f"shard{i}_tokens"] = float(t)
+                out[f"shard{i}_tok_s"] = float(t) / wall
+            out["tokens_per_dispatch"] = (
+                float(self._shard_tokens.sum())
+                / max(self.counters["decode_blocks"], 1))
         return {**out, "requests": float(len(self.completed)),
                 "tokens": float(toks), "wall_s": wall,
                 "tokens_per_s": toks / wall,

@@ -24,11 +24,14 @@ the reference's `mla_decode_stacked` (lanes outside `active` keep their
 rows and `acc`); eager PyTorch needs neither its decode window nor its
 `dep` pin.
 
-Not ported here: `_mla_blocked_shardmap` (the shard-local latent race of
-a multi-device mesh). Without a mesh the reference's `_latent_attend`
-takes the global top-k whatever `select_blocks` and `select_mode` say,
-and accumulates the approximate probabilities whatever `accumulate` says;
-the port follows that code.
+Without a mesh the reference's `_latent_attend` takes the global top-k
+whatever `select_blocks` and `select_mode` say, and accumulates the
+approximate probabilities whatever `accumulate` says; the port follows
+that code. On a latent cache slot-sharded into `select_blocks` blocks over
+a process mesh (`core.attention.shard_cache`), each rank holds its shard
+of the latent cache and races its own block (`_mla_blocked_shardmap`), as
+the reference's shard_map does; the write slot and the accumulated softmax
+span every rank's slots.
 """
 from __future__ import annotations
 
@@ -39,12 +42,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, PruneConfig
 from repro_torch.core import quant, scoring, topk
-from repro_torch.core.attention import _set_acc, chunked_causal_attention
+from repro_torch.core.attention import (_set_acc, check_slot_shard,
+                                        chunked_causal_attention)
 from repro_torch.core.cache import (KVCache, prefill_fill, protected_mask,
                                     write_token)
 from repro_torch.core.topk import NEG_INF
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rope
+from repro_torch.runtime import sharding
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
@@ -188,18 +193,52 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
     """One decode step with UniCAIM selection in latent space, IN PLACE on
     `cache` (views of one layer of the stacked latent cache: Hk = 1, no V).
     x: [B,d] → y [B,d]. `active` ([B] bool, optional) freezes the other
-    lanes' latent rows, fill, step and acc."""
+    lanes' latent rows, fill, step and acc. On a slot-sharded latent cache
+    (module docstring), `cache` is this rank's shard and x its batch
+    rows."""
     m = cfg.mla
     b = x.shape[0]
     pos = cache.step[:, None].clone()                       # [B,1]
     q_nope, q_rope = _queries(p, x[:, None, :], cfg, pos)
     u_new = _latents(p, x[:, None, :], cfg, pos)[:, 0]      # [B,latent]
+    check_slot_shard(cache, prune, latent=True)
     write_token(cache, u_new[:, None, :], None, prune, active)
     w_uk, w_uv = _split_wkv_b(p, cfg)
     q_full = _absorbed(q_nope[:, 0], q_rope[:, 0], w_uk)    # [B,H,latent]
     ctx = _latent_attend(cache, q_full, cfg, prune, active)
     out = torch.einsum("bhk,khv->bhv", ctx, w_uv.float())
     return out.reshape(b, cfg.n_heads * m.v_dim).to(x.dtype) @ p["wo"]
+
+
+def _mla_blocked_shardmap(cache: KVCache, q_full: torch.Tensor,
+                          biased: torch.Tensor, prune: PruneConfig,
+                          kv_lora: int, scale_dim: int) -> torch.Tensor:
+    """Shard-local latent selection for MLA decode (the distributed CAM
+    race over the latent mirror): this rank's block of a slot-sharded
+    latent cache ([B_loc, 1, S/nb, latent]) and of the biased scores races
+    its own k/nb winners; the row max and the denominators with the
+    partial contexts are all-reduced over the cache's slot group. q_full
+    [B_loc, H, latent] → ctx [B_loc, H, kv_lora] f32."""
+    group = cache.shard.group
+    lat = cache.k.shape[-1]
+    k_loc = prune.select_k // prune.select_blocks
+    _, idx = topk.exact_topk(biased, k_loc)                  # [B,1,kl]
+    u_sel = torch.gather(cache.k, 2, idx[..., None].expand(
+        -1, -1, -1, lat))[:, 0]                              # [B,kl,lat]
+    if cache.quantized_kv:
+        u_sel = u_sel.float() * torch.gather(cache.kscale, 2,
+                                             idx)[:, 0][..., None]
+    valid_sel = torch.gather(cache.valid, 2, idx)[:, 0]      # [B,kl]
+    logits = torch.einsum("bhl,bkl->bhk", q_full.float(),
+                          u_sel.float()) / math.sqrt(scale_dim)
+    logits = torch.where(valid_sel[:, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    mx = sharding.all_reduce(logits.amax(dim=-1, keepdim=True), "max", group)
+    e = torch.exp(logits - mx) * (logits > NEG_INF / 2)
+    ctx = torch.einsum("bhk,bkl->bhl", e, u_sel[..., :kv_lora].float())
+    cz = sharding.all_reduce(torch.cat([ctx, e.sum(dim=-1, keepdim=True)],
+                                       -1), "sum", group)
+    return cz[..., :-1] / torch.clamp(cz[..., -1:], min=1e-30)
 
 
 def _latent_attend(cache: KVCache, q_full: torch.Tensor, cfg: ModelConfig,
@@ -213,8 +252,10 @@ def _latent_attend(cache: KVCache, q_full: torch.Tensor, cfg: ModelConfig,
     latent), the global top-k of the protected-biased scores, exact
     attention over the winners, and the approximate probabilities
     accumulated (the reference's code, whatever select_blocks, select_mode
-    and accumulate say without a mesh). dense, h2o and streaming: exact
-    attention over every valid slot (h2o accumulates its probabilities)."""
+    and accumulate say on a whole cache; on a slot-sharded cache, the
+    shard-local race of `_mla_blocked_shardmap`). dense, h2o and
+    streaming: exact attention over every valid slot (h2o accumulates its
+    probabilities)."""
     m = cfg.mla
     scale_dim = _scale_dim(cfg)
     lat = cache.k.shape[-1]
@@ -227,6 +268,14 @@ def _latent_attend(cache: KVCache, q_full: torch.Tensor, cfg: ModelConfig,
         grouped = topk.gqa_group_scores(s_apx, 1)              # [B,1,S]
         biased = topk.apply_selection_bias(
             grouped, protected_mask(cache, prune), ~cache.valid)
+        if cache.shard is not None:
+            ctx = _mla_blocked_shardmap(cache, q_full, biased, prune,
+                                        m.kv_lora_rank, scale_dim)
+            _set_acc(cache, scoring.accumulate(
+                cache.acc, scoring.score_probs(s_apx, scale_dim,
+                                               cache.shard.group),
+                1, prune.acc_decay), active)
+            return ctx
         _, idx = topk.exact_topk(biased, prune.select_k)       # [B,1,k]
         u_sel = torch.gather(cache.k, 2, idx[..., None].expand(
             -1, -1, -1, lat))[:, 0]                            # [B,k,lat]

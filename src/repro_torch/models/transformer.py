@@ -62,9 +62,10 @@ from repro_torch.models.attention_layer import (attention_decode,
                                                 encode_cross_kv)
 from repro_torch.models.mla import (init_mla, mla_decode, mla_prefill,
                                     mla_train)
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.moe import apply_moe, apply_moe_ep_shardmap, init_moe
 from repro_torch.models.ssm import (SSMState, init_ssm, init_ssm_state,
                                     ssm_decode, ssm_prefill, ssm_train)
+from repro_torch.runtime import sharding
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -211,10 +212,22 @@ def _block_train(p, x: torch.Tensor, cfg: ModelConfig, positions, kind: str,
                                 cross_kv, cfg)
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
-        y, aux = apply_moe(p["moe"], h, cfg)
+        y, aux = _moe(p["moe"], h, cfg)
     else:
         y = L.apply_mlp(p["mlp"], h, cfg.act)
     return x + y, aux
+
+
+def _moe(pm, h: torch.Tensor, cfg: ModelConfig):
+    """MoE dispatch: expert parallelism over the active process mesh's
+    `model` axis when `cfg.moe_ep` is set and the experts divide it
+    (`apply_moe_ep_shardmap`); the sort-based dispatch otherwise."""
+    if cfg.moe_ep:
+        mesh = sharding.active_process_mesh()
+        if (mesh is not None and "model" in mesh.shape
+                and cfg.moe.n_experts % mesh.shape["model"] == 0):
+            return apply_moe_ep_shardmap(pm, h, cfg, mesh)
+    return apply_moe(pm, h, cfg)
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -483,8 +496,8 @@ class Model:
         training quantity), else the MLP. A decode step routes its B lanes'
         tokens together, as the reference's [B, 1, d] call does."""
         if "moe" in p:
-            y, _ = apply_moe(p["moe"], h.reshape(h.shape[0], -1,
-                                                 h.shape[-1]), self.cfg)
+            y, _ = _moe(p["moe"], h.reshape(h.shape[0], -1, h.shape[-1]),
+                        self.cfg)
             return y.reshape(h.shape)
         return L.apply_mlp(p["mlp"], h, self.cfg.act)
 

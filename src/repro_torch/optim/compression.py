@@ -1,16 +1,16 @@
-"""Gradient compression with error feedback — the port of the
-error-feedback half of `repro/optim/compression.py`: gradients quantized
-to int8 codes with per-row f32 scales (absmax / 127, floor 1e-20), the
-quantization residual kept and added to the next step's gradients
-(Karimireddy et al. 2019). The reduction that carries the codes,
-`compressed_psum`, is a collective and waits for the multi-GPU slice
-(ROADMAP.md Queue A item 11)."""
+"""Gradient compression with error feedback — the port of
+`repro/optim/compression.py`: gradients quantized to int8 codes with
+per-row f32 scales (absmax / 127, floor 1e-20), the quantization residual
+kept and added to the next step's gradients (Karimireddy et al. 2019), and
+`compressed_psum`, the data-parallel mean whose wire payload is the int8
+codes and their f32 scales."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.runtime import sharding
 from repro_torch.tree import tree_map
 
 
@@ -46,6 +46,27 @@ def compress_with_feedback(grads, ef: ErrorFeedback):
     out = tree_map(one, grads, ef.residual)
     return ((_select(out, 0), _select(out, 1)),
             ErrorFeedback(residual=_select(out, 2)))
+
+
+def gather_quantized(x: torch.Tensor, group
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_grad(x)` on every rank of `group`, all-gathered →
+    (codes [n, ...] int8, scales [n, ..., 1] f32) in rank order."""
+    q, s = quantize_grad(x)
+    return sharding.all_gather(q, group), sharding.all_gather(s, group)
+
+
+def compressed_psum(x: torch.Tensor, mesh, axis: str = "data"
+                    ) -> torch.Tensor:
+    """All-reduce-mean of x over the process mesh's `axis` with an int8
+    payload: "quantize → all-gather int8 codes and f32 row scales → local
+    sum", the reference's order (the dequantized pieces summed over the
+    rank axis, then divided by n). x is identically shaped on every
+    rank."""
+    mesh = sharding.as_mesh(mesh)
+    n = mesh.shape[axis]
+    qg, sg = gather_quantized(x, mesh.group(axis))
+    return (qg.float() * sg).sum(dim=0) / n
 
 
 def _select(tree, i):

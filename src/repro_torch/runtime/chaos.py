@@ -13,8 +13,8 @@ reference's). A frozen `ChaosConfig` injects
     bounded admission (`max_queue`) and the degradation ladder;
   * **shard blackouts** — a scheduler-round interval during which one
     shard's free lanes are hidden from admission (a brownout: resident
-    lanes keep decoding, no new work lands on the shard). The port serves
-    one shard, so `blackout_shard=0` hides every free lane.
+    lanes keep decoding, no new work lands on the shard; admission routes
+    around it to the other shards of a lane-sharded `ServeLoop`).
 
 Everything is a pure function of (seed, block index / round index), so
 every recovery path is replayable bit for bit: the same config injects the

@@ -7,9 +7,8 @@ restores the latest checkpoint and replays from its step (the data is a
 function of the step index), up to `max_restarts`; a per-step deadline
 counts stragglers and may raise; checkpoints every `ckpt_every` steps and
 one blocking save at the end. Where the reference blocks on the metrics,
-this loop synchronises the state's card (nothing on the CPU). Restoring
-onto another layout of cards (`elastic_restore`) waits for the multi-GPU
-slice (ROADMAP.md Queue A item 11).
+this loop synchronises the state's card (nothing on the CPU).
+`elastic_restore` restores the latest checkpoint onto the current mesh.
 """
 from __future__ import annotations
 
@@ -105,3 +104,14 @@ def run_training(step_fn: Callable, state: Any, data_iter, num_steps: int,
                 step = start_step
     ckpt.save(step, state, block=True)
     return state, stats
+
+
+def elastic_restore(ckpt: CheckpointManager, state_template: Any,
+                    make_shardings: Callable[[], Any]) -> Any:
+    """Restore the latest checkpoint onto the CURRENT mesh topology.
+
+    `make_shardings()` recomputes the layout from the logical rules under
+    the active mesh (`runtime.sharding.params_shardings`): a tree like the
+    template of `NamedSharding`s, so the same checkpoint restores onto any
+    mesh. Returns a tree of DTensors, each rank holding its shard."""
+    return ckpt.restore_latest(state_template, make_shardings())

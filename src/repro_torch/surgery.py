@@ -26,8 +26,12 @@ Not here, by design:
   slot_window, slot_window_merge, decode_window — the port has no decode
       window: eager decode writes in place and the decode kernels skip
       each lane's dead slot blocks themselves;
-  lane_pspecs, lane_shardings — lane-axis sharding over a device mesh
-      (multi-GPU serving is not ported yet).
+  lane_shardings — a lane-sharded `ServeLoop` keeps one state a shard on
+      that shard's device (`launch/mesh.LaneMesh`), so there is no
+      sharding object to build; `lane_pspecs` (below) names the layout.
+
+Lane sharding:
+  lane_pspecs(tree, mesh)                  lane-axis specs over "data"
 
 The inserts copy every cache field in place — the int8/quantized mirrors,
 their scales and the accumulated eviction scores included — and the SSM
@@ -43,6 +47,7 @@ from repro_torch.core.cache import (cache_prefix_rows,
                                     lane_slice as kv_lane_slice,
                                     lanes_insert as kv_lanes_insert,
                                     prefix_slot_aligned)
+from repro_torch.runtime.sharding import lane_pspecs
 from repro_torch.models.transformer import (lane_insert as state_lane_insert,
                                             lane_select as state_lane_select,
                                             lane_slice as state_lane_slice,
@@ -52,5 +57,5 @@ __all__ = [
     "state_lane_slice", "state_lane_insert", "state_lanes_insert",
     "state_lane_select",
     "kv_lane_slice", "kv_lane_insert", "kv_lanes_insert", "kv_lane_reset",
-    "prefix_slot_aligned", "cache_prefix_rows",
+    "prefix_slot_aligned", "cache_prefix_rows", "lane_pspecs",
 ]

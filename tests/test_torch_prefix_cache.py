@@ -482,7 +482,7 @@ def test_boundary_acc_snapshot_keeps_its_boundary_value():
 # ---------------------------------------------------------------------------
 
 SURGERY_OMITTED = {"slot_window", "slot_window_merge", "decode_window",
-                   "lane_pspecs", "lane_shardings"}
+                   "lane_shardings"}
 
 
 def test_surgery_names_equal_reference_minus_omissions():
