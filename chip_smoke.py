@@ -67,6 +67,19 @@ Phases, in order (no failure is caught: any one exits non-zero):
                decode steps under torch.profiler: host wall per step
                against the device time of its kernels; and one 4 x 2048
                prompt pass under torch.profiler;
+  5b. dryrun — the tooling layer on phase 4's weights (about 5 s): the
+               dry run's shape-only count (`launch/dryrun.py`, 2- and
+               3-layer probes on `meta`, a one-card mesh) of longchat-7b's
+               parameters and of a fresh 4-lane decode state, bf16 and int8
+               KV, equal byte for byte to the trees on the card, and the
+               allocator's growth while the state is made within 1% of
+               it; phase 4's decode steps and prompt pass (host wall and
+               kernel time) beside `roofline.summarize`'s bound for the
+               same work (model flops; the bytes read: the arguments
+               once, but of the cache's K/V rows only the select_k
+               winners'), a share above 1.05 failing; `dryrun.main` for longchat-7b x
+               decode_32k on the 16 x 16 mesh and `report.main` over its
+               record; the H100 constants beside the card's power limit;
   6. prefix  — the prefix cache: 8 requests sharing a 1,536-token system
                prompt (two exact repeats, one sharing 1,024 tokens, one
                unrelated) through one ServeLoop configuration
@@ -306,6 +319,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -317,7 +331,7 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, get_config  # noqa: E402
 from repro_torch.core import baselines, quant, scoring, topk  # noqa: E402
 from repro_torch.core.attention import (decode_attention,  # noqa: E402
                                         shard_cache, shard_rows, slot_layout)
@@ -333,7 +347,9 @@ from repro_torch.kernels import fused_decode as fused_mod  # noqa: E402
 from repro_torch.kernels import gather_attention as gather_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_decode as ragged_mod  # noqa: E402
+from repro_torch.launch import dryrun, report, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
+from repro_torch.launch.roofline import bound  # noqa: E402
 from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
                                       ServeLoop, _next_token_lanes,
                                       bucket_length, decode_block,
@@ -356,10 +372,6 @@ from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.surgery import (state_lane_insert,  # noqa: E402
                                  state_lane_slice)
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM datasheet peak rates
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12
 OUT_ATOL, PROBS_ATOL = 1e-3, 1e-5  # f32 on both sides, other sum order
 GATHER_ATOL = 1e-4                 # f32 on both sides, other sum order
 PATH_ATOL = 1e-2                   # bf16 activations
@@ -402,17 +414,6 @@ def reset_launches():
 
 def launch_counts():
     return {name: n for c in COUNTERS for name, n in c.items()}
-
-
-def bound(nbytes, int8_ops=0.0, f32_flops=0.0, bf16_flops=0.0):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over their peak rates."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = (int8_ops / INT8_OPS_PER_S + f32_flops / F32_FLOPS_PER_S
-             + bf16_flops / BF16_FLOPS_PER_S)
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
 
 
 SLEEP_CYCLES_PER_S = 2.0e9        # above the H100's SM clock: sleeps run long
@@ -1691,7 +1692,8 @@ def latent_times():
               f"{lib:.4f} ms; exact rows (largest probability above "
               f"1/{flash_mod.EXACT_BELOW:g}) {n_exact} of {n_rows} "
               f"({n_exact / n_rows:.1%}); this design's tensor-core work "
-              f"{design:.4g} flop, {design / BF16_FLOPS_PER_S * 1e3:.4f} ms "
+              f"{design:.4g} flop, "
+              f"{design / roofline.PEAK_FLOPS * 1e3:.4f} ms "
               f"at the bf16 peak, done at {design / ms / 1e9:.1f} TF/s as "
               f"served and {design / ms_tc / 1e9:.1f} TF/s with EXACT_BELOW "
               f"= 0")
@@ -1799,7 +1801,7 @@ def phase_flash():
           f"ms, plain {plain:.4f} ms, bound {t:.4f} ms ({by}: {flops:.4g} "
           f"flop, two causal products over the rows below each length, at "
           f"the 989 TF/s bf16 tensor-core peak; {nbytes} B, "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), kernel / "
+          f"{nbytes / roofline.HBM_BW * 1e3:.4f} ms at 3.35 TB/s), kernel / "
           f"bound {ms / t:.1f}x; library call F.scaled_dot_product_attention("
           f"is_causal=True), out only, no column sums: {lib:.4f} ms")
     # the same without exact rows: the tensor-core logits alone
@@ -1810,8 +1812,9 @@ def phase_flash():
           f"on the tensor cores): kernel pair {ms_tc:.4f} ms; the exact rows "
           f"(l < {flash_mod.EXACT_BELOW:g}) add {ms - ms_tc:.4f} ms")
     print(f"  this design's work, three causal products over all N rows: "
-          f"{design:.4g} flop, {design / BF16_FLOPS_PER_S * 1e3:.4f} ms at "
-          f"the bf16 tensor-core peak; the kernel pair does it at "
+          f"{design:.4g} flop, "
+          f"{design / roofline.PEAK_FLOPS * 1e3:.4f} ms at the bf16 "
+          f"tensor-core peak; the kernel pair does it at "
           f"{design / ms / 1e9:.1f} TF/s")
     # the TPU contract on the same route: f32 p as hi + lo, two p.v products
     ms_tpu = cuda_ms(lambda: flash_mod.flash_prefill(
@@ -1865,6 +1868,16 @@ def phase_flash():
 # ---------------------------------------------------------------------------
 
 
+def served_prune(kv, select_blocks=1, fused=True):
+    """Phase 4's pruning: PROMPT_LEN // 2 heavy slots and a 64-slot
+    reserve, select_k PROMPT_LEN // 16 (the phases that serve or decode
+    phase 4's configuration, and the dry run's count of it, share it)."""
+    return baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
+                             select_k=PROMPT_LEN // 16,
+                             select_blocks=select_blocks, fused=fused,
+                             kv_dtype=kv)
+
+
 def served_prompts(vocab, n=2 * LANES, new=NEW_TOKENS):
     rng = np.random.default_rng(SEED)
     return [(rng.integers(0, vocab, LENS[i % len(LENS)]),
@@ -1902,10 +1915,7 @@ def phase_serve(cfg, params, kv, smi, blocks, chunk=0, n=2 * LANES,
     kernel, its launches, flash_prefill launches, model, handles, the
     loop's aggregate)."""
     if prune is None:
-        prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
-                                  select_k=PROMPT_LEN // 16,
-                                  select_blocks=blocks, fused=True,
-                                  kv_dtype=kv)
+        prune = served_prune(kv, blocks)
     kernel = "fused_decode" if blocks > 1 else "ragged_decode"
     model = Model(cfg, prune, device="cuda")
     layers = model.attn_layer_count()
@@ -2105,9 +2115,7 @@ def phase_prefix(cfg, params, kv, smi):
     """The prefix cache at full width: cold and warm loops of one
     configuration over the shared-prefix trace. Returns the warm and cold
     loops' ragged_decode and flash_prefill launches."""
-    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
-                              select_k=PROMPT_LEN // 16, fused=True,
-                              kv_dtype=kv)
+    prune = served_prune(kv)
     model = Model(cfg, prune, device="cuda")
     trace = prefix_trace(cfg.vocab_size)
     launches = {"ragged_decode": 0, "flash_prefill": 0}
@@ -2344,9 +2352,7 @@ def truncated_support(row, t, k, p):
 def phase_perlane(cfg, params, kv, smi):
     """Per-lane knobs, a preemption and reservation at full width. Returns
     the launches of ragged_decode and flash_prefill over its four loops."""
-    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
-                              select_k=PROMPT_LEN // 16, fused=True,
-                              kv_dtype=kv)
+    prune = served_prune(kv)
     model = Model(cfg, prune, device="cuda")
     layers = cfg.num_layers
     prompts, arrival = perlane_prompts(cfg.vocab_size)
@@ -2653,9 +2659,7 @@ def phase_faults(cfg, params, smi):
 
     reqs = fault_requests(cfg.vocab_size)
     for kv in ("bf16", "int8"):
-        model = Model(cfg, baselines.unicaim(
-            heavy=PROMPT_LEN // 2, reserve=64, select_k=PROMPT_LEN // 16,
-            fused=True, kv_dtype=kv), device="cuda")
+        model = Model(cfg, served_prune(kv), device="cuda")
         clean, c_hs, c_wall = run("clean", kv, model, reqs)
         quar, q_hs, q_wall = run("quarantine", kv, model, reqs,
                                  chaos=QUARANTINE)
@@ -2932,7 +2936,8 @@ def phase_paths(cfg, params, model):
 
 def phase_profile(params, model, st, tok, steps=4):
     """Where a decode step's time goes: host wall per step (no profiler),
-    then the device time of the step's kernels under torch.profiler."""
+    then the device time of the step's kernels under torch.profiler →
+    (wall, kernel time) in ms a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2966,13 +2971,14 @@ def phase_profile(params, model, st, tok, steps=4):
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         print(f"    {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
               f"x{e.count // steps:<5d} {e.key[:80]}")
+    return wall, busy
 
 
 def phase_prefill_profile(cfg, params, model):
     """Where one whole-prompt prefill dispatch (4 x 2048, the served
     prompts) spends its time: host wall (no profiler), then the device time
     of its kernels under torch.profiler and the flash_prefill pair's
-    share."""
+    share → (wall, kernel time) in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3013,6 +3019,109 @@ def phase_prefill_profile(cfg, params, model):
           f"time ({share}), {launches} kernel launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         print(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
+    return wall, busy
+
+
+# ---------------------------------------------------------------------------
+# [dryrun]: the tooling layer (launch/dryrun.py, roofline.py, report.py) on
+# phase 4's weights
+# ---------------------------------------------------------------------------
+
+ONE_CARD = {"data": 1, "model": 1}
+ROOFLINE_SHARE_MAX = 1.05          # measured time below the bound: wrong
+ALLOC_GROWTH_RTOL = 0.01           # the allocator's rounding of each tensor
+
+
+def roofline_share(tag, cfg, shape, parts, measured, smi):
+    """`roofline.summarize`'s bound on one card for `shape`'s work (its
+    model flops, the bytes the step reads: `parts`, from
+    `dryrun.step_read_bytes`) beside the measured (wall, kernel) ms;
+    either share above ROOFLINE_SHARE_MAX fails."""
+    mf = roofline.model_flops(cfg, shape)
+    row = roofline.summarize({
+        "flops": mf, "bytes_accessed": float(sum(parts.values())),
+        "collective_bytes": None, "n_devices": 1, "model_flops": mf})
+    bound_ms = row["step_time_bound_s"] * 1e3
+    wall, busy = measured
+    shares = {"host wall": bound_ms / wall}
+    if busy > 0:                        # the profiler saw the card
+        shares["kernel time"] = bound_ms / busy
+    print(f"  {tag}: {mf:.4g} model flop, {sum(parts.values())} B read "
+          f"{parts}; bound {bound_ms:.4f} ms "
+          f"({row['dominant'].replace('_s', '')}: compute "
+          f"{row['compute_s'] * 1e3:.4f} ms, memory "
+          f"{row['memory_s'] * 1e3:.4f} ms); measured {wall:.2f} ms host "
+          f"wall, {busy:.2f} ms kernel time; share of the bound "
+          + ", ".join(f"{k} {v:.4g}" for k, v in shares.items())
+          + f"  [{smi}]")
+    assert all(v <= ROOFLINE_SHARE_MAX for v in shares.values()), (tag,
+                                                                   shares)
+
+
+def phase_dryrun(cfg, params, smi, step_ms, prompt_ms):
+    """The dry run's shape-only count for phase 4's configuration on a
+    one-card mesh against the trees on the card: the parameters and a
+    fresh 4-lane decode state, byte for byte, and the allocator's growth
+    while the state is made within ALLOC_GROWTH_RTOL; phase 4's decode
+    steps and prompt pass beside `roofline.summarize`'s bound for the same
+    work (the bytes each reads: `dryrun.step_read_bytes`); the CLI (`dryrun.main`, `report.main`) for longchat-7b x
+    decode_32k on the 16 x 16 mesh; the H100 constants."""
+    print(f"[dryrun] H100 constants (roofline.py): bf16 "
+          f"{roofline.PEAK_FLOPS:g} flop/s, int8 "
+          f"{roofline.PEAK_INT8_OPS:g} op/s, f32 "
+          f"{roofline.PEAK_F32_FLOPS:g} flop/s, HBM {roofline.HBM_BW:g} B/s, "
+          f"NVLink {roofline.NVLINK_BW_PER_DIRECTION:g} B/s each way; this "
+          f"card: {smi}")
+    params_nbytes = _tree_nbytes(params)
+    parts = {}
+    for kv in ("bf16", "int8"):
+        prune = served_prune(kv)
+        shape = ShapeConfig("served_decode", "decode", prune.slots, LANES)
+        t = time.monotonic()
+        parts[kv] = dryrun.probe_arg_bytes(cfg, shape, ONE_CARD, prune=prune)
+        count_s = time.monotonic() - t
+        model = Model(cfg, prune, device="cuda")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        st = model.init_decode_state(LANES)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        state_nbytes = _tree_nbytes(st)
+        del st
+        print(f"  kv={kv}: dry-run count (2- and 3-layer probes, one-card "
+              f"mesh, {count_s:.2f}s) params {parts[kv]['params']} B, "
+              f"{LANES}-lane decode state at {prune.slots} slots "
+              f"{parts[kv]['state']} B; on the card: params "
+              f"{params_nbytes} B, a fresh state {state_nbytes} B, "
+              f"memory_allocated grew {grown} B "
+              f"({grown / state_nbytes - 1:+.3%})")
+        assert parts[kv]["params"] == params_nbytes, (parts, params_nbytes)
+        assert parts[kv]["state"] == state_nbytes, (parts, state_nbytes)
+        assert abs(grown - state_nbytes) <= ALLOC_GROWTH_RTOL * state_nbytes
+    for (kv, blocks), measured in sorted(step_ms.items()):
+        prune = served_prune(kv, blocks)
+        shape = ShapeConfig("served_decode", "decode", prune.slots, LANES)
+        read = dryrun.step_read_bytes(dryrun.build_cell(cfg, shape,
+                                                        prune=prune),
+                                      ONE_CARD, parts[kv])
+        roofline_share(f"decode step kv={kv} select_blocks={blocks} "
+                       f"B={LANES} (K/V rows of {prune.select_k} winners "
+                       f"of {prune.slots} slots)", cfg, shape, read,
+                       measured, smi)
+    shape = ShapeConfig("served_prefill", "prefill", PROMPT_LEN, LANES)
+    prefill = dryrun.arg_bytes(dryrun.build_cell(
+        cfg, shape, prune=served_prune("bf16")), ONE_CARD)
+    roofline_share(f"prompt pass kv=bf16 B={LANES} N={PROMPT_LEN}", cfg,
+                   shape, prefill, prompt_ms, smi)
+    with tempfile.TemporaryDirectory() as out:
+        assert dryrun.main(["--arch", "longchat-7b", "--shape", "decode_32k",
+                            "--mesh", "single", "--out", out]) == 0
+        with open(Path(out) / "longchat-7b_decode_32k_single.json") as f:
+            rec = json.load(f)
+        assert rec["cost_source"] == "analytic", rec
+        assert rec["peak_bytes_per_dev"] is None, rec
+        assert 0 < rec["bytes_accessed"] < rec["arg_bytes_per_dev"], rec
+        report.main(["--dir", out])
 
 
 # ---------------------------------------------------------------------------
@@ -3080,10 +3189,7 @@ def phase_sharded(cfg, params, smi, one_shard):
     prompts = served_prompts(cfg.vocab_size)
     for kv, blocks in SHARDED_RUNS:
         t = time.monotonic()
-        prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
-                                  select_k=PROMPT_LEN // 16,
-                                  select_blocks=blocks, fused=True,
-                                  kv_dtype=kv)
+        prune = served_prune(kv, blocks)
         kernel = "fused_decode" if blocks > 1 else "ragged_decode"
         model = Model(cfg, prune, device="cuda")
         layers = model.attn_layer_count()
@@ -3188,9 +3294,7 @@ def mesh_decode(mesh, dev, kv):
     |d|, worst acc |d|, positions equal, evicting steps, the device of the
     collectives' operands)."""
     b, h, d, nb = LANES, 32, 128, 4
-    prune = baselines.unicaim(heavy=PROMPT_LEN // 2, reserve=64,
-                              select_k=PROMPT_LEN // 16, select_blocks=nb,
-                              fused=False, kv_dtype=kv)
+    prune = served_prune(kv, nb, fused=False)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rnd(*shape):
@@ -5268,6 +5372,7 @@ def main():
     watch_plain_prompt_attention()
     launches = dict.fromkeys(launch_counts(), 0)
     one_shard = {}                     # phase 4's streams, for [sharded]
+    step_ms = {}                       # (kv, blocks) → decode step's ms
     for blocks in (1, 4):
         for kv in ("bf16", "int8"):
             tag = f"kv={kv} select_blocks={blocks}"
@@ -5293,7 +5398,7 @@ def main():
                 print(f"[serve] {tag} chunk_prefill={CHUNK} phase "
                       f"{time.monotonic() - t:.1f}s")
                 t = time.monotonic()
-                phase_prefill_profile(cfg, params, model)
+                prompt_ms = phase_prefill_profile(cfg, params, model)
                 print(f"[profile] prompt pass phase "
                       f"{time.monotonic() - t:.1f}s")
             t = time.monotonic()
@@ -5302,9 +5407,14 @@ def main():
                 launches[name] += n
             print(f"[paths] {tag} phase {time.monotonic() - t:.1f}s")
             t = time.monotonic()
-            phase_profile(params, model, st, tok)
+            step_ms[(kv, blocks)] = phase_profile(params, model, st, tok)
             del st, model
             print(f"[profile] {tag} phase {time.monotonic() - t:.1f}s")
+
+    # the tooling layer: the dry run's count and bounds against phase 4
+    t = time.monotonic()
+    phase_dryrun(cfg, params, smi, step_ms, prompt_ms)
+    print(f"[dryrun] phase {time.monotonic() - t:.1f}s")
 
     # 6. the prefix cache, cold and warm
     for kv in ("bf16", "int8"):

@@ -3,6 +3,7 @@
 
   * ModelConfig  — architecture hyper-parameters
   * PruneConfig  — the paper's static-dynamic KV-cache pruning knobs
+  * ShapeConfig  — the assigned (seq_len, global_batch, kind) input shapes
 
 Configs are frozen dataclasses, as in the reference. The registry loads
 the configurations this port serves: the dense family (longchat-7b,
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Pruning (the paper's technique)
@@ -252,6 +253,32 @@ class ModelConfig:
         all_experts = moe_layers * mo.n_experts * per_expert
         active_experts = moe_layers * mo.top_k * per_expert
         return total - all_experts + active_experts
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                    # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+    def validate(self) -> None:
+        assert self.kind in ("train", "prefill", "decode")
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 # ---------------------------------------------------------------------------

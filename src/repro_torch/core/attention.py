@@ -28,6 +28,7 @@ tensors may be views into the layer-stacked buffers.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -241,10 +242,39 @@ def _blocked_attend_shardmap(cache: KVCache, q: torch.Tensor,
     return out.reshape(b, hq, -1)
 
 
+def fused_auto_decision(device) -> dict:
+    """How `PruneConfig(fused="auto")` resolves for a cache on `device`:
+    the fused engine (the hand-written `ragged_decode` / `fused_decode`
+    kernels) on a CUDA card of compute capability >= 9.0, the composed
+    path everywhere else. Keys as in the reference: engine, backend,
+    reason."""
+    dev = torch.device(device)
+    return dict(_auto_decision(dev.type, dev.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _auto_decision(dev_type: str, index: Optional[int]) -> dict:
+    """`fused_auto_decision` for one device, made once: a decode step asks
+    it on every layer."""
+    dev = torch.device(dev_type, index)
+    fused = kernel_capable(dev)
+    backend = dev.type
+    if dev.type == "cuda":
+        backend += " sm_%d%d" % torch.cuda.get_device_capability(dev)
+    return {
+        "engine": "fused" if fused else "composed",
+        "backend": backend,
+        "reason": ("the fused decode kernels are built for sm_90a and run "
+                   "on this card" if fused else
+                   "no card of compute capability >= 9.0: the fused "
+                   "kernels are built for sm_90a only, so the composed "
+                   "path runs"),
+    }
+
+
 def _fused_enabled(prune: PruneConfig, device: torch.device) -> bool:
-    """fused="auto" runs the kernel on an sm_90 card, composed elsewhere."""
     if prune.fused == "auto":
-        return kernel_capable(device)
+        return _auto_decision(device.type, device.index)["engine"] == "fused"
     return bool(prune.fused)
 
 

@@ -16,8 +16,11 @@ import torch.nn.functional as F
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                device, lead=()) -> torch.Tensor:
     """N(0, 1/d_in) weights [*lead, d_in, d_out], drawn in f32 on `device`
-    one leading slice at a time and stored in `dtype`."""
+    one leading slice at a time and stored in `dtype` (on `meta`, where a
+    draw makes nothing, the shape alone)."""
     out = torch.empty(tuple(lead) + (d_in, d_out), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     flat = out.view(-1, d_in, d_out)
     for i in range(flat.shape[0]):
         w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,

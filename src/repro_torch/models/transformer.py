@@ -349,11 +349,13 @@ class Model:
         frontend model's `frontend_adapter` included (an enc-dec model
         holds it too, and never reads it). The reference's JAX draws
         differ; use `params.from_reference` to run the same weights on
-        both sides."""
+        both sides. On `meta` the tree holds shapes and dtypes and no
+        storage (a generator cannot live there: the draws name a CPU one
+        and make nothing)."""
         cfg = self.cfg
         dt = DTYPES[cfg.param_dtype]
         dev = self.device
-        gen = torch.Generator(device=dev)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
         gen.manual_seed(seed)
         d = cfg.d_model
         params: Dict[str, Any] = {

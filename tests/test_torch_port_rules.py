@@ -625,3 +625,9 @@ def test_group_count_above_the_limit_raises_before_any_launch_on_card():
         with pytest.raises(ValueError, match=f"G={g} "):
             call()
     assert _all_launches() == before
+
+
+def test_port_rules_cover_the_tooling_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("roofline", "dryrun", "report"):
+        assert f"src/repro_torch/launch/{mod}.py" in names

@@ -35,6 +35,8 @@ parameter.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -52,7 +54,7 @@ from repro_torch.launch import train
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
 from repro_torch.runtime import fault
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 from torch_parity import model_pair, to_np
 
@@ -186,6 +188,69 @@ def test_mtp_logits_match_reference():
                                    atol=1e-4, err_msg=k)
     np.testing.assert_allclose(to_np(to["aux"]), np.asarray(jo["aux"]),
                                rtol=1e-5, atol=1e-8)
+
+
+def _port_state(like, jstate):
+    """The reference's TrainState as the port's: its leaves (an int8
+    moment's codes and scale in turn) in the port's tree order."""
+    flat = iter(torch.as_tensor(np.array(x))
+                for x in jax.tree.leaves(jstate))
+    return unflatten(like, flat)
+
+
+FIVE_STEP_METRICS = ("loss", "mtp_loss", "grad_norm")
+
+
+def test_deepseek_five_steps_follow_the_reference():
+    """Five steps of reduced deepseek-v3 (MTP head, int8 moments) on the
+    schedule `chip_smoke.py`'s phase 14 runs (`total_steps=5`,
+    `peak_lr=1e-3`, warmup 100: lr 1e-5 to 5e-5), each on its own batch,
+    the same on both sides.
+
+    Step by step: the port, started at each step from the reference's own
+    state (weights, int8 moments, counters), takes that step with loss,
+    mtp_loss and grad_norm within `test_train_step_matches_reference`'s
+    tolerances (1e-5, 1e-4 relative). lr is held within one f32 ulp: the
+    reference's jitted step divides by the warmup as XLA rewrites it (a
+    product with the reciprocal), so 3e-5 comes out one ulp above the
+    port's, which is the reference's eager value (`test_torch_optim.py`).
+
+    Free-running, the two runs part by about 1e-4 relative at step 4: these
+    steps amplify any rounding about a thousandfold (AdamW's first steps
+    move each weight by about lr whatever the size of its gradient). The
+    port run again from weights one ulp away parts from itself by as much,
+    so each free-running metric is held within four times that drift plus
+    the one-step tolerance."""
+    jm, jcfg, js, tm, tcfg, ts = _pair_states("deepseek-v3-671b", True)
+    jstep = jax.jit(jtrain.make_train_step(jm, jcfg, 5, peak_lr=PEAK_LR))
+    tstep = train.make_train_step(tm, tcfg, 5, peak_lr=PEAK_LR)
+    gen = torch.Generator().manual_seed(1)
+    shaken = copy.deepcopy(ts)
+    with torch.no_grad():
+        for p in leaves(shaken.params):
+            up = torch.nextafter(p, torch.full_like(p, float("inf")))
+            p.copy_(torch.where(torch.rand(p.shape, generator=gen) < 0.5,
+                                up, p))
+    for i in range(5):
+        jb, tb = _batch(tm.cfg, step=i)
+        forced, fmet = tstep(_port_state(ts, js), tb)
+        js, jmet = jstep(js, jb)
+        ts, tmet = tstep(ts, tb)
+        shaken, smet = tstep(shaken, tb)
+        for k in FIVE_STEP_METRICS:
+            rtol = 1e-4 if k == "grad_norm" else 1e-5
+            want = float(np.asarray(jmet[k]))
+            np.testing.assert_allclose(float(fmet[k]), want, rtol=rtol,
+                                       atol=1e-7, err_msg=f"step {i} {k}")
+            drift = abs(float(tmet[k]) - float(smet[k]))
+            assert abs(float(tmet[k]) - want) <= (
+                4 * drift + rtol * abs(want)), (i, k)
+        for met in (fmet, tmet):
+            np.testing.assert_allclose(to_np(met["lr"]),
+                                       np.asarray(jmet["lr"]),
+                                       rtol=2.0 ** -23, atol=0)
+        assert int(forced.opt.step) == int(ts.opt.step) == i + 1
+    assert int(js.opt.step) == 5
 
 
 def test_loss_chunk_takes_no_mtp_loss():
