@@ -133,11 +133,17 @@ def check_copy_aligned(kernel: str, **needs) -> None:
                              f"aligned for the kernel's {width}-byte copies")
 
 
+def smem_limit(dev: torch.device) -> int:
+    """The dynamic shared memory one block of `dev` may opt into, in
+    bytes."""
+    props = torch.cuda.get_device_properties(dev)
+    return int(getattr(props, "shared_memory_per_block_optin", 232448))
+
+
 def check_smem(kernel: str, smem: int, dev: torch.device, what: str) -> None:
     """Raise when one CTA needs more dynamic shared memory (`smem` bytes,
     for `what`) than `dev` lets a block opt into."""
-    props = torch.cuda.get_device_properties(dev)
-    limit = int(getattr(props, "shared_memory_per_block_optin", 232448))
+    limit = smem_limit(dev)
     if smem > limit:
         raise ValueError(f"{kernel}: {what} need {smem} bytes of shared "
                          f"memory per CTA, above the card's {limit}")

@@ -6,7 +6,9 @@
 // src/repro/kernels/fused_decode.py). Both run decode_row: one CTA of 256
 // threads per row of [B*Hk], with the [G][S] f32 scores, the selection
 // keys and the winners' K/V rows in shared memory, so only the inputs and
-// (out, probs) touch device memory.
+// (out, probs) touch device memory. That is the single-CTA route, taken
+// wherever `layout` fits; decode_long.cuh holds the long route for any
+// larger S.
 //
 // Bound. A row must read its live mirror rows (live x d bytes) with their
 // scale and valid bytes, its protection row, and the valid winners' K/V
@@ -330,10 +332,40 @@ __device__ __forceinline__ void fetch_tile(unsigned char* ring,
   }
 }
 
-// Score the n slots of one landed ring tile, one thread a slot (int32 dp4a
-// sums in two chains, exact in any order), one group row after another.
-// Writes score[g][s] and key[s], and with `hist1` counts the key's top byte
-// in its selection block's histogram (256 ints a block of bs slots).
+// qg · row over d int8 codes in shared memory, by thread j (int32 dp4a
+// sums in two chains, exact in any order).
+template <int VEC>
+__device__ __forceinline__ int slot_dot(const unsigned char* row,
+                                        const int* qg, int j, int d) {
+  int a0 = 0, a1 = 0;
+  if constexpr (VEC == 16) {
+    // thread j starts at chunk j % units, so the 8 threads of a shared
+    // memory phase read 8 different bank groups
+    const int units = d >> 4;
+    const int4* r = reinterpret_cast<const int4*>(row);
+    const int4* q4 = reinterpret_cast<const int4*>(qg);
+    int u = j % units;
+#pragma unroll 4
+    for (int c = 0; c < units; ++c) {
+      const int4 x = r[u], w = q4[u];
+      a0 = __dp4a(x.x, w.x, a0);
+      a1 = __dp4a(x.y, w.y, a1);
+      a0 = __dp4a(x.z, w.z, a0);
+      a1 = __dp4a(x.w, w.w, a1);
+      u = u + 1 == units ? 0 : u + 1;
+    }
+  } else {
+    const int* r = reinterpret_cast<const int*>(row);
+#pragma unroll 4
+    for (int w = 0; w < (d >> 2); ++w) a0 = __dp4a(r[w], qg[w], a0);
+  }
+  return a0 + a1;
+}
+
+// Score the n slots of one landed ring tile, one thread a slot, one group
+// row after another. Writes score[g][s] and key[s], and with `hist1`
+// counts the key's top byte in its selection block's histogram (256 ints
+// a block of bs slots).
 template <int VEC>
 __device__ __forceinline__ void score_tile(
     const unsigned char* tile, int s0, int n, int S, int G, int d,
@@ -347,31 +379,9 @@ __device__ __forceinline__ void score_tile(
   const float m = ms[s];
   float sum = 0.f;
   for (int g = 0; g < G; ++g) {
-    const int* qg = qq + g * (d >> 2);
-    int a0 = 0, a1 = 0;
-    if constexpr (VEC == 16) {
-      // thread j starts at chunk j % units, so the 8 threads of a shared
-      // memory phase read 8 different bank groups
-      const int units = d >> 4;
-      const int4* r = reinterpret_cast<const int4*>(row);
-      const int4* q4 = reinterpret_cast<const int4*>(qg);
-      int u = j % units;
-#pragma unroll 4
-      for (int c = 0; c < units; ++c) {
-        const int4 x = r[u], w = q4[u];
-        a0 = __dp4a(x.x, w.x, a0);
-        a1 = __dp4a(x.y, w.y, a1);
-        a0 = __dp4a(x.z, w.z, a0);
-        a1 = __dp4a(x.w, w.w, a1);
-        u = u + 1 == units ? 0 : u + 1;
-      }
-    } else {
-      const int* r = reinterpret_cast<const int*>(row);
-#pragma unroll 4
-      for (int w = 0; w < (d >> 2); ++w) a0 = __dp4a(r[w], qg[w], a0);
-    }
+    const int dot = slot_dot<VEC>(row, qq + g * (d >> 2), j, d);
     const float sc =
-        valid ? __fmul_rn(__fmul_rn((float)(a0 + a1), qs[g]), m) : kNegInf;
+        valid ? __fmul_rn(__fmul_rn((float)dot, qs[g]), m) : kNegInf;
     score[g * S + s] = sc;
     sum = g == 0 ? sc : __fadd_rn(sum, sc);
   }

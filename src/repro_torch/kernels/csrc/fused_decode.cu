@@ -31,8 +31,13 @@
 // own shared-memory histogram (the first counted while scoring when there
 // are at most 8 blocks), no CTA barrier, whatever k_loc is; one block is
 // raced by the whole CTA. Its time against the bound is in PERF.md.
+//
+// Two routes, as in ragged_decode.cu: the single-CTA row where its shared
+// memory fits (every served shape), else decode_long.cuh's long route, whose
+// race cluster takes the selection blocks one after another.
 
 #include "decode_common.cuh"
+#include "decode_long.cuh"
 
 using namespace decode;
 
@@ -59,26 +64,47 @@ struct Launch {
 
 extern "C" {
 
-// Dynamic shared memory one CTA needs, in bytes.
+// Dynamic shared memory one CTA of the single-CTA route needs, in bytes.
 size_t fused_decode_smem_bytes(int S, int G, int d, int dv, int select_k,
                                int num_blocks, int kv_kind) {
   return layout(S, G, d, dv, select_k, kv_bytes(kv_kind), num_blocks).total;
 }
 
+// Dynamic shared memory of one CTA of the long route's score kernel
+// (kernel 0) or race kernel (kernel 1), in bytes: independent of S,
+// select_k and num_blocks, which it takes only to say so.
+size_t fused_decode_long_smem_bytes(int S, int G, int d, int dv, int select_k,
+                                    int num_blocks, int kv_kind, int kernel) {
+  (void)S;
+  (void)select_k;
+  (void)num_blocks;
+  return kernel == 0 ? score_layout(G, d).total
+                     : race_layout(G, d, dv, kv_bytes(kv_kind)).total;
+}
+
+// Device scratch the long route needs for one launch, in bytes.
+size_t fused_decode_long_scratch_bytes(int BH, int S, int G, int select_k,
+                                       int num_blocks) {
+  return long_scratch(BH, S, G, num_blocks, select_k, nullptr, nullptr);
+}
+
+// route: 0 = the single-CTA row, 1 = the long route, whose `scratch` holds
+// fused_decode_long_scratch_bytes (the other route ignores it).
 // kv_kind: 0 = f32, 1 = bf16, 2 = int8 K/V. The caller guarantees
 // S % num_blocks == 0, select_k % num_blocks == 0 and
 // select_k / num_blocks <= S / num_blocks, the mirror 16-byte aligned when
-// d % 16 == 0 (else 4-byte), and K and V aligned to the widest of 16, 8, 4
-// bytes that divides their rows' bytes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
-int fused_decode_launch(int kv_kind, const void* q, const void* qq,
+// d % 16 == 0 (else 4-byte), K and V aligned to the widest of 16, 8, 4
+// bytes that divides their rows' bytes, and scratch 16-byte aligned.
+// Launches on `stream` and returns cudaGetLastError() (0 on success); never
+// synchronises.
+int fused_decode_launch(int route, int kv_kind, const void* q, const void* qq,
                         const void* qscale, const void* mirror,
                         const void* mscale, const void* kscale,
                         const void* vscale, const void* valid,
                         const void* prot, const void* k, const void* v,
-                        void* out, void* probs, int BH, int S, int G, int d,
-                        int dv, int select_k, int num_blocks, float scale,
-                        void* stream) {
+                        void* out, void* probs, void* scratch, int BH, int S,
+                        int G, int d, int dv, int select_k, int num_blocks,
+                        float scale, void* stream) {
   const Params p{nullptr,
                  static_cast<const float*>(q),
                  static_cast<const int8_t*>(qq),
@@ -101,8 +127,9 @@ int fused_decode_launch(int kv_kind, const void* q, const void* qq,
                  num_blocks,
                  S,
                  scale};
-  return by_kind<Launch>(d, kv_kind, p, BH,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 0) return by_kind<Launch>(d, kv_kind, p, BH, st);
+  return by_kind<LaunchLong>(d, kv_kind, p, BH, scratch, st);
 }
 
 }  // extern "C"

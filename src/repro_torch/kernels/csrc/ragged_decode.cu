@@ -33,8 +33,15 @@
 // valid winners' K rows arrive by bulk copies while the probabilities are
 // computed, their V rows while the logits are. Its time against the bound
 // is in PERF.md.
+//
+// Two routes, one function: that single-CTA row (decode_row) wherever its
+// shared memory fits, which is every served shape, and the long route of
+// decode_long.cuh (a score grid, then a cluster of CTAs a row racing and
+// attending over device-memory scratch) at any larger S, up to long_500k's
+// 524,288 slots. The wrapper picks by the row's layout.
 
 #include "decode_common.cuh"
+#include "decode_long.cuh"
 
 using namespace decode;
 
@@ -64,25 +71,43 @@ struct Launch {
 
 extern "C" {
 
-// Dynamic shared memory one CTA needs, in bytes.
+// Dynamic shared memory one CTA of the single-CTA route needs, in bytes.
 size_t ragged_decode_smem_bytes(int S, int G, int d, int dv, int select_k,
                                 int kv_kind) {
   return layout(S, G, d, dv, select_k, kv_bytes(kv_kind), 1).total;
 }
 
+// Dynamic shared memory of one CTA of the long route's score kernel
+// (kernel 0) or race kernel (kernel 1), in bytes: independent of S and
+// select_k, which it takes only to say so.
+size_t ragged_decode_long_smem_bytes(int S, int G, int d, int dv,
+                                     int select_k, int kv_kind, int kernel) {
+  (void)S;
+  (void)select_k;
+  return kernel == 0 ? score_layout(G, d).total
+                     : race_layout(G, d, dv, kv_bytes(kv_kind)).total;
+}
+
+// Device scratch the long route needs for one launch, in bytes.
+size_t ragged_decode_long_scratch_bytes(int BH, int S, int G, int select_k) {
+  return long_scratch(BH, S, G, 1, select_k, nullptr, nullptr);
+}
+
+// route: 0 = the single-CTA row, 1 = the long route, whose `scratch` holds
+// ragged_decode_long_scratch_bytes (the other route ignores it).
 // kv_kind: 0 = f32, 1 = bf16, 2 = int8 K/V. The caller guarantees the
-// mirror is 16-byte aligned when d % 16 == 0 (else 4-byte), and K and V
-// aligned to the widest of 16, 8, 4 bytes that divides their rows' bytes.
-// Launches on `stream` and returns cudaGetLastError() (0 on success);
-// never synchronises.
-int ragged_decode_launch(int kv_kind, const void* fills, const void* q,
-                         const void* qq, const void* qscale,
+// mirror is 16-byte aligned when d % 16 == 0 (else 4-byte), K and V
+// aligned to the widest of 16, 8, 4 bytes that divides their rows' bytes,
+// and scratch 16-byte aligned. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); never synchronises.
+int ragged_decode_launch(int route, int kv_kind, const void* fills,
+                         const void* q, const void* qq, const void* qscale,
                          const void* mirror, const void* mscale,
                          const void* kscale, const void* vscale,
                          const void* valid, const void* prot, const void* k,
-                         const void* v, void* out, void* probs, int BH, int S,
-                         int G, int d, int dv, int select_k, int block_s,
-                         float scale, void* stream) {
+                         const void* v, void* out, void* probs, void* scratch,
+                         int BH, int S, int G, int d, int dv, int select_k,
+                         int block_s, float scale, void* stream) {
   const Params p{static_cast<const int*>(fills),
                  static_cast<const float*>(q),
                  static_cast<const int8_t*>(qq),
@@ -105,8 +130,9 @@ int ragged_decode_launch(int kv_kind, const void* fills, const void* q,
                  1,
                  block_s,
                  scale};
-  return by_kind<Launch>(d, kv_kind, p, BH,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 0) return by_kind<Launch>(d, kv_kind, p, BH, st);
+  return by_kind<LaunchLong>(d, kv_kind, p, BH, scratch, st);
 }
 
 }  // extern "C"

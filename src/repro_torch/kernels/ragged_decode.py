@@ -20,7 +20,18 @@ design and the memory bound. Its plain PyTorch version is
   v      [BH, S, dv] same dtype as k
   → out [BH, G, dv] f32, probs [BH, S] f32
 
-`LAUNCHES["ragged_decode"]` counts the kernel's launches.
+Two routes compute it. The single-CTA row (`decode_row`) keeps a row's
+[G][S] scores and keys in one CTA's shared memory; the wrapper takes it
+wherever that layout fits the card (`long_route`, on the kernel's own
+`*_smem_bytes` query), which is every served shape. At any larger S
+(decode_32k's 32,768 slots, long_500k's 524,288) it takes the long route
+(`csrc/decode_long.cuh`): a grid of score CTAs, then a
+cluster of CTAs a row that races and attends over a device scratch the
+wrapper allocates for the call. Both are hand-written kernels; neither
+falls back to the other or to the plain version.
+
+`LAUNCHES["ragged_decode"]` counts the single-CTA route's launches,
+`LAUNCHES["ragged_decode_long"]` the long route's.
 """
 from __future__ import annotations
 
@@ -31,25 +42,36 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"ragged_decode": 0}
+LAUNCHES = {"ragged_decode": 0, "ragged_decode_long": 0}
 BLOCK_S = 64                 # slots per live block (the skip granularity)
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_GROUPS = 16              # query rows per kv-head (kMaxG in the source)
-SMEM_WHAT = ("S={s} slots x G={g} (large-slot decode needs a global score "
-             "scratch, not ported yet)")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_Z = ctypes.c_size_t
 
 
 def _bind(lib):
     fn = lib.ragged_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([_I] + [_P] * 14 + [_I] * 7
+        fn.argtypes = ([_I, _I] + [_P] * 15 + [_I] * 7
                        + [ctypes.c_float, _P])
         fn.restype = _I
         lib.ragged_decode_smem_bytes.argtypes = [_I] * 6
-        lib.ragged_decode_smem_bytes.restype = ctypes.c_size_t
+        lib.ragged_decode_smem_bytes.restype = _Z
+        lib.ragged_decode_long_smem_bytes.argtypes = [_I] * 7
+        lib.ragged_decode_long_smem_bytes.restype = _Z
+        lib.ragged_decode_long_scratch_bytes.argtypes = [_I] * 4
+        lib.ragged_decode_long_scratch_bytes.restype = _Z
     return lib
+
+
+def long_route(short_smem: int, dev: torch.device) -> bool:
+    """Whether a call takes the long route: the single-CTA row needs
+    `short_smem` bytes of shared memory (the kernel's own query, `layout`
+    in csrc/decode_common.cuh), more than one block of `dev` may opt
+    into."""
+    return short_smem > build.smem_limit(dev)
 
 
 def check_groups(kernel: str, g: int) -> None:
@@ -75,7 +97,8 @@ def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
     shape or dtype the kernels do not take, on select_k outside [1, S], and
     on qq, the mirror, K or V not starting aligned to the kernels' copies
     of it (4 bytes for qq; 16 for the mirror when d % 16 == 0, else 4;
-    `granule` of a row's bytes for K and V)."""
+    `granule` of a row's bytes for K and V). Nothing here depends on S
+    beyond select_k <= S: every S has a route."""
     bh, g, d = q.shape
     check_groups(kernel, g)
     s = mirror.shape[1]
@@ -105,10 +128,11 @@ def decode_spec(q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot,
 
 def ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale, vscale,
                   valid, prot, k, v, *, select_k: int):
-    """Launch the kernel on the current stream → (out, probs). Raises on a
-    tensor that is not on the CUDA card or not contiguous, on a shape or
-    dtype the kernel does not take, and when the launch fails; only q is
-    converted (to f32)."""
+    """Launch the kernel on the current stream → (out, probs), by the
+    single-CTA route where its layout fits the card, else by the long
+    route (`long_route`). Raises on a tensor that is not on the CUDA card
+    or not contiguous, on a shape or dtype the kernel does not take, and
+    when the launch fails; only q is converted (to f32)."""
     q, ins, (bh, s, g, d, dv) = decode_spec(
         q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot, k, v,
         select_k, "ragged_decode")
@@ -116,19 +140,21 @@ def ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale, vscale,
     build.check_tensors("ragged_decode",
                         {"fills": (fills, (bh,), torch.int32)}, dev)
     lib = _bind(build.load("ragged_decode"))
-    build.check_smem("ragged_decode",
-                     lib.ragged_decode_smem_bytes(s, g, d, dv, select_k,
-                                                  KV_KIND[k.dtype]), dev,
-                     SMEM_WHAT.format(s=s, g=g))
+    long = long_route(lib.ragged_decode_smem_bytes(
+        s, g, d, dv, select_k, KV_KIND[k.dtype]), dev)
     out = torch.empty((bh, g, dv), dtype=torch.float32, device=dev)
     probs = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    # the long route's scratch, on the current stream (the caching
+    # allocator's blocks start 512-byte aligned)
+    scratch = torch.empty(lib.ragged_decode_long_scratch_bytes(
+        bh, s, g, select_k), dtype=torch.uint8, device=dev) if long else None
     with torch.cuda.device(dev):
         rc = lib.ragged_decode_launch(
-            KV_KIND[k.dtype], fills.data_ptr(),
-            *(t.data_ptr() for t in ins), out.data_ptr(),
-            probs.data_ptr(), bh, s, g, d, dv, select_k, BLOCK_S,
-            ctypes.c_float(1.0 / math.sqrt(d)),
+            int(long), KV_KIND[k.dtype], fills.data_ptr(),
+            *(t.data_ptr() for t in ins), out.data_ptr(), probs.data_ptr(),
+            scratch.data_ptr() if long else None, bh, s, g, d, dv,
+            select_k, BLOCK_S, ctypes.c_float(1.0 / math.sqrt(d)),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("ragged_decode", rc)
-    LAUNCHES["ragged_decode"] += 1
+    LAUNCHES["ragged_decode_long" if long else "ragged_decode"] += 1
     return out, probs

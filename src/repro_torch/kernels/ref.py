@@ -48,6 +48,38 @@ def gather_attention_ref(q, k, v, valid):
     return torch.matmul(torch.softmax(s, dim=-1), v.float())
 
 
+def decode_race(qq, qscale, mirror, mscale, valid, prot, *, select_k: int,
+                num_blocks: int = 1):
+    """The fused decode's CAM race (shapes as in `fused_decode_ref`) →
+    (raw [BH,G,S] f32 scores, NEG_INF at invalid slots; idx [BH,select_k]
+    the winners, block by block, each block's in race order).
+
+    Scores the int8 mirror, sums them over the G rows in row order (as
+    the kernels add them, so both race on the same values bit for bit;
+    protected slots win), and races each of the `num_blocks` equal slot
+    blocks for select_k / num_blocks winners, ties to the lower slot."""
+    bh, s = valid.shape
+    g = qq.shape[1]
+    nb = num_blocks
+    assert s % nb == 0 and select_k % nb == 0, (s, select_k, nb)
+    k_loc, bs = select_k // nb, s // nb
+    assert k_loc <= bs, (k_loc, bs)
+    # the integer contraction is exact in f32 (see core/scoring.py)
+    raw = torch.matmul(qq.float(), mirror.float().transpose(1, 2))
+    raw = raw * qscale.float()[..., None] * mscale.float()[:, None, :]
+    raw = torch.where(valid[:, None, :] != 0, raw,
+                      torch.full_like(raw, NEG_INF))            # [BH,G,S]
+    ssel = raw[:, 0]
+    for gi in range(1, g):
+        ssel = ssel + raw[:, gi]
+    ssel = torch.where(prot != 0, torch.full_like(ssel, PROT_WIN), ssel)
+    _, idx = torch.sort(ssel.reshape(bh, nb, bs), dim=-1, descending=True,
+                        stable=True)
+    idx = (idx[..., :k_loc] + torch.arange(0, s, bs, device=idx.device)[
+        :, None]).reshape(bh, select_k)                         # [BH,K]
+    return raw, idx
+
+
 def fused_decode_ref(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
                      prot, k, v, *, select_k: int, num_blocks: int = 1):
     """Fused pruned decode: the plain version of `kernels/fused_decode.py`
@@ -58,38 +90,18 @@ def fused_decode_ref(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
       valid, prot [BH,S] int8; k [BH,S,d], v [BH,S,dv] float or int8
       → (out [BH,G,dv] f32, probs [BH,S] f32)
 
-    Scores the int8 mirror, sums them over the G rows (protected slots
-    win), and races each of the `num_blocks` equal slot blocks for
-    select_k / num_blocks winners (ties to the lower slot); gathers only
+    Races as `decode_race` (the int8 mirror's scores summed over the G
+    rows; protected slots win; each of the `num_blocks` equal slot blocks
+    takes select_k / num_blocks winners, ties to the lower slot); gathers only
     the winners' K/V rows times kscale/vscale and runs one exact softmax
     attention over all of them. probs[s] = Σ_g softmax_g(score/√d),
     exactly 0 at invalid slots. Slots at or past a row's fill are invalid,
     so the ragged kernel's skipping of dead blocks and this path's masking
     agree."""
-    bh, g, d = q.shape
-    s = mirror.shape[1]
-    nb = num_blocks
-    assert s % nb == 0 and select_k % nb == 0, (s, select_k, nb)
-    k_loc, bs = select_k // nb, s // nb
-    assert k_loc <= bs, (k_loc, bs)
+    d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-
-    # the integer contraction is exact in f32 (see core/scoring.py)
-    raw = torch.matmul(qq.float(), mirror.float().transpose(1, 2))
-    raw = raw * qscale.float()[..., None] * mscale.float()[:, None, :]
-    raw = torch.where(valid[:, None, :] != 0, raw,
-                      torch.full_like(raw, NEG_INF))            # [BH,G,S]
-
-    # G-row sum in row order, as the kernel adds it, so both race on the
-    # same values bit for bit
-    ssel = raw[:, 0]
-    for gi in range(1, g):
-        ssel = ssel + raw[:, gi]
-    ssel = torch.where(prot != 0, torch.full_like(ssel, PROT_WIN), ssel)
-    _, idx = torch.sort(ssel.reshape(bh, nb, bs), dim=-1, descending=True,
-                        stable=True)
-    idx = (idx[..., :k_loc] + torch.arange(0, s, bs, device=idx.device)[
-        :, None]).reshape(bh, select_k)                         # [BH,K]
+    raw, idx = decode_race(qq, qscale, mirror, mscale, valid, prot,
+                           select_k=select_k, num_blocks=num_blocks)
 
     def rows(x, sc):
         y = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))

@@ -7,7 +7,10 @@ num_blocks ∈ {1, 2, 3, 4}, f32, bf16 and int8 K/V, G ∈ {1, 4}, a row with
 no valid slot, and ragged tails (S % num_blocks != 0) through both sides'
 `ops.fused_decode`, which pad them with invalid slots. `out` to 1e-5 and
 `probs` to 1e-6, as `tests/test_fused_decode.py` holds the TPU kernel
-(f32 on both sides, sums taken in another order)."""
+(f32 on both sides, sums taken in another order). Also at decode_32k's
+S = 32,768 and select_k = 2,048 (the kernel's long route, above the
+single-CTA route's old slot caps), G ∈ {1, 4, 12}, num_blocks ∈ {1, 4},
+with inputs whose out names the winner set (`long_args`)."""
 import numpy as np
 import pytest
 
@@ -19,6 +22,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.fused_decode import fused_decode as jax_fused  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from test_torch_ragged_decode import (_sides, assert_long_close,  # noqa: E402
+                                      long_args)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -128,3 +133,21 @@ def test_plain_fused_decode_with_one_block_equals_the_global_race():
     b = ops.fused_decode(*args, select_k=8, fills=fills)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bits", [False, True], ids=["random", "bits"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("nb", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 12])
+def test_plain_fused_decode_at_decode_32k_matches_reference_oracle(
+        g, nb, quantized, bits):
+    """S = 32,768, select_k = 2,048 (8,192-slot blocks racing for 512 each
+    at nb = 4), d = 16: one full row, one ragged (slots past its fill
+    invalid)."""
+    bh, d, s, k = 2, 16, 32768, 2048
+    fl, args = long_args(bh, g, d, s, [s, s - 777], quantized,
+                         seed=10 * g + nb, bits=bits)
+    jargs, targs = _sides(args, quantized)
+    want = jref.fused_decode_ref(*jargs, select_k=k, num_blocks=nb)
+    got = ops.fused_decode(*targs, select_k=k, num_blocks=nb)
+    assert_long_close(got, want, fl)

@@ -25,7 +25,7 @@ from repro_torch.models.transformer import Model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imports(path):
@@ -141,12 +141,16 @@ def test_decode_kernels_copy_rows_at_their_widest_granule(nbytes, width):
     assert granule(nbytes) == width
 
 
-# The decode kernels' shared-memory layout (`layout` in
-# csrc/decode_common.cuh), transcribed: the bytes one CTA of ragged_decode
-# (nb = 1) or fused_decode (nb selection blocks) asks for. The card test
-# below holds the kernels' own query to it.
+# The decode kernels' single-CTA route: its shared-memory layout (`layout`
+# in csrc/decode_common.cuh), transcribed: the bytes one CTA of
+# ragged_decode (nb = 1) or fused_decode (nb selection blocks) asks for.
+# The wrappers ask the kernels' own query (`ragged_decode.long_route`);
+# the card tests below hold that query to this transcription. The long
+# route's two kernels (csrc/decode_long.cuh) are transcribed here too.
 SMEM_OPTIN, RING_BYTES, RING_STAGES, CTA_THREADS, CTA_WARPS = (
     232448, 96 * 1024, 3, 256, 8)
+MAX_G = 16
+LONG_RING, CHUNK_MAX, CHUNK_WORDS, LONG_CAP = 48 * 1024, 2048, 8192, 128
 
 
 def _decode_smem_bytes(s, g, d, dv, k, elt, nb=1):
@@ -161,6 +165,40 @@ def _decode_smem_bytes(s, g, d, dv, k, elt, nb=1):
     cap = min(max(room // pair, 1), k)
     ts = min(max(min(room, RING_BYTES) // (RING_STAGES * d), 1), CTA_THREADS)
     return at + max(RING_STAGES * ts * d, cap * pair)
+
+
+def _route(s, g, d, k, elt, nb=1):
+    """The route the layout says: "short" where one CTA's bytes fit the
+    card's opt-in, else "long"."""
+    fits = _decode_smem_bytes(s, g, d, d, k, elt, nb) <= SMEM_OPTIN
+    return "short" if fits else "long"
+
+
+def _take(sizes):
+    at = 0
+    for n in sizes:
+        at = (at + n + 15) & ~15
+    return at
+
+
+def _long_smem_bytes(s, g, d, dv, k, elt, nb=1):
+    """(score kernel, race kernel) bytes of one CTA of the long route at
+    these shapes: `score_layout` and `race_layout` of decode_long.cuh,
+    which take no S, select_k or nb."""
+    ch = CHUNK_MAX
+    while ch > 256 and ch * g > CHUNK_WORDS:
+        ch >>= 1
+    at = _take((4 * g * ch, 4 * ch, ch, ch, g * d, 4 * g, 4 * 2 * 256,
+                4 * CTA_WARPS, 8 * RING_STAGES))
+    ts = min(max(LONG_RING // (RING_STAGES * d), 1), CTA_THREADS)
+    score = at + RING_STAGES * ts * d
+    at = _take((4 * 2 * 256, 4 * 256, 16, 8 * CTA_WARPS, 4 * CTA_WARPS, 16,
+                16, 4 * 3 * MAX_G, 4 * g * dv, 4 * g * d, 4 * LONG_CAP,
+                4 * LONG_CAP, 4 * LONG_CAP, 4 * g * LONG_CAP,
+                4 * CTA_THREADS, 16))
+    pair = ((d * elt + 15) & ~15) + ((dv * elt + 15) & ~15) + 32
+    cap = min(max((SMEM_OPTIN - at) // pair, 1), LONG_CAP)
+    return score, at + cap * pair
 
 
 def _largest_s(g, d, k, elt, nb=1):
@@ -187,15 +225,53 @@ def test_decode_shapes_fit_in_shared_memory(g, d, s, nb):
         assert _decode_smem_bytes(s, g, d, d, 128, elt, nb) <= SMEM_OPTIN
 
 
-@pytest.mark.parametrize("g,d,nb,floor", [
-    (1, 128, 1, 22640), (1, 128, 4, 22332), (4, 64, 1, 10203),
+@pytest.mark.parametrize("g,d,nb,want", [
+    # served decode shapes (S = 1088, select_k = 128): the layout as it was
+    # before the long route (bf16 and int8 K/V alike: the ring dominates)
+    (1, 128, 1, 114672), (1, 128, 4, 117744),  # longchat-7b
+    (4, 64, 1, 80752), (4, 64, 4, 83824),      # granite-like GQA
+    (12, 128, 1, 175248), (12, 128, 4, 178320),  # starcoder2-3b
+    (6, 128, 1, 142208),                       # grok-1-314b
+    (1, 112, 1, 102304), (1, 112, 4, 105376),  # zamba2-7b
+    (1, 64, 1, 65200), (1, 64, 4, 68272)])     # whisper-base
+def test_short_route_layout_at_served_shapes_is_unchanged(g, d, nb, want):
+    for elt in (2, 1):
+        assert _decode_smem_bytes(1088, g, d, d, 128, elt, nb) == want
+        assert _route(1088, g, d, 128, elt, nb) == "short"
+
+
+# the largest S one CTA of the single-CTA route takes at select_k = 128
+# with bf16 K/V (the old slot caps)
+SHORT_TOPS = [
+    (1, 128, 1, 22640), (1, 128, 4, 22332), (4, 64, 1, 10204),
     (4, 64, 4, 10064), (12, 128, 1, 3957), (12, 128, 4, 3900),
-    (6, 128, 1, 7354), (1, 112, 1, 22656), (1, 112, 4, 22348)])
-def test_decode_kernels_largest_slot_count(g, d, nb, floor):
-    """The largest S one CTA takes at select_k = 128 with bf16 K/V: only the
-    [G + 1][S] words and two bytes a slot grow with S, and the mirror ring
-    shrinks into what they leave."""
-    assert _largest_s(g, d, 128, 2, nb) >= floor
+    (6, 128, 1, 7354), (1, 112, 1, 22656), (1, 112, 4, 22348)]
+
+
+@pytest.mark.parametrize("g,d,nb,top", SHORT_TOPS)
+def test_short_route_layout_fits_exactly_up_to_its_largest_slot_count(
+        g, d, nb, top):
+    """The layout says "short" up to `top` slots and "long" from one slot
+    past it, and "long" at decode_32k; the card test
+    `test_wrapper_takes_the_short_route_exactly_where_it_fits_on_card`
+    holds the wrappers' choice to it."""
+    assert _largest_s(g, d, 128, 2, nb) == top
+    assert _route(top, g, d, 128, 2, nb) == "short"
+    assert _route(top + 1, g, d, 128, 2, nb) == "long"
+    assert _route(32768, g, d, 2048, 2, nb) == "long"
+
+
+@pytest.mark.parametrize("g,d,nb", [
+    (1, 128, 1), (1, 128, 4), (4, 64, 1), (4, 64, 4), (12, 128, 1),
+    (12, 128, 4), (6, 128, 1), (1, 112, 1), (1, 112, 4)])
+def test_long_route_shared_memory_does_not_grow_with_s(g, d, nb):
+    """decode_32k (S = 32,768) and long_500k (S = 524,288) at select_k =
+    2,048 ask the same bytes of both kernels, within the card's opt-in,
+    for every K/V width."""
+    for elt in (4, 2, 1):
+        at_32k = _long_smem_bytes(32768, g, d, d, 2048, elt, nb)
+        assert at_32k == _long_smem_bytes(524288, g, d, d, 2048, elt, nb)
+        assert max(at_32k) <= SMEM_OPTIN
 
 
 def test_misaligned_copy_source_raises():
@@ -542,8 +618,9 @@ def test_ragged_kernel_matches_plain_version_on_card(g, d, s, k, kv):
 
 @pytest.mark.gpu
 def test_decode_smem_queries_match_the_layout_on_card():
-    """The kernels' own shared-memory query is the transcribed layout, and
-    one slot past the largest S is refused before any launch."""
+    """The kernels' own shared-memory queries, which the wrappers pick
+    the route by, are the transcribed layouts: the single-CTA route's at
+    every S, the long route's the same at S = 32,768 and 524,288."""
     _needs_card()
     from repro_torch.kernels import ragged_decode as ragged_mod
     rlib = ragged_mod._bind(build.load("ragged_decode"))
@@ -557,12 +634,47 @@ def test_decode_smem_queries_match_the_layout_on_card():
         for nb in (1, 4, 16):
             assert flib.fused_decode_smem_bytes(s, g, d, d, 128, nb, kind) \
                 == _decode_smem_bytes(s, g, d, d, 128, elt, nb)
-    s = _largest_s(1, 128, 128, 2) + 1
-    fills, args = _kernel_args(1, 1, 128, s, [s], torch.bfloat16, "cuda")
-    before = LAUNCHES["ragged_decode"]
-    with pytest.raises(ValueError, match="shared memory"):
-        ragged_decode(fills, *args, select_k=128)
-    assert LAUNCHES["ragged_decode"] == before
+    for (g, d), s, kind, kernel in itertools.product(
+            ((1, 128), (4, 64), (2, 36), (12, 128), (6, 128), (16, 64)),
+            (32768, 524288), (0, 1, 2), (0, 1)):
+        want = _long_smem_bytes(s, g, d, d, 2048, (4, 2, 1)[kind])[kernel]
+        assert rlib.ragged_decode_long_smem_bytes(s, g, d, d, 2048, kind,
+                                                  kernel) == want
+        for nb in (1, 4, 16):
+            assert flib.fused_decode_long_smem_bytes(
+                s, g, d, d, 2048, nb, kind, kernel) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,d,nb,top", SHORT_TOPS)
+def test_wrapper_takes_the_short_route_exactly_where_it_fits_on_card(
+        g, d, nb, top):
+    """At the largest S the transcribed layout gives one CTA (rounded down
+    to a multiple of nb) the wrapper launches the single-CTA route, at the
+    next S that nb divides the long route, not a refusal; each counted
+    under its own key alone and held to the plain version."""
+    _needs_card()
+    short = top - top % nb
+    for s, key in ((short, ""), (short + nb, "_long")):
+        assert _route(s, g, d, 128, 2, nb) == ("long" if key else "short")
+        fills, args = _kernel_args(2, g, d, s, [s, s - 333], torch.bfloat16,
+                                   "cuda")
+        name, counter = (("ragged_decode", LAUNCHES) if nb == 1 else
+                         ("fused_decode", fused_mod.LAUNCHES))
+        before = dict(counter)
+        if nb == 1:
+            out, probs = ragged_decode(fills, *args, select_k=128)
+        else:
+            out, probs = fused_mod.fused_decode(*args, select_k=128,
+                                                num_blocks=nb)
+        torch.cuda.synchronize()
+        assert counter[name + key] == before[name + key] + 1
+        assert sum(counter.values()) == sum(before.values()) + 1
+        out_r, probs_r = ref.fused_decode_ref(*args, select_k=128,
+                                              num_blocks=nb)
+        torch.testing.assert_close(out, out_r, rtol=0, atol=1e-3)
+        torch.testing.assert_close(probs, probs_r, rtol=0, atol=1e-5)
+        _assert_probs_at_scale(probs, probs_r, args[7], g)
 
 
 @pytest.mark.gpu
@@ -613,6 +725,154 @@ def test_fused_kernel_winner_set_on_card(g, d, s, k, nb, kv):
     torch.testing.assert_close(out, out_r, rtol=0, atol=1e-3)
     torch.testing.assert_close(probs, probs_r, rtol=0, atol=1e-5)
     assert not out[0].any() and not probs[0].any()     # no valid slot
+
+
+def _bits_args(bh, g, d, s, fills, kv_dtype, device, seed=0):
+    """Decode inputs whose out counts the winners' slot bits: every K row
+    of a lane equal (each valid winner weighs 1/n), V[s][c] = bit c of s
+    and vscale = 1, so n * out[c] is the number of valid winners with bit
+    c set, an integer that one wrong winner moves by 1. Mirror codes in
+    {0, 1}, query codes in {-1, 0, 1} and equal scales tie the selection
+    sums in runs; ~15% of live slots protected, every valid slot of the
+    last row."""
+    fills, args = _set_args(bh, g, d, s, fills, kv_dtype, "cpu", seed)
+    bits = (torch.arange(s)[:, None] >> torch.arange(d)[None, :]) & 1
+    args[6] = torch.ones((bh, s))
+    args[10] = bits.to(kv_dtype).expand(bh, s, d).contiguous()
+    return fills.to(device), [a.to(device) for a in args]
+
+
+def _winner_bits(out, args, select_k, nb=1):
+    """n * out rounded, n the valid winners of each row (the plain
+    version's count), as int64 [BH, G, d]."""
+    n = _valid_winners(args, select_k, nb)
+    return torch.round(out.cpu().double() * n[:, None, None]).long()
+
+
+# probs at its own scale: a long row's probs average G / live (7.6e-6 at
+# long_500k's G = 4), below an absolute 1e-5, so a zeroed row or a lost
+# chunk would pass that alone
+PROBS_RTOL, PROBS_SUM_RTOL = 1e-4, 1e-5
+
+
+def _assert_probs_at_scale(probs, probs_r, valid, g):
+    """Each slot's probs within PROBS_RTOL of |p| plus its row's uniform
+    share G / live; each row's sum G (0 for a row with no live slot)
+    within PROBS_SUM_RTOL of G."""
+    p, pr = probs.double(), probs_r.double()
+    live = (valid != 0).sum(-1, keepdim=True).double()
+    err = (p - pr).abs() / (pr.abs() + g / live.clamp(min=1))
+    assert float(err.max()) <= PROBS_RTOL, float(err.max())
+    want = (live[:, 0] > 0).double() * g
+    e_sum = float((p.sum(-1) - want).abs().max()) / g
+    assert e_sum <= PROBS_SUM_RTOL, e_sum
+
+
+def test_probs_at_scale_sees_what_an_absolute_limit_misses():
+    """On the CPU, at long_500k's S and G on near-uniform inputs: a probs
+    row zeroed, one 4,096-slot chunk of it zeroed, or that chunk left out
+    of the row's softmax (the rest renormalised) all stay within the
+    absolute 1e-5, and `_assert_probs_at_scale` refuses each."""
+    bh, g, d, s = 2, 4, 16, 524288
+    _, args = _set_args(bh, g, d, s, [s, s - 777], torch.bfloat16, "cpu")
+    _, probs = ref.fused_decode_ref(*args, select_k=2048)
+    _assert_probs_at_scale(probs, probs, args[7], g)
+    row = probs.clone()
+    row[1] = 0
+    chunk = probs.clone()
+    chunk[0, 4096:8192] = 0
+    dropped = chunk.clone()
+    dropped[0] *= g / dropped[0].double().sum()
+    for bad in (row, chunk, dropped):
+        torch.testing.assert_close(bad, probs, rtol=0, atol=1e-5)
+        with pytest.raises(AssertionError):
+            _assert_probs_at_scale(bad, probs, args[7], g)
+
+
+def _valid_winners(args, select_k, nb):
+    """The plain version's valid winner count per row (`ref.decode_race`,
+    the race `ref.fused_decode_ref` runs)."""
+    q, qq, qs, mirror, ms, ks, vs, valid, prot, k, v = [a.cpu() for a in args]
+    _, idx = ref.decode_race(qq, qs, mirror, ms, valid, prot,
+                             select_k=select_k, num_blocks=nb)
+    return torch.gather(valid, 1, idx).sum(-1).double()
+
+
+@pytest.mark.parametrize("nb", [1, 4])
+def test_bits_inputs_count_the_winner_bits(nb):
+    """On the CPU, n * out of the plain version on `_bits_args` inputs is
+    the count of its race's valid winners with each slot bit set, in every
+    group row, so the card tests can hold a kernel's winner set to it."""
+    bh, g, d, s, k = 6, 2, 16, 4096, 128
+    fills, args = _bits_args(bh, g, d, s, [s, s - 777, 0, k - 5, 3000, s],
+                             torch.bfloat16, "cpu")
+    out, _ = ref.fused_decode_ref(*args, select_k=k, num_blocks=nb)
+    _, idx = ref.decode_race(*args[1:5], args[7], args[8], select_k=k,
+                             num_blocks=nb)
+    ok = torch.gather(args[7], 1, idx) != 0
+    bits = (idx[..., None] >> torch.arange(d)) & 1
+    want = (bits * ok[..., None]).sum(1)
+    got = _winner_bits(out, args, k, nb)
+    assert torch.equal(got, want[:, None, :].expand_as(got))
+    assert not got[2].any() and int(ok[1].sum()) == k
+
+
+# long caches at the narrow width of the CPU tests (d = 16, select_k =
+# 2,048), and the served S = 1,088 on the single-CTA route
+ROUTE_CASES = [
+    (g, nb, 16, 32768, 2048, kv, "long") for g in (1, 4, 12)
+    for nb in (1, 4) for kv in (torch.bfloat16, torch.int8)] + [
+    # d = 36: the score kernel's 4-byte mirror copies (d % 16 != 0)
+    (4, 1, 36, 32768, 2048, torch.bfloat16, "long"),
+    (1, 4, 36, 32768, 2048, torch.int8, "long"),
+    # long_500k: d = 32, so the slot bits (19 of them) fit in a V row
+    (4, 1, 32, 524288, 2048, torch.int8, "long"),
+    (4, 4, 32, 524288, 2048, torch.bfloat16, "long"),
+    (1, 1, 16, 1088, 128, torch.bfloat16, "short"),
+    (4, 4, 16, 1088, 128, torch.int8, "short")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,nb,d,s,k,kv,want", ROUTE_CASES)
+def test_decode_routes_match_plain_version_on_card(g, nb, d, s, k, kv, want):
+    """Each route of both kernels against its plain version (out 1e-3,
+    probs 1e-5 and, at its own scale, `_assert_probs_at_scale`), with the
+    same winner sets (`_bits_args`) and two launches bit-equal; the
+    wrapper takes the route the layout says and counts it under its own
+    key. Rows: full, ragged, free, below select_k."""
+    _needs_card()
+    bh = 4
+    fill_list = [s, s - 777, 0, k - 5]
+    assert _route(s, g, d, k, kv.itemsize, nb) == want
+    for make in (_kernel_args, _bits_args):
+        fills, args = make(bh, g, d, s, fill_list, kv, "cuda")
+        if nb == 1:
+            calls = (("ragged_decode", ragged_mod.LAUNCHES, lambda: (
+                ragged_decode(fills, *args, select_k=k))),)
+        else:
+            calls = ()
+        calls += (("fused_decode", fused_mod.LAUNCHES, lambda: (
+            fused_mod.fused_decode(*args, select_k=k, num_blocks=nb))),)
+        out_r, probs_r = ref.fused_decode_ref(*args, select_k=k,
+                                              num_blocks=nb)
+        for name, counter, call in calls:
+            key = name + ("_long" if want == "long" else "")
+            before = dict(counter)
+            out, probs = call()
+            out2, probs2 = call()
+            torch.cuda.synchronize()
+            assert counter[key] == before[key] + 2
+            assert sum(counter.values()) == sum(before.values()) + 2
+            torch.testing.assert_close(out, out_r, rtol=0, atol=1e-3)
+            torch.testing.assert_close(probs, probs_r, rtol=0, atol=1e-5)
+            _assert_probs_at_scale(probs, probs_r, args[7], g)
+            assert torch.equal(out, out2) and torch.equal(probs, probs2)
+            assert not out[2].any() and not probs[2].any()   # free row
+            dead = torch.arange(s, device="cuda")[None] >= fills[:, None]
+            assert not probs[dead].any()
+            if make is _bits_args:
+                assert torch.equal(_winner_bits(out, args, k, nb),
+                                   _winner_bits(out_r, args, k, nb))
 
 
 @pytest.mark.gpu
