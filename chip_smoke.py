@@ -59,6 +59,11 @@ Phases, in order (no failure is caught: any one exits non-zero):
                bit-equal, each counted under its route's key alone; then
                their times with L2 cold beside the plain version and the
                bound;
+  3c. shard — the decode kernels' sharded route on one rank's block (the
+               global race and one block a rank) at [slots]' and [mesh]'s
+               block shapes: the stage kernels' CUDA-event time (the
+               collectives not in it), the plain stages' and the bound of
+               the block's bytes;
   4. serve   — full-width longchat-7b (random bf16 weights from a seed)
                serving 8 requests on 4 lanes through `ServeLoop`, bf16 and
                int8 KV, first with global selection (the ragged_decode
@@ -98,7 +103,8 @@ Phases, in order (no failure is caught: any one exits non-zero):
                prompt (two exact repeats, one sharing 1,024 tokens, one
                unrelated) through one ServeLoop configuration
                (chunk_prefill = 512, global selection), bf16 and int8 KV
-               (int8 with a quarter of the new tokens), cold (no cache)
+               (bf16 with half the new tokens, int8 with a quarter), cold
+               (no cache)
                and warm (a budget that holds every entry):
                warm streams equal cold ones exactly, the hit, exact-hit and
                chunk counts are the trace's, flash_prefill launches 32 x
@@ -177,15 +183,42 @@ Phases, in order (no failure is caught: any one exits non-zero):
                4 decode steps (40 ragged_decode_long launches each) and 2
                with 4 selection blocks (fused_decode_long), layer 0's next
                step against the plain version, gather_attention over the
-               same winners and the composed path; printed: tok/s, p50
-               TTFT, a long_500k step's wall and kernel time;
-  8c. mesh  — the collective paths in a world of 4 spawned ranks (NCCL
-               with a card each, else gloo, every rank on this card),
-               after longchat-7b's weights are freed: the slot-sharded
+               same winners and the composed path; the same 4 steps on
+               a fresh state computed as 8e's ranks compute them
+               (`laid_out_on_one_card`: the head blocks' projections, the
+               sharded route over the slot blocks), saved for 8e with the
+               whole state's steps; printed: tok/s, p50
+               TTFT, a long_500k step's wall and kernel time (long_500k
+               and 8e run right after phase 3, while this process holds
+               nothing on the card);
+  8e. slots — granite-3-2b at long_500k laid out over a world of 4
+               spawned ranks (data 2 x model 2, the reference's
+               `decode_state_pspecs`: 4 of 8 kv-heads and 262,144 of
+               524,288 slots a rank; NCCL with a card each, else gloo on
+               this card), each rank's blocks filled from 8d's seeded rows
+               of its heads, 8d's 4 decode steps through
+               `Model.decode_step` on the decode kernels' sharded route
+               (ragged_decode_shard, 40 a step a rank): logits within
+               SLOTS_LAID_ATOL of 8d's steps computed on one card as the
+               ranks compute them and within SLOTS_LOGIT_ATOL of its
+               whole state's steps (fixed limits: `slots_witness` reads
+               what faults give), greedy argmax equal to both but at a
+               printed near-tie; layer 0's next step
+               against the unsharded long route over the gathered slots
+               (winner sets equal, out within OUT_ATOL, probs at scale);
+               printed: launches by route, each rank's peak memory, a
+               step's wall and kernel time;
+  8c. mesh  — the collective paths in 8e's world of 4 spawned ranks
+               (NCCL with a card each, else gloo, every rank on this
+               card), once each rank has freed 8e's state: the slot-sharded
                decode at longchat-7b's full-width layer (4 lanes x 32
-               kv-heads, d 128, S 1088, select_k 128, 4 blocks over the
-               ranks), bf16 and int8 KV, 24 steps from a prefilled cache,
-               against the unsharded blocked decode on the card;
+               kv-heads, d 128, S 1088 = 4 x 272 slots, select_k 128),
+               bf16 and int8 KV, one block a rank and the global race,
+               MESH_STEPS steps from a prefilled cache (the last 16
+               evicting) on the decode kernels' sharded route (the fused
+               engine; no plain attention in its steps), against the
+               unsharded kernels on the whole cache and the sharded plain
+               path;
                deepseek-v3's latent race at full width (128 heads, latent
                576, S 1088, full budget) against dense latent attention;
                grok-1-314b's MoE layer with moe_ep (8 experts of 6144 x
@@ -200,7 +233,8 @@ Phases, in order (no failure is caught: any one exits non-zero):
                int8 KV, select_blocks 1 and 4; bf16 with select_blocks 4
                and int8 with 1 cut to 4 requests of 16 new tokens;
                teacher-forced kernel vs composed path, chunk_prefill = 512
-               held to whole admission), minitron-8b (LayerNorm, relu², vocab 256,000;
+               on 4 requests of 16 new tokens held to whole admission),
+               minitron-8b (LayerNorm, relu², vocab 256,000;
                32 layers) and phi3-medium-14b (40 layers, 4 requests of 16
                new tokens) served once, llava-next-mistral-7b (the vision
                frontend; 32 layers) through greedy_generate behind a seeded
@@ -244,7 +278,8 @@ Phases, in order (no failure is caught: any one exits non-zero):
                top-1). Then zamba2-7b (81 SSD blocks and 13 applications
                of one shared attention block, 32 heads of d = 112) under
                unicaim(heavy=1024, reserve=64, select_k=128), bf16 and int8
-               KV, select_blocks 1 and 4: 13 ragged_decode / fused_decode
+               KV, select_blocks 1 and 4 (4 requests of 16 new tokens
+               each): 13 ragged_decode / fused_decode
                launches a decode step, 13 flash_prefill launches a prompt
                pass, nothing else; the prompt pass through flash_prefill
                and through its plain version keep the same positions in
@@ -302,7 +337,7 @@ Phases, in order (no failure is caught: any one exits non-zero):
                width and depth (random bf16 weights from the seed) through
                `launch/train.py`'s functions at the CLI's settings (--batch
                8 --seq 256 --lr 1e-3) with int8 moments, 10 steps straight
-               and 10 through `fault.run_training` (a checkpoint every 4
+               and 10 through `fault.run_training` (a checkpoint every 8
                steps, a RuntimeError before step 9): held, restarts 1, the
                final opt.step, the resumed losses bit-equal to the
                straight run's, flash_prefill and flash_prefill_bwd 40
@@ -341,6 +376,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -351,6 +387,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -388,6 +425,7 @@ from repro_torch.launch.serve import (Request, SamplingParams,  # noqa: E402
                                       greedy_generate, gumbel_noise)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import attention_layer as layer_mod  # noqa: E402
 from repro_torch.models.attention_layer import decode_qkv  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.prefix_cache import _tree_nbytes  # noqa: E402
@@ -2233,16 +2271,18 @@ def phase_teacher(cfg, params, model, steps=16, batch=None, hold=True):
     return agree
 
 
-def phase_chunked(cfg, params, model, whole, chunked, chunk):
-    """Chunked vs whole admission of the same requests: equal streams are
-    counted (cuBLAS may pick other GEMM kernels for 512-row and longer
-    products, so they are not asserted); per request, a whole-bucket
-    prefill and a chunked one of its prompt must keep the same layer-0
-    positions on at least KEPT_MIN of the slots and give first-token
-    logits within PATH_ATOL."""
-    same = sum(a.tokens == b.tokens for a, b in zip(whole, chunked))
+def phase_chunked(cfg, params, model, whole, chunked, chunk, n=2 * LANES):
+    """Chunked vs whole admission of the same requests (the chunked loop's
+    `n`, a prefix of the whole loop's, its streams as long or shorter):
+    equal streams are counted (cuBLAS may pick other GEMM kernels for
+    512-row and longer products, so they are not asserted); per request,
+    a whole-bucket prefill and a chunked one of its prompt must keep the
+    same layer-0 positions on at least KEPT_MIN of the slots and give
+    first-token logits within PATH_ATOL."""
+    same = sum(a.tokens[:len(b.tokens)] == b.tokens
+               for a, b in zip(whole, chunked))
     worst_kept, worst_logit = 1.0, 0.0
-    for p, _ in served_prompts(cfg.vocab_size):
+    for p, _ in served_prompts(cfg.vocab_size, n):
         t = len(p)
         bucket = bucket_length(t)
         padded = np.zeros(bucket, np.int64)
@@ -2266,7 +2306,7 @@ def phase_chunked(cfg, params, model, whole, chunked, chunk):
         worst_kept = min(worst_kept, agree)
         worst_logit = max(worst_logit, float((lc - lw[None]).abs().max()))
     print(f"  chunked (chunk_prefill={chunk}) vs whole admission: "
-          f"{same} of {len(whole)} streams equal; per request, layer-0 kept "
+          f"{same} of {len(chunked)} streams equal; per request, layer-0 kept "
           f"positions agree on >= {worst_kept:.4%} of slots (need "
           f"{KEPT_MIN:.0%}), first-token logits max|d| {worst_logit:.3g} "
           f"(atol {PATH_ATOL})")
@@ -3560,13 +3600,162 @@ def cache_decode_args(cache, q, prune):
     return torch.repeat_interleave(cache.fill, hk), args
 
 
+LONG_STEPS_FILE = ROOT / "build" / "long_500k_steps.pt"
+
+
+def long_rows(li, heads, n, d):
+    """Layer `li`'s prompt K/V rows and column sums for kv-heads `heads`,
+    each head's drawn on the card from a seed of its own, so a rank that
+    holds some heads draws them alone: (k, v [1, len(heads), n, d] bf16,
+    acc [1, len(heads), n] f32)."""
+    gen = torch.Generator(device="cuda")
+    ks, vs, accs = [], [], []
+    for h in heads:
+        gen.manual_seed(SEED + 1000 * li + h)
+        ks.append(torch.randn((n, d), generator=gen, device="cuda").to(
+            torch.bfloat16))
+        vs.append(torch.randn((n, d), generator=gen, device="cuda").to(
+            torch.bfloat16))
+        accs.append(torch.rand((n,), generator=gen, device="cuda"))
+    return (torch.stack(ks)[None], torch.stack(vs)[None],
+            torch.stack(accs)[None])
+
+
+def long_state(model, cfg, prune):
+    """A fresh one-lane decode state of `model` (granite-3-2b at
+    long_500k), every layer's cache filled through `prefill_fill` from
+    `long_rows`."""
+    st = model.init_decode_state(1)
+    hk, d, n = cfg.n_kv_heads, cfg.head_dim, prune.heavy_budget
+    for li in range(model.attn_layer_count()):
+        k_rows, v_rows, acc = long_rows(li, range(hk), n, d)
+        _store_layer(st, li, prefill_fill(st.kv.layer(li), k_rows, v_rows,
+                                          acc, prune))
+        del k_rows, v_rows, acc
+    return st
+
+
+def teacher_logits(model, params, st, tokens):
+    """`Model.decode_step` on `st` fed `tokens` ([T] long), one a step →
+    the steps' logits [T, vocab] f32 on the host."""
+    steps = []
+    for tok in tokens:
+        logits, st = model.decode_step(params, st, tok.view(1).to(
+            st.kv.k.device))
+        steps.append(logits)
+    return torch.cat(steps).float().cpu()
+
+
+def merge_blocks(stages):
+    """`sharding.merge_shards` over the slot blocks' stages in one
+    process, its two all-reduces by hand (a maximum; a sum, which over two
+    blocks is a + b in either order) → (the row's (max, sum), out)."""
+    parts = [(x.mz(), *x.partials()) for x in stages]
+    top_m = functools.reduce(torch.maximum, [p[0][..., 0] for p in parts])
+    top_x = functools.reduce(torch.maximum, [p[2] for p in parts])
+
+    def weight(x, top):
+        return torch.where(x > -math.inf, torch.exp(x - top),
+                           torch.zeros_like(x))
+    zs = functools.reduce(torch.add, [p[0][..., 1] * weight(p[0][..., 0],
+                                                            top_m)
+                                      for p in parts])
+    nums = functools.reduce(torch.add, [p[1] * weight(p[2], top_x)[..., None]
+                                        for p in parts])
+    dens = functools.reduce(torch.add, [p[3] * weight(p[2], top_x)
+                                        for p in parts])
+    out = torch.where((top_x > -math.inf)[..., None],
+                      nums / torch.clamp(dens[..., None], min=1e-30),
+                      torch.zeros_like(nums))
+    return torch.stack([top_m, zs], dim=-1), out
+
+
+class laid_out_on_one_card:
+    """Inside the block, `Model.decode_step` on a whole one-card state
+    computes as [slots]' ranks do: `decode_qkv` projects the kv-heads as
+    `head_blocks` blocks, each as the rank that holds it does (the
+    columns of its heads), and the global race of `ops.fused_decode`
+    runs the decode kernels' sharded route over `slot_blocks` blocks of
+    the slots, one after another, the collectives by hand
+    (`merge_blocks`). `fault` (`slots_witness` only) breaks it on
+    purpose: "qkv", the last head block projected with the first block's
+    heads on layers >= 1 (a wrong head offset); "gather", the head
+    blocks' attention outputs joined in the wrong order on layers >= 1;
+    "gather_last", that on the last layer only."""
+
+    def __init__(self, head_blocks, slot_blocks, layers, fault=None):
+        self.parts, self.n, self.layers = head_blocks, slot_blocks, layers
+        self.fault = fault
+
+    def __enter__(self):
+        self.saved = (layer_mod.decode_qkv, layer_mod.decode_attention,
+                      ops.fused_decode)
+        qkv_of, attend_of, whole_decode = self.saved
+        calls = [0]
+
+        def qkv(p, x, cfg, cache):
+            li = calls[0] % self.layers
+            calls[0] += 1
+            hk = cache.k.shape[1] // self.parts
+            blocks = []
+            for i in range(self.parts):
+                h0 = (0 if self.fault == "qkv" and li and i == self.parts - 1
+                      else i * hk)
+                blocks.append(qkv_of(p, x, cfg, types.SimpleNamespace(
+                    k=cache.k[:, :hk], step=cache.step,
+                    heads=types.SimpleNamespace(offset=h0))))
+            return tuple(torch.cat(t, 1) for t in zip(*blocks))
+
+        def attend(*a, **kw):
+            out = attend_of(*a, **kw)
+            li = (calls[0] - 1) % self.layers
+            if (self.fault == "gather" and li
+                    or self.fault == "gather_last" and li == self.layers - 1):
+                out = torch.cat(out.chunk(self.parts, 1)[::-1], 1)
+            return out
+
+        def fused_decode(*args, select_k, num_blocks=1, fills=None):
+            if num_blocks != 1:
+                return whole_decode(*args, select_k=select_k,
+                                    num_blocks=num_blocks, fills=fills)
+            w = args[3].shape[1] // self.n
+            sts = [ragged_mod.ShardStages(
+                "ragged_decode", {"ragged_decode_shard": 0}, fills,
+                *args[:3], *(a[:, i * w:(i + 1) * w].contiguous()
+                             for a in args[3:]),
+                select_k=select_k, offset=i * w) for i in range(self.n)]
+            for x in sts:
+                x.race(select_k, final=False)
+            gathered = torch.stack([x.candidates() for x in sts])
+            for x in sts:
+                x.merge(gathered, select_k)
+                x.attend()
+            mz, out = merge_blocks(sts)
+            for x in sts:
+                x.set_mz(mz)
+            return out, torch.cat([x.probs() for x in sts], dim=1)
+        layer_mod.decode_qkv, layer_mod.decode_attention = qkv, attend
+        ops.fused_decode = fused_decode
+        return self
+
+    def __exit__(self, *exc):
+        (layer_mod.decode_qkv, layer_mod.decode_attention,
+         ops.fused_decode) = self.saved
+        return False
+
+
 def phase_long_500k(smi):
     """granite-3-2b at full width and depth at long_500k's pruning (S =
     524,288, select_k = 2,048), one lane, int8 K/V, random bf16 weights
     from the seed: every layer's cache filled through `prefill_fill` from
-    524,224 K/V rows and column sums drawn from the seed (no 500k-token
-    prompt pass), then LONG_STEPS `Model.decode_step`s, each 40
+    524,224 K/V rows and column sums drawn from the seed, a seed a layer
+    and head (`long_rows`; no 500k-token prompt pass), then LONG_STEPS
+    `Model.decode_step`s (their tokens and logits saved to
+    LONG_STEPS_FILE for `[slots]`), each 40
     ragged_decode_long launches and no other kernel, finite logits; the
+    same steps on a fresh state computed as [slots]' ranks compute them
+    (`laid_out_on_one_card`; saved too), their logits' difference from
+    the whole state's printed; the
     step's wall and kernel time (torch.profiler); layer 0's next step on a
     clone of its cache: the kernel against its plain version on the
     layer's own inputs (OUT_ATOL, PROBS_ATOL; probs at scale, PROBS_RTOL
@@ -3581,18 +3770,9 @@ def phase_long_500k(smi):
     params = model.init(SEED)
     torch.cuda.reset_peak_memory_stats()
     t = time.monotonic()
-    st = model.init_decode_state(1)
+    st = long_state(model, cfg, prune)
     hk, d, n = cfg.n_kv_heads, cfg.head_dim, prune.heavy_budget
     layers = model.attn_layer_count()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for li in range(layers):
-        k_rows, v_rows = (torch.randn((1, hk, n, d), generator=gen,
-                                      device="cuda").to(torch.bfloat16)
-                          for _ in range(2))
-        acc = torch.rand((1, hk, n), generator=gen, device="cuda")
-        _store_layer(st, li, prefill_fill(st.kv.layer(li), k_rows, v_rows,
-                                          acc, prune))
-        del k_rows, v_rows, acc
     torch.cuda.synchronize()
     state_gib = sum(x.numel() * x.element_size()
                     for x in vars(st.kv).values()
@@ -3605,8 +3785,11 @@ def phase_long_500k(smi):
     tok = torch.zeros((1,), dtype=torch.long, device="cuda")
     reset_launches()
     t = time.monotonic()
+    fed, steps = [], []
     for _ in range(LONG_STEPS):
+        fed.append(tok)
         logits, st = model.decode_step(params, st, tok)
+        steps.append(logits)
         tok = torch.argmax(logits, -1)
     torch.cuda.synchronize()
     wall = (time.monotonic() - t) / LONG_STEPS * 1e3
@@ -3707,7 +3890,23 @@ def phase_long_500k(smi):
     print(f"  long_500k decode step: {wall_ms:.2f} ms host wall, "
           f"{busy_ms:.2f} ms of kernel time; peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  [{smi}]")
-    del st, params, model, blocked
+    del st, blocked, cache0, q, k, v, h
+    # the same steps computed as [slots]' ranks compute them, for its
+    # comparison
+    fed, whole = torch.cat(fed).cpu(), torch.cat(steps).float().cpu()
+    with laid_out_on_one_card(SLOTS_MESH[1], SLOTS_MESH[0], layers):
+        laid = teacher_logits(model, params, long_state(model, cfg, prune),
+                              fed)
+    torch.save({"tokens": fed, "logits": whole, "laid": laid},
+               LONG_STEPS_FILE)
+    print(f"  long_500k computed as [slots]' ranks do ({SLOTS_MESH[1]} head "
+          f"blocks' projections, the sharded route over {SLOTS_MESH[0]} slot "
+          f"blocks, the collectives by hand) against the whole state's "
+          f"steps, the same {LONG_STEPS} steps from the same state: logits "
+          f"max|d| {float((laid - whole).abs().max()):.4g}, greedy argmax "
+          f"equal in {int((laid.argmax(-1) == whole.argmax(-1)).sum())} of "
+          f"{LONG_STEPS}")
+    del params, model
     gc.collect()
     torch.cuda.empty_cache()
     return ({"ragged_decode_long": n_long, "fused_decode_long": n_fused},
@@ -3723,6 +3922,9 @@ MESH_RANKS = 4
 MESH_STEPS = 80                    # 64 appends fill the cache, 16 evict
 MESH_EVICTING_MIN = 8
 MESH_ATOL = 2e-4                   # the CPU tests' tolerance
+# the slot-sharded decode's runs: (K/V dtype, selection blocks): one block
+# a rank and the global race, each with bf16 and int8 K/V
+MESH_RUNS = tuple(itertools.product(("bf16", "int8"), (4, 1)))
 
 
 def mesh_backend() -> str:
@@ -3731,18 +3933,57 @@ def mesh_backend() -> str:
     return "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
 
 
-def mesh_decode(mesh, dev, kv):
+PLAIN_ATTENTION = (("attention", "_dense_attend"),
+                   ("attention", "_gathered_attend"),
+                   ("attention", "_gathered_attend_blocked"),
+                   ("attention", "_owned_attend_shardmap"),
+                   ("ref", "fused_decode_ref"),
+                   ("ref", "shard_attend_ref"))
+
+
+class plain_attention_calls:
+    """Counts the calls of every plain attention of a decode step (the
+    composed path's and the decode kernels' plain versions) inside the
+    block: `count[0]`."""
+
+    def __enter__(self):
+        from repro_torch.core import attention as attention_mod
+        mods = {"attention": attention_mod, "ref": ref}
+        self.count, self.saved = [0], []
+        for mod, name in PLAIN_ATTENTION:
+            orig = getattr(mods[mod], name)
+
+            def fn(*a, _orig=orig, **kw):
+                self.count[0] += 1
+                return _orig(*a, **kw)
+            self.saved.append((mods[mod], name, orig))
+            setattr(mods[mod], name, fn)
+        return self.count
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+        return False
+
+
+def mesh_decode(mesh, dev, kv, nb):
     """longchat-7b's full-width decode layer (4 lanes x 32 kv-heads, d 128,
-    S 1088, select_k 128) under the slot-sharded race over 4 blocks, from a
-    prefilled cache, MESH_STEPS steps, against the port's unsharded blocked
-    decode on the whole cache on this card (plain PyTorch both: the fused
-    kernels are not used on a shard). The prefill keeps 1024 of the 1088
+    S 1088, select_k 128) on a cache slot-sharded over the 4 ranks (272
+    slots a rank), from a prefilled cache, MESH_STEPS steps, on the fused
+    engine: the decode kernels' sharded route, with `nb` selection blocks
+    (4: one block a rank, `fused_decode_shard`; 1: the global race,
+    `ragged_decode_shard`). Each step against the port's unsharded fused
+    engine on the whole cache on this card (the single-CTA kernels) and
+    against the plain version, the sharded composed path (plain PyTorch
+    on a second copy of the block). The prefill keeps 1024 of the 1088
     slots, so the steps past the 64th evict, each choosing its write slot
-    by the all-gather of every rank's (min, index). Returns (worst out
-    |d|, worst acc |d|, positions equal, evicting steps, the device of the
-    collectives' operands)."""
-    b, h, d, nb = LANES, 32, 128, 4
-    prune = served_prune(kv, nb, fused=False)
+    by the all-gather of every rank's (min, index). No plain attention
+    runs in the kernel route's steps. Returns a dict of the worst errors,
+    the block's fields against the whole cache's, the evicting steps, the
+    collectives' device and the launches by route."""
+    b, h, d = LANES, 32, 128
+    prune = served_prune(kv, nb, fused=True)
+    plain_prune = dataclasses.replace(prune, fused=False)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rnd(*shape):
@@ -3751,22 +3992,35 @@ def mesh_decode(mesh, dev, kv):
                                     torch.bfloat16, device=dev),
                          rnd(b, h, PROMPT_LEN, d), rnd(b, h, PROMPT_LEN, d),
                          rnd(b, h, PROMPT_LEN).abs(), prune)
-    cache = shard_cache(whole, mesh, nb)
-    worst, evicting = 0.0, 0
+    cache = shard_cache(whole, mesh, 4)
+    plain = cache.clone()
+
+    def mine(x):
+        return shard_rows(x, mesh, 4, b)
+    worst_k = worst_p = 0.0
+    evicting = calls = 0
+    reset_launches()
     for _ in range(MESH_STEPS):
         q, kn, vn = rnd(b, h, d), rnd(b, h, d), rnd(b, h, d)
         evicting += int(bool((whole.fill >= prune.slots).all()))
-        plain = decode_attention(whole, q, kn, vn, prune)
+        want = decode_attention(whole, q, kn, vn, prune)
         with use_mesh(mesh):
-            out = decode_attention(cache, *(shard_rows(x, mesh, nb, b)
-                                            for x in (q, kn, vn)), prune)
-        worst = max(worst, float((out - shard_rows(plain, mesh, nb, b)
-                                  ).abs().max()))
-    want = shard_cache(whole, mesh, nb)
-    acc = float((cache.acc - want.acc).abs().max())
-    same = all(torch.equal(getattr(cache, f), getattr(want, f))
+            with plain_attention_calls() as count:
+                out = decode_attention(cache, *map(mine, (q, kn, vn)), prune)
+            calls += count[0]
+            out_p = decode_attention(plain, *map(mine, (q, kn, vn)),
+                                     plain_prune)
+        worst_k = max(worst_k, float((out - mine(want)).abs().max()))
+        worst_p = max(worst_p, float((out - out_p).abs().max()))
+    counts = launch_counts()
+    blk = shard_cache(whole, mesh, 4)
+    acc = float((cache.acc - blk.acc).abs().max())
+    same = all(torch.equal(getattr(cache, f), getattr(blk, f))
                for f in ("valid", "pos", "fill", "step"))
-    return worst, acc, same, evicting, str(cache.acc.device)
+    return {"vs_unsharded": worst_k, "vs_plain": worst_p, "acc": acc,
+            "same": same, "evicting": evicting, "plain_calls": calls,
+            "device": str(cache.acc.device),
+            "launches": {k: n for k, n in counts.items() if n}}
 
 
 def mesh_latent(mesh, dev, kv):
@@ -3850,10 +4104,10 @@ def mesh_moe(mesh, dev, rank):
             abs(float(aux) - float(aux_ref)))
 
 
-def mesh_rank(rank, world, store, out_dir):
-    """One rank of the [mesh] phase (a spawned process): join the world,
-    run the three collective paths on this rank's card and write
-    `rank{rank}.json`."""
+def join_world(rank, world, store):
+    """A spawned rank joins the world (NCCL with a card a rank, else gloo,
+    `mesh_backend`) through the file store → (backend, its card, a
+    function making a ProcessMesh ("data", "model") of a shape)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3868,41 +4122,46 @@ def mesh_rank(rank, world, store, out_dir):
         return ProcessMesh(init_device_mesh(mesh_type, shape,
                                             mesh_dim_names=("data",
                                                             "model")))
-    res = {"backend": backend, "device": str(dev)}
-    m14 = mesh_of((1, world))
-    t = time.monotonic()
-    for kv in ("bf16", "int8"):
-        res[f"decode_{kv}"] = mesh_decode(m14, dev, kv)
-        res[f"latent_{kv}"] = mesh_latent(m14, dev, kv)
-    res["decode_s"] = time.monotonic() - t
-    t = time.monotonic()
-    res["moe"] = mesh_moe(m14, dev, rank)
-    res["moe_s"] = time.monotonic() - t
+    return backend, dev, mesh_of
+
+
+def leave_world(rank, out_dir, res):
+    """Write the rank's results and leave the world."""
+    import torch.distributed as dist
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def phase_mesh(smi):
-    """The [mesh] phase: MESH_RANKS spawned ranks (NCCL with a card each,
-    else gloo sharing this card) run the slot-sharded decode at
-    longchat-7b's full-width layer (bf16 and int8 KV, against the unsharded
-    blocked decode), deepseek-v3's latent race at full width (against dense
-    latent attention) and grok-1's MoE layer with moe_ep (against
-    apply_moe), each within MESH_ATOL; the decode must evict in at least
-    MESH_EVICTING_MIN steps. Prints the backend, the device of the
-    collectives' operands, and every worst error. Every rank is joined or
-    killed."""
-    out = ROOT / "build" / "mesh_phase"
+def mesh_work(rank, world, backend, dev, mesh_of):
+    """One rank's part of the [mesh] phase, in [slots]' world once its
+    decode state is freed: the three collective paths on this rank's
+    card → its results."""
+    res = {"backend": backend, "device": str(dev)}
+    m14 = mesh_of((1, world))
+    t = time.monotonic()
+    for kv, nb in MESH_RUNS:
+        res[f"decode_{kv}_nb{nb}"] = mesh_decode(m14, dev, kv, nb)
+    for kv in ("bf16", "int8"):
+        res[f"latent_{kv}"] = mesh_latent(m14, dev, kv)
+    res["decode_s"] = time.monotonic() - t
+    t = time.monotonic()
+    res["moe"] = mesh_moe(m14, dev, rank)
+    res["moe_s"] = time.monotonic() - t
+    return res
+
+
+def spawn_ranks(fn: str, out: Path):
+    """`chip_smoke.<fn>(rank, MESH_RANKS, store, out)` in MESH_RANKS fresh
+    interpreters, whoever imported this module; every rank joined or
+    killed. → each rank's `rank{r}.json`."""
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    t = time.monotonic()
-    # a fresh interpreter a rank, whoever imported this module
     procs = [subprocess.Popen(
         [sys.executable, "-c",
          f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-         f"chip_smoke.mesh_rank({r}, {MESH_RANKS}, "
+         f"chip_smoke.{fn}({r}, {MESH_RANKS}, "
          f"{str(out / 'store')!r}, {str(out)!r})"], cwd=ROOT)
         for r in range(MESH_RANKS)]
     try:
@@ -3913,33 +4172,64 @@ def phase_mesh(smi):
                 p.kill()
                 p.wait()
     assert codes == [0] * MESH_RANKS, codes
-    ranks = [json.load(open(out / f"rank{r}.json"))
-             for r in range(MESH_RANKS)]
+    return [json.load(open(out / f"rank{r}.json"))
+            for r in range(MESH_RANKS)]
+
+
+def phase_mesh(ranks, smi):
+    """The [mesh] phase: the MESH_RANKS ranks of [slots]' world (NCCL with
+    a card each, else gloo sharing this card; `mesh_work`'s results in
+    `ranks`) ran the slot-sharded decode at
+    longchat-7b's full-width layer on the decode kernels' sharded route
+    (bf16 and int8 KV, one block a rank and the global race: against the
+    unsharded kernels and the sharded plain path, with no plain attention
+    in the kernel route's steps), deepseek-v3's latent race at full width
+    (against dense latent attention) and grok-1's MoE layer with moe_ep
+    (against apply_moe), each within MESH_ATOL; the decode must evict in at
+    least MESH_EVICTING_MIN steps. Prints the backend, the device of the
+    collectives' operands, and every worst error. → (the sharded route's
+    launches (every rank's), the worst out |d| against the unsharded
+    kernels of each route's own runs)."""
     r0 = ranks[0]
-    operands = sorted({x[4] for r in ranks for k, x in r.items()
-                       if k.startswith("decode_") and k != "decode_s"})
+    dec = {k: [r[k] for r in ranks] for k in r0 if k.startswith("decode_")
+           and k != "decode_s"}
+    operands = sorted({x["device"] for v in dec.values() for x in v})
     print(f"[mesh] {MESH_RANKS} ranks, backend {r0['backend']} on "
           f"{sorted({r['device'] for r in ranks})}; the collectives' "
           f"operands on {operands}  [{smi}]")
-    for kv in ("bf16", "int8"):
-        dec = [r[f"decode_{kv}"] for r in ranks]
-        lat = [r[f"latent_{kv}"] for r in ranks]
-        worst_out = max(x[0] for x in dec)
-        worst_acc = max(x[1] for x in dec)
+    launches = {"ragged_decode_shard": 0, "fused_decode_shard": 0}
+    worst = dict.fromkeys(launches, 0.0)
+    for kv, nb in MESH_RUNS:
+        x = dec[f"decode_{kv}_nb{nb}"]
+        key = "fused_decode_shard" if nb > 1 else "ragged_decode_shard"
+        got = [r["launches"].get(key, 0) for r in x]
+        launches[key] += sum(got)
+        worst[key] = max(worst[key], *(r["vs_unsharded"] for r in x))
         print(f"  slot-sharded decode, longchat-7b layer (4 lanes x 32 "
-              f"kv-heads, d 128, S 1088, select_k 128, 4 blocks over "
-              f"'model'), kv={kv}, {MESH_STEPS} steps from a prefilled cache, "
-              f"against the unsharded blocked decode: out max|d| "
-              f"{worst_out:.3g} (atol {MESH_ATOL}), acc max|d| "
-              f"{worst_acc:.3g}, valid/pos/fill/step equal "
-              f"{all(x[2] for x in dec)}, evicting steps "
-              f"{min(x[3] for x in dec)} (at least {MESH_EVICTING_MIN})")
+              f"kv-heads, d 128, S 1088 = 4 x 272, select_k 128, "
+              f"select_blocks {nb}), kv={kv}, {MESH_STEPS} steps from a "
+              f"prefilled cache on the kernels' sharded route: out "
+              f"max|d| {max(r['vs_unsharded'] for r in x):.3g} against "
+              f"the unsharded kernels, {max(r['vs_plain'] for r in x):.3g}"
+              f" against the sharded plain path (atol {MESH_ATOL}), acc "
+              f"max|d| {max(r['acc'] for r in x):.3g}, valid/pos/fill/"
+              f"step equal {all(r['same'] for r in x)}, evicting steps "
+              f"{min(r['evicting'] for r in x)} (at least "
+              f"{MESH_EVICTING_MIN}); {key} launches {got} a rank, plain "
+              f"attention calls in its steps "
+              f"{sum(r['plain_calls'] for r in x)}")
+        assert all(g == MESH_STEPS for g in got), x
+        assert not any(r["plain_calls"] for r in x), x
+        assert max(r["vs_unsharded"] for r in x) <= MESH_ATOL, x
+        assert max(r["vs_plain"] for r in x) <= MESH_ATOL, x
+        assert max(r["acc"] for r in x) <= MESH_ATOL, x
+        assert all(r["same"] for r in x), x
+        assert min(r["evicting"] for r in x) >= MESH_EVICTING_MIN, x
+    for kv in ("bf16", "int8"):
+        lat = [r[f"latent_{kv}"] for r in ranks]
         print(f"  deepseek-v3 latent race (128 heads, latent 576, S 1088, 4 "
               f"blocks, full budget), kv={kv}, against dense latent "
               f"attention: ctx max|d| {max(lat):.3g} (atol {MESH_ATOL})")
-        assert worst_out <= MESH_ATOL and all(x[2] for x in dec), dec
-        assert worst_acc <= MESH_ATOL, dec
-        assert min(x[3] for x in dec) >= MESH_EVICTING_MIN, dec
         assert max(lat) <= MESH_ATOL, lat
     y_err, aux_err = r0["moe"]
     print(f"  grok-1-314b MoE layer with moe_ep (8 experts of 6144 x "
@@ -3949,7 +4239,480 @@ def phase_mesh(smi):
           f"latent checks {r0['decode_s']:.1f}s, MoE {r0['moe_s']:.1f}s a "
           f"rank")
     assert y_err <= MESH_ATOL and aux_err <= 1e-6, r0["moe"]
-    print(f"[mesh] phase {time.monotonic() - t:.1f}s")
+    return launches, worst
+
+
+# ---------------------------------------------------------------------------
+# the [slots] phase: long_500k over four ranks, the reference's layout
+# ---------------------------------------------------------------------------
+
+SLOTS_MESH = (2, 2)                # (data, model): heads and slots split
+# [slots]' logits against [long]'s steps on the same state (granite-3-2b,
+# 40 layers, bf16 compute): computed on one card as the ranks compute
+# them (`laid_out_on_one_card`), and on the whole state, whose attention
+# sums the slot blocks in another order; 40 layers of random weights carry
+# that rounding to the logits. Each limit lies between the sound run's
+# reading and the faults' (`slots_witness`; both in PERF.md): a fault on
+# the last layer alone moves the logits by less than the whole state's
+# distance, so only the first limit sees it
+SLOTS_LAID_ATOL = 0.01
+SLOTS_LOGIT_ATOL = 1.0
+
+
+def gather_slots(cache, shard):
+    """The whole slots of a slot-split one-layer block (every rank of
+    `shard.group` gathers every field's blocks) → a whole KVCache of the
+    block's batch rows and kv-heads."""
+    from repro_torch.core.cache import KVCache
+    from repro_torch.runtime.sharding import gather_blocks
+
+    def whole(a):
+        if a.dim() < 3:
+            return a.clone()
+        g = gather_blocks(a, shard)                      # [n, B, Hk, s, .]
+        return torch.cat(list(g), dim=2)
+    return KVCache(*(None if getattr(cache, f) is None else whole(
+        getattr(cache, f)) for f in FIELDS))
+
+
+def slots_rank(rank, world, store, out_dir):
+    """One rank of the [slots] phase: granite-3-2b at full width and depth
+    at long_500k (int8 K/V, one lane) on the (data 2 x model 2) mesh, its
+    decode state laid out by `decode_state_pspecs` (4 of 8 kv-heads over
+    `model`, 262,144 of 524,288 slots over `data`): every layer's block
+    filled by `prefill_fill` from `[long]`'s seeded rows of its heads (no
+    prompt pass), then `[long]`'s LONG_STEPS decode steps (its tokens,
+    LONG_STEPS_FILE) through `Model.decode_step`: the logits, the launches
+    by route and the step's host wall; layer 0's next step on a clone of
+    its block, the kernels' sharded route against the unsharded long route
+    over the gathered slots (winner sets, out, probs at scale); a step
+    under torch.profiler (its kernel time); the peak memory. Then, its
+    state freed, the rank's part of [mesh] (`mesh_work`) in the same
+    world."""
+    from repro_torch.core import attention as attention_mod
+    backend, dev, mesh_of = join_world(rank, world, store)
+    mesh = mesh_of(SLOTS_MESH)
+    cfg = get_config("granite-3-2b")
+    prune = long_prune("long_500k", "int8")
+    model = Model(cfg, prune, device=dev)
+    params = model.init(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.monotonic()
+    layers, n, d = model.attn_layer_count(), prune.heavy_budget, cfg.head_dim
+    layout = attention_mod.state_layout(
+        mesh, (layers, 1, cfg.n_kv_heads, prune.slots, d))
+    st = model._laid_out_state(1, layout)
+    heads = range(layout.heads.offset, layout.heads.offset
+                  + st.kv.k.shape[2])
+    template = init_cache(1, len(heads), d, prune.slots, prune,
+                          model.dtype, device=dev)
+    for li in range(layers):
+        k_rows, v_rows, acc = long_rows(li, heads, n, d)
+        _store_layer(st, li, attention_mod.cut_cache(
+            prefill_fill(template, k_rows, v_rows, acc, prune),
+            attention_mod.Layout(None, None, layout.slots)))
+        del k_rows, v_rows, acc
+    del template
+    torch.cuda.synchronize()
+    fill_s = time.monotonic() - t
+    saved = torch.load(LONG_STEPS_FILE)
+    reset_launches()
+    t = time.monotonic()
+    steps = []
+    for tok in saved["tokens"]:
+        logits, st = model.decode_step(params, st, tok.view(1).to(dev))
+        steps.append(logits)
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t) / len(steps) * 1e3
+    counts = {k: v for k, v in launch_counts().items() if v}
+    logits = torch.cat(steps).float().cpu()
+
+    # layer 0's next step on a clone of its block: the kernels' sharded
+    # route against the unsharded long route over the gathered slots
+    tok = torch.argmax(steps[-1], -1)
+    p0 = layer_params(params["seg0_dense"], 0)
+    h = L.apply_norm(p0["ln1"], model._embed(params, tok), cfg.norm)
+    c = st.kv.layer(0).clone()
+    q, k, v = decode_qkv(p0["attn"], h, cfg, c)
+    write_token(c, k, v, prune)
+    whole = gather_slots(c, c.shard)
+    fills_w, args_w = cache_decode_args(whole, q, prune)
+    out_w, probs_w = ragged_mod.ragged_decode(fills_w, *args_w,
+                                              select_k=prune.select_k)
+    _, idx_w = ref.decode_race(*args_w[1:5], args_w[7], args_w[8],
+                               select_k=prune.select_k)
+    fills_b, args_b = cache_decode_args(c, q, prune)
+    stages = ragged_mod.ShardStages(
+        "ragged_decode", ragged_mod.LAUNCHES, fills_b, *args_b,
+        select_k=prune.select_k, offset=c.shard.offset)
+    out_s, probs_s = ops.shard_route(stages, c.shard, prune.select_k, 1)
+    same = torch.equal(torch.sort(stages.winners(), -1).values,
+                       torch.sort(idx_w, -1).values)
+    s0 = c.shard.offset
+    mine = slice(s0, s0 + c.slots)
+    live = ((args_w[7] != 0) & (torch.arange(prune.slots, device=dev)[None]
+                                < fills_w[:, None]))
+    g = cfg.n_heads // cfg.n_kv_heads
+    e_scale, _ = probs_at_scale(probs_s, probs_w[:, mine], live[:, mine], g)
+    # the block holds a part of each row's mass G: its sum against the
+    # unsharded route's over the same slots
+    e_sum = float((probs_s.double().sum(-1) - probs_w[:, mine].double()
+                   .sum(-1)).abs().max()) / g
+    res = {"backend": backend, "device": str(dev),
+           "layout": [None if b is None else [b.offset, b.total]
+                      for b in layout],
+           "fill_s": fill_s, "wall_ms": wall, "launches": counts,
+           "logits": logits.tolist() if rank == 0 else None,
+           "worst_logit": float((logits - saved["logits"]).abs().max()),
+           "step_logit": (logits - saved["logits"]).abs().amax(-1).tolist(),
+           "worst_laid": float((logits - saved["laid"]).abs().max()),
+           "layer0": {"winners_equal": same,
+                      "out": float((out_s - out_w).abs().max()),
+                      "probs": float((probs_s - probs_w[:, mine]).abs()
+                                     .max()),
+                      "probs_scale": e_scale, "probs_sum": e_sum}}
+    del whole, args_w, out_w, probs_w, stages, c
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_step(params, st, tok)
+        torch.cuda.synchronize()
+    res["kernel_ms"] = sum(
+        getattr(e, "self_device_time_total", 0.0)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA) / 1e3
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del st, model, params, p0, q, k, v, h, prof, steps, args_b, fills_b
+    del out_s, probs_s, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    res["mesh"] = mesh_work(rank, world, backend, dev, mesh_of)
+    res["mesh_s"] = time.monotonic() - t
+    leave_world(rank, out_dir, res)
+
+
+SHARD_SHAPES = (  # name, BH, G, d, S, slot ranks, select_k, K/V dtype
+    ("granite-3-2b long_500k, a rank of (data 2 x model 2)", 4, 4, 64,
+     524288, 2, LONG_K, torch.int8),
+    ("longchat-7b layer over 4 ranks", 128, 1, 128, 1088, 4, 128,
+     torch.bfloat16),
+)
+
+
+def shard_bound(fills, block, owned, cand_bytes):
+    """(bound_ms, bound_by, bytes) of one rank's sharded route on its block
+    (`block`: the eleven inputs over its S slots, `fills` its live counts
+    [BH], `owned` [BH] the valid winners it holds): each row's live mirror
+    rows with their scale and valid bytes, the prot row, the owned
+    winners' K/V rows and scales, q, qq, qscale, the partials and probs,
+    and `cand_bytes` of candidates read and written (the global race)."""
+    q, qq, qscale, mirror, mscale, ks, vs, valid, prot, k, v = block
+    bh, g, d = q.shape
+    s, dv = mirror.shape[1], v.shape[-1]
+    live = torch.clamp(fills.long(), 0, s).cpu().numpy()
+    wins = owned.long().cpu().numpy()
+    nbytes = int((g * d * 4 + g * d + g * 4 + 4 + s + g * (dv + 2) * 4
+                  + s * 4 + live * (d + 4 + 1)
+                  + wins * ((d + dv) * k.element_size() + 8)).sum()
+                 + cand_bytes)
+    t, by = bound(nbytes, float((2 * g * d * live).sum()),
+                  float((2 * g * wins * (d + dv)).sum()))
+    return t, by, nbytes
+
+
+def merged_mz(stages):
+    """The row's (max, sum) over every block's stages, merged as the
+    collective merges them."""
+    mz = torch.stack([x.mz() for x in stages]).double()
+    top = mz[..., 0].amax(dim=0)
+    z = torch.where(mz[..., 0] > -math.inf, mz[..., 1] * torch.exp(
+        mz[..., 0] - top), torch.zeros_like(top)).sum(dim=0)
+    return torch.stack([top, z], dim=-1).float()
+
+
+def shard_times():
+    """The sharded route's kernels on one rank's block (block 0 of the
+    SHARD_SHAPES, the other blocks' candidates and statistics made once
+    beforehand, so the collectives are not in the time), the global race
+    (`ragged_decode_shard`) and one block a rank (`fused_decode_shard`):
+    CUDA-event time of the four (three) stage launches, the plain stages'
+    (`ref.ShardStagesRef` on the card) and the bound of the block's bytes
+    (`shard_bound`). → {route: {shape: times}}."""
+    times = {"ragged_decode_shard": {}, "fused_decode_shard": {}}
+    for name, bh, g, d, s, n, k, kv in SHARD_SHAPES:
+        fl = (long_fills(bh, s, k, 7) if s > 100000
+              else MAIN_FILLS[:bh])
+        fills, args = kernel_inputs(bh, g, d, s, fl, kv, seed=300)
+        w = s // n
+        blocks = [args[:3] + [a[:, i * w:(i + 1) * w].contiguous()
+                              for a in args[3:]] for i in range(n)]
+        for key, nb in (("ragged_decode_shard", 1), ("fused_decode_shard",
+                                                     n)):
+            mod = ragged_mod if nb == 1 else fused_mod
+
+            def stages(i, plain):
+                if plain:
+                    return ref.ShardStagesRef(*blocks[i], offset=i * w)
+                return ragged_mod.ShardStages(
+                    key[:-6], mod.LAUNCHES, fills if nb == 1 else None,
+                    *blocks[i], select_k=k, offset=i * w)
+            pre = {}
+            for plain in (False, True):
+                sts = [stages(i, plain) for i in range(n)]
+                for x in sts:
+                    x.race(k if nb == 1 else k // n, final=nb > 1)
+                gathered = (torch.stack([x.candidates() for x in sts])
+                            if nb == 1 else None)
+                if nb == 1:
+                    for x in sts:
+                        x.merge(gathered, k)
+                pre[plain] = (gathered, merged_mz(sts), sts[0])
+
+            def route(plain=False):
+                gathered, mz, _ = pre[plain]
+                x = stages(0, plain)
+                if nb == 1:
+                    x.race(k, final=False)
+                    x.merge(gathered, k)
+                    x.attend()
+                else:
+                    x.race(k // n, final=True)
+                x.set_mz(mz)
+                x.probs()
+                return x.partials()
+            ms = cuda_ms(route)
+            plain_ms = cuda_ms(lambda: route(True), iters=3, warmup=1)
+            first = pre[False][2]
+            if nb == 1:
+                picks = first.winners()
+                fl0 = fills.clamp(0, w)
+            else:
+                kl = k // n
+                picks = first._picks.view(-1)[:bh * kl].view(bh, kl).long()
+                fl0 = torch.full_like(fills, w)
+            ok = (picks >= 0) & (picks < w)
+            ok &= torch.gather(blocks[0][7], 1, picks.clamp(0, w - 1)) != 0
+            kc = min(k, w)
+            cand = bh * (n * kc + kc) * 8 if nb == 1 else 0
+            t, by, nbytes = shard_bound(fl0, blocks[0], ok.sum(-1), cand)
+            times[key][name] = {"ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": t, "bound_by": by}
+            print(f"  time {name} (BH={bh} G={g} d={d} S={s} over {n} "
+                  f"ranks, {w} slots a rank, k={k} {str(kv)[6:]}) {key}: "
+                  f"the block's kernels {ms:.4f} ms (collectives not "
+                  f"included), plain {plain_ms:.4f} ms, bound {t:.4f} ms "
+                  f"({by}: {nbytes} B at 3.35 TB/s); library call: none")
+        del args, blocks
+        torch.cuda.empty_cache()
+    return times
+
+
+def decode_32k_rank(rank, world, store, out_dir):
+    """One rank of `decode_32k_over_cards`: longchat-7b at full width and
+    depth, decode_32k's pruning with bf16 K/V, `greedy_generate` under
+    `use_mesh` of (data 1 x model 4): the prompt pass replicated, each
+    rank keeping its 8 of 32 kv-heads of every layer's cache, the decode
+    steps on them with the outputs gathered. → its tokens, wall, peak
+    memory and launches."""
+    backend, dev, mesh_of = join_world(rank, world, store)
+    mesh = mesh_of((1, world))
+    cfg = get_config("longchat-7b")
+    model = Model(cfg, long_prune("decode_32k", "bf16"), device=dev)
+    params = model.init(SEED)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        DECODE_32K_LANES, LONG_PROMPTS[0])), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompt = {}
+    whole_prefill = model.prefill
+
+    def prefill(*a, **kw):            # the prompt pass timed, then the
+        t = time.monotonic()          # decode steps' launches counted
+        out = whole_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        prompt["s"] = time.monotonic() - t
+        reset_launches()
+        return out
+    model.prefill = prefill
+    with use_mesh(mesh):
+        t = time.monotonic()
+        toks, st = greedy_generate(model, params, {"tokens": tokens},
+                                   LONG_NEW, device=dev)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t - prompt["s"]
+    leave_world(rank, out_dir, {
+        "backend": backend, "device": str(dev),
+        "heads": list(st.kv.k.shape)[2], "tokens": toks.tolist(),
+        "prompt_s": prompt["s"], "decode_s": decode_s,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "launches": {k: v for k, v in launch_counts().items() if v}})
+
+
+DECODE_32K_LANES = 2
+
+
+def decode_32k_over_cards():
+    """longchat-7b at decode_32k with bf16 K/V on 2 lanes of 32,000-token
+    prompts, 16 new tokens, through `greedy_generate` under a process
+    mesh of (data 1 x model 4), 8 kv-heads a card (`decode_32k_rank`; run
+    it with four cards: `PYTHONPATH=src python3 -c 'import chip_smoke as
+    c; c.decode_32k_over_cards()'`): each card's peak memory, the decode
+    tok/s, the prompt pass's wall and the launches by route; every rank's
+    tokens equal."""
+    smi = smi_line()
+    assert torch.cuda.device_count() >= MESH_RANKS, "needs four cards"
+    print(f"[build] {build.build_all(['ragged_decode', 'flash_prefill'])}")
+    t = time.monotonic()
+    ranks = spawn_ranks("decode_32k_rank", ROOT / "build" / "decode_32k")
+    toks = [r["tokens"] for r in ranks]
+    new = DECODE_32K_LANES * LONG_NEW
+    print(f"[decode_32k over cards] longchat-7b decode_32k (S 32,768, "
+          f"select_k 2,048, bf16 K/V), {DECODE_32K_LANES} lanes of "
+          f"{LONG_PROMPTS[0]} tokens, {LONG_NEW} tokens each through "
+          f"greedy_generate under (data 1 x model 4), backend "
+          f"{ranks[0]['backend']} on {[r['device'] for r in ranks]}: "
+          f"{ranks[0]['heads']} kv-heads a card; prompt pass "
+          f"{max(r['prompt_s'] for r in ranks):.2f}s; decode "
+          f"{new / max(r['decode_s'] for r in ranks):.2f} tok/s ({new} "
+          f"tokens: {LONG_NEW} decode steps a lane); peak "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a card; "
+          f"launches a card {[r['launches'] for r in ranks]}; the ranks' "
+          f"tokens equal {all(x == toks[0] for x in toks)}; "
+          f"{time.monotonic() - t:.1f}s  [{smi}]")
+    assert all(x == toks[0] for x in toks)
+
+
+def near_tie(row, limit) -> bool:
+    """Whether a logits row's top two lie within twice `limit`: logits
+    held within `limit` of it can swap them."""
+    top = torch.topk(row, 2).values
+    return float(top[0] - top[1]) <= 2 * limit
+
+
+def phase_slots(smi):
+    """The [slots] phase: MESH_RANKS spawned ranks (`slots_rank`) decode
+    granite-3-2b's long_500k state laid out over (data 2 x model 2) by the
+    reference's rules, a cache no rank holds whole, through
+    `Model.decode_step` on the decode kernels' sharded route, against
+    `[long]`'s unsharded steps on the same state: the logits within
+    SLOTS_LAID_ATOL of its steps computed on one card as the ranks
+    compute them and within SLOTS_LOGIT_ATOL of its whole state's; each
+    step's greedy argmax equal to both but at a near-tie (`near_tie` of
+    the unsharded step and the limit, printed as such);
+    layer 0's winner sets equal,
+    its out within OUT_ATOL and its probs at scale (PROBS_RTOL,
+    PROBS_SUM_RTOL). Prints the launches by route, each rank's peak
+    memory, a step's wall and kernel time. → ({route: launches}, layer 0's
+    worst error, each rank's [mesh] results and the seconds they took)."""
+    t0 = time.monotonic()
+    gc.collect()                      # the card's memory to the ranks
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"[slots] this process holds {held:.2f} GiB; "
+          f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free on the "
+          f"card before the ranks start")
+    ranks = spawn_ranks("slots_rank", ROOT / "build" / "slots_phase")
+    r0 = ranks[0]
+    saved = torch.load(LONG_STEPS_FILE)
+    worst = max(r["worst_logit"] for r in ranks)
+    worst_laid = max(r["worst_laid"] for r in ranks)
+    got = torch.tensor(r0["logits"])
+    ties, wrong = [], []
+    for key, limit in (("laid", SLOTS_LAID_ATOL),
+                       ("logits", SLOTS_LOGIT_ATOL)):
+        for i, (a, b) in enumerate(zip(got, saved[key])):
+            if int(a.argmax()) != int(b.argmax()):
+                (ties if near_tie(b, limit) else wrong).append((key, i))
+    counts = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+    layers = get_config("granite-3-2b").num_layers
+    print(f"[slots] granite-3-2b long_500k (S 524,288, select_k 2,048, "
+          f"int8 K/V, batch 1) over {MESH_RANKS} ranks (data 2 x model 2), "
+          f"backend {r0['backend']}: layout rows/heads/slots "
+          f"{r0['layout']} (rank 0), blocks filled in "
+          f"{max(r['fill_s'] for r in ranks):.1f}s; {len(got)} decode steps "
+          f"against [long]'s unsharded ones: logits max|d| "
+          f"{worst_laid:.4g} against its steps computed as the ranks do "
+          f"(atol {SLOTS_LAID_ATOL}), {worst:.4g} against the whole state's "
+          f"(atol {SLOTS_LOGIT_ATOL}; a step: "
+          f"{[round(x, 4) for x in r0['step_logit']]}); greedy argmax "
+          f"parted at {ties + wrong} (near-ties {ties}) of {len(got)} "
+          f"steps each; launches by route over the ranks "
+          f"{counts}; a step {max(r['wall_ms'] for r in ranks):.1f} ms host "
+          f"wall, {max(r['kernel_ms'] for r in ranks):.2f} ms of kernel "
+          f"time a rank (torch.profiler, one more step); peak "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a rank  [{smi}]")
+    l0 = [r["layer0"] for r in ranks]
+    print(f"  layer 0's next step, the kernels' sharded route against the "
+          f"unsharded long route over the gathered slots: winner sets equal "
+          f"{all(x['winners_equal'] for x in l0)}, out max|d| "
+          f"{max(x['out'] for x in l0):.3g} (atol {OUT_ATOL}), probs max|d| "
+          f"{max(x['probs'] for x in l0):.3g}, at scale "
+          f"{max(x['probs_scale'] for x in l0):.3g} (row sums "
+          f"{max(x['probs_sum'] for x in l0):.3g})")
+    assert not wrong, (wrong, worst, worst_laid)
+    assert worst_laid <= SLOTS_LAID_ATOL, worst_laid
+    assert worst <= SLOTS_LOGIT_ATOL, worst
+    assert counts.get("ragged_decode_shard", 0) == MESH_RANKS * layers * len(
+        got), counts
+    assert all(x["winners_equal"] for x in l0), l0
+    assert max(x["out"] for x in l0) <= OUT_ATOL, l0
+    assert max(x["probs_scale"] for x in l0) <= PROBS_RTOL, l0
+    assert max(x["probs_sum"] for x in l0) <= PROBS_SUM_RTOL, l0
+    mesh_s = max(r["mesh_s"] for r in ranks)
+    print(f"[slots] phase {time.monotonic() - t0 - mesh_s:.1f}s (the "
+          f"world's [mesh] part {mesh_s:.1f}s apart)")
+    return ({"ragged_decode_shard": counts["ragged_decode_shard"]},
+            max(max(x["out"] for x in l0), max(x["probs"] for x in l0)),
+            [r["mesh"] for r in ranks], mesh_s)
+
+
+SLOTS_FAULTS = ("qkv", "gather", "gather_last")
+
+
+def slots_witness():
+    """What [slots]' two limits can see, on one card (`PYTHONPATH=src
+    python3 -c 'import chip_smoke as c; c.slots_witness()'`): [long]'s
+    long_500k phase (its steps on the whole state and computed as the
+    ranks compute them), then each fault of `laid_out_on_one_card` on the
+    same state and tokens: the fault's logits max|d| against both sets
+    of steps and the steps whose greedy argmax parts; then [slots] itself
+    (the sound run's readings, held to the limits) and [mesh] in its
+    world. A fault read above a limit is one [slots] fails on."""
+    smi = smi_line()
+    secs = build.build_all(["ragged_decode", "fused_decode", "approx_score",
+                            "gather_attention"])
+    print(f"[build] {secs}")
+    phase_long_500k(smi)
+    cfg = get_config("granite-3-2b")
+    prune = long_prune("long_500k", "int8")
+    model = Model(cfg, prune, device="cuda")
+    params = model.init(SEED)
+    saved = torch.load(LONG_STEPS_FILE)
+    for fault in SLOTS_FAULTS:
+        with laid_out_on_one_card(SLOTS_MESH[1], SLOTS_MESH[0],
+                                  model.attn_layer_count(), fault):
+            got = teacher_logits(model, params,
+                                 long_state(model, cfg, prune),
+                                 saved["tokens"])
+        parted = {k: torch.nonzero(got.argmax(-1) != saved[k].argmax(-1))
+                  .view(-1).tolist() for k in ("laid", "logits")}
+        print(f"[slots witness] fault {fault!r}: logits max|d| "
+              f"{float((got - saved['laid']).abs().max()):.4g} against "
+              f"the sound run computed so (atol {SLOTS_LAID_ATOL}), "
+              f"{float((got - saved['logits']).abs().max()):.4g} against "
+              f"the whole state's (atol {SLOTS_LOGIT_ATOL}); greedy "
+              f"argmax parted at steps {parted}  [{smi}]")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, mesh_ranks, _ = phase_slots(smi)
+    phase_mesh(mesh_ranks, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -4090,8 +4853,11 @@ def phase_family(smi):
                 serve(cfg, params, kv, blocks, n=LANES, new=NEW_TOKENS // 2)
             if blocks == 1 and kv == "bf16":
                 phase_teacher(cfg, params, model)
-                cmodel, sliced = serve(cfg, params, kv, 1, chunk=CHUNK)
-                phase_chunked(cfg, params, cmodel, whole, sliced, CHUNK)
+                # cut to 4 requests of half the new tokens
+                cmodel, sliced = serve(cfg, params, kv, 1, chunk=CHUNK,
+                                       n=LANES, new=NEW_TOKENS // 2)
+                phase_chunked(cfg, params, cmodel, whole, sliced, CHUNK,
+                              n=LANES)
 
     def minitron():
         cfg, params = family_weights("minitron-8b", smi)
@@ -4578,8 +5344,9 @@ def phase_ssm(smi):
     served = {}
     for blocks, kv in itertools.product((1, 4), ("bf16", "int8")):
         t = time.monotonic()
-        kernel, n, flash, model, _, _ = phase_serve(cfg, params, kv, smi,
-                                                    blocks)
+        # cut to 4 requests of half the new tokens
+        kernel, n, flash, model, _, _ = phase_serve(
+            cfg, params, kv, smi, blocks, n=LANES, new=NEW_TOKENS // 2)
         assert model.attn_layer_count() == 13
         launches[kernel] += n
         launches["flash_prefill"] += flash
@@ -4762,7 +5529,7 @@ BWD_F32_ATOL = 1e-5                # f32: the sum order alone
 # checkpoint every 4 steps and a RuntimeError injected before step 9,
 # after the second one
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 8, 256, 1e-3
-CKPT_EVERY, FAIL_AT = 4, 9
+CKPT_EVERY, FAIL_AT = 8, 9         # checkpoints of 10 GB at steps 8 and 10
 # the resumed losses must equal the uninterrupted run's bit for bit: the
 # restored state is the checkpoint's bits and every kernel of the step is
 # deterministic
@@ -5191,7 +5958,7 @@ def phase_train(smi):
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     passes = stats.steps                  # forward + backward passes run
     assert stats.restarts == 1 and last == TRAIN_STEPS, (stats, last)
-    resumed = 2 * CKPT_EVERY              # the replay starts there
+    resumed = FAIL_AT // CKPT_EVERY * CKPT_EVERY   # the replay starts there
     assert passes == TRAIN_STEPS + (FAIL_AT - resumed), stats
     assert c_f["flash_prefill"] == layers * passes, c_f
     assert c_f["flash_prefill_bwd"] == layers * passes, c_f
@@ -5732,6 +6499,37 @@ def main():
     long_worst, long_times = phase_long_kernels()
     worst.update(long_worst)
     print(f"[kernels] long route done in {time.monotonic() - t:.1f}s")
+    t = time.monotonic()
+    print("[kernels] the decode kernels' sharded route on one rank's block "
+          "(held to the unsharded kernels in [mesh] and [slots])")
+    shard_t = shard_times()
+    print(f"[kernels] sharded route done in {time.monotonic() - t:.1f}s")
+
+    # 8d (long_500k) and 8e. granite-3-2b at long_500k, unsharded and then
+    # laid out over a 4-rank world, run while this process holds nothing:
+    # the four ranks share its card under gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    counted, long_step = phase_long_500k(smi)
+    launches = dict.fromkeys(launch_counts(), 0)
+    for name, n in counted.items():
+        launches[name] += n
+    print(f"[long] long_500k phase {time.monotonic() - t:.1f}s")
+    counted, shard_err, mesh_ranks, mesh_s = phase_slots(smi)
+    shard_worst = {"ragged_decode_shard": shard_err}
+    for name, n in counted.items():
+        launches[name] += n
+    # 8c. the collective paths, run in [slots]' world
+    t = time.monotonic()
+    counted, mesh_err = phase_mesh(mesh_ranks, smi)
+    for name, n in counted.items():
+        launches[name] += n
+    shard_worst["fused_decode_shard"] = mesh_err["fused_decode_shard"]
+    shard_worst["ragged_decode_shard"] = max(
+        shard_err, mesh_err["ragged_decode_shard"])
+    print(f"[mesh] phase {mesh_s + time.monotonic() - t:.1f}s (in [slots]' "
+          f"world)")
     for name, kernels in (("approx_score",
                            ("approx_score_mma_kernel<16, false>",)),
                           ("approx_score_packed",
@@ -5767,7 +6565,6 @@ def main():
     print(f"[serve] longchat-7b random bf16 weights: {n_params} params, "
           f"made on the card in {time.monotonic() - t:.1f}s")
     watch_plain_prompt_attention()
-    launches = dict.fromkeys(launch_counts(), 0)
     one_shard = {}                     # phase 4's streams, for [sharded]
     step_ms = {}                       # (kv, blocks) → decode step's ms
     for blocks in (1, 4):
@@ -5813,9 +6610,9 @@ def main():
     phase_dryrun(cfg, params, smi, step_ms, prompt_ms)
     print(f"[dryrun] phase {time.monotonic() - t:.1f}s")
 
-    # 6. the prefix cache, cold and warm; int8 with a quarter of the new
-    # tokens (the prompt passes, hits and splices are the same)
-    for kv, new in (("bf16", NEW_TOKENS), ("int8", NEW_TOKENS // 4)):
+    # 6. the prefix cache, cold and warm; bf16 with half the new tokens,
+    # int8 with a quarter (the prompt passes, hits and splices are the same)
+    for kv, new in (("bf16", NEW_TOKENS // 2), ("int8", NEW_TOKENS // 4)):
         t = time.monotonic()
         for name, n in phase_prefix(cfg, params, kv, smi, new).items():
             launches[name] += n
@@ -5858,18 +6655,11 @@ def main():
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    t = time.monotonic()
-    counted, long_step = phase_long_500k(smi)
-    for name, n in counted.items():
-        launches[name] += n
-    print(f"[long] long_500k phase {time.monotonic() - t:.1f}s")
     held = torch.cuda.memory_allocated()
     print(f"[family] before phase 9: {held / 2 ** 30:.3f} GiB still "
           f"allocated on the card (longchat-7b's 13.5 GB freed)")
     assert held < 1 << 30, held
 
-    # 8c. the collective paths in a 4-rank world
-    phase_mesh(smi)
 
     # 9. the rest of the dense family and the MoE family, full width
     t = time.monotonic()
@@ -6006,6 +6796,19 @@ def main():
             "long_500k_step": {k: v for k, v in long_step.items()
                                if k.endswith("_ms")},
             **decode_compiled.get(name, {})})
+    # the decode kernels' sharded route: the long route's kernels, a stage
+    # a launch, on a rank's block of a slot-split cache
+    for name, tpu in (("ragged_decode_shard", "ragged_decode.py:167"),
+                      ("fused_decode_shard", "fused_decode.py:173")):
+        main_t = shard_t[name][SHARD_SHAPES[0][0]]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_long.cuh",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": launches[name], "max_abs_err": shard_worst[name],
+            "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+            "library_ms": None, "shapes": shard_t[name]})
     table.append(bwd_row)
     table.append(lat_bwd_row)
     print(json.dumps({"kernels": table}))

@@ -9,35 +9,43 @@ Prefill: causal attention that also returns the per-token accumulated
 attention column sums (the `flash_prefill` kernel on the card), over the
 whole prompt or one chunk of it, then the one-shot static pruning.
 
-Slot-sharded decode: over a process mesh whose axes `_slot_axes` can
-split the slots into the `select_blocks` blocks of the blocked race, each
-rank holds only its shard of the cache (its batch rows on the batch axes,
-its slot block on the slot axes; `shard_cache`, which records the block in
-`cache.shard`), races its own k/nb winners, gathers and attends locally,
-and combines by an all-reduce of the row max and one of the denominators
-and partial outputs (`_blocked_attend_shardmap`). The layout is the
-cache's own, not the active mesh's: a whole cache decodes unsharded under
-any mesh. The other cross-slot choices of the step agree with the
-unsharded step: the write slot (one all-gather of each rank's eviction
-candidate) and the accumulated probabilities' softmax. As in the
-reference, the fused kernels are not used under a mesh or on a shard, and
-the local body is plain PyTorch.
+A cache laid out over a process mesh: `shard_decode_state` cuts a rank's
+block of a layer-stacked state by the reference's `decode_state_pspecs`
+(the batch rows over the data axes, the kv-heads over `model` where they
+divide, the slots over what is left), and `shard_cache` one layer's by the
+blocked race's axes (`slot_layout`). The layout is the cache's own
+(`cache.rows`, `cache.heads`, `cache.shard`), not the active mesh's: a
+whole cache decodes unsharded under any mesh. A rank's kv-heads or batch
+rows decode as a whole cache of that size does, on the fused engine too.
+Where the slots split (`cache.shard`), the step's cross-slot choices agree
+with the unsharded step's: the write slot (one all-gather of each rank's
+eviction candidate), the accumulated probabilities' softmax (its max and
+denominator reduced over the slot ranks), and the race: the global race
+(select_blocks 1) gathers each rank's top select_k candidates with their
+global slots and races them again, so its winner set is the unsharded
+one; the blocked race of one block a rank races locally. The attention
+over the winners is then combined from the ranks' partials (row max,
+denominator, unnormalised p·v). The fused engine runs the decode kernels'
+sharded route there (`kernels/ops.sharded_decode`: the kernels on the
+card, their plain stages on the CPU); the composed path does the same in
+plain PyTorch (`_global_topk_shardmap`, `_owned_attend_shardmap`).
 
 The cache is updated IN PLACE: `decode_attention` takes a cache whose
 tensors may be views into the layer-stacked buffers.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import PruneConfig
 from repro_torch.core import quant, scoring, topk
-from repro_torch.core.cache import (KVCache, SlotShard, protected_mask,
-                                    write_token)
+from repro_torch.core.cache import (FIELDS, KVCache, SlotShard,
+                                    protected_mask, write_token)
 from repro_torch.core.topk import NEG_INF
 from repro_torch.device import kernel_capable
 from repro_torch.kernels import ops
@@ -182,50 +190,146 @@ def shard_cache(cache: KVCache, mesh, nb: int) -> KVCache:
     out = cache.map(lambda a: cut(a).clone())
     if slot_axes:
         s = out.slots
-        out.shard = SlotShard(mesh.group(slot_axes), si * s, s * sn)
+        out.shard = SlotShard(mesh.group(slot_axes), si * s, s * sn,
+                              mesh.block_order(slot_axes))
     return out
+
+
+class Layout(NamedTuple):
+    """A rank's block of a [.., B, Hk, S, ·] cache over a process mesh: its
+    batch rows, kv-heads and slots (a `SlotShard` each, None where the
+    axis is whole)."""
+    rows: Optional[SlotShard]
+    heads: Optional[SlotShard]
+    slots: Optional[SlotShard]
+
+
+def _axis_block(mesh, entry, total: int) -> Optional[SlotShard]:
+    """This rank's block of an axis of size `total` split over the mesh
+    axes of one spec entry (its axes of size 1 dropped; None: whole)."""
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    if not axes:
+        return None
+    n = mesh.size(axes)
+    return SlotShard(mesh.group(axes), mesh.coord(axes) * (total // n),
+                     total, mesh.block_order(axes))
+
+
+def state_layout(mesh, shape) -> Optional[Layout]:
+    """This rank's `Layout` of a layer-stacked [L, B, Hk, S, d] cache under
+    the reference's `decode_state_pspecs` over a process mesh: the batch
+    over the data axes that divide it, the kv-heads over `model` where Hk
+    divides, the slots over `model` otherwise and over every idle axis
+    that divides S (the batch-1 fold). None where nothing splits. Every
+    rank calls it in the same order (a group of several axes is made
+    collectively)."""
+    mesh = sharding.as_mesh(mesh)
+    spec = sharding.decode_state_pspecs(
+        {"kv": {"k": torch.empty(tuple(shape), device="meta")}}, mesh)
+    spec = tuple(spec["kv"]["k"]) + (None,) * 5
+    out = Layout(*(_axis_block(mesh, spec[i], shape[i]) for i in (1, 2, 3)))
+    return None if out == Layout(None, None, None) else out
+
+
+def cut_cache(cache: KVCache, layout: Layout, batch_dim: int = 0,
+              copy: bool = False) -> KVCache:
+    """The block `layout` names of a whole cache (views, or copies with
+    `copy`): the batch rows on `batch_dim` (1 for a layer-stacked cache),
+    the kv-heads and slots on the two dims after it. `vscale` is cut with
+    the slots, as every per-slot field is (the reference's rules leave it
+    replicated; no number depends on it). The block carries the layout."""
+    sizes = [None if blk is None else
+             blk.total // sharding.group_size(blk.group) for blk in layout]
+
+    def cut(a):
+        for i, (blk, n) in enumerate(zip(layout, sizes)):
+            if blk is not None and a.dim() > batch_dim + i:
+                a = a.narrow(batch_dim + i, blk.offset, n)
+        return a.clone() if copy else a
+    out = KVCache(*(None if getattr(cache, f) is None else cut(getattr(
+        cache, f)) for f in FIELDS))
+    out.rows, out.heads, out.shard = layout
+    return out
+
+
+def check_layout_family(latent: bool, ssm: bool, cross: bool) -> None:
+    """Refuse, before anything is cut or written, a decode state laid out
+    over a process mesh whose family the layout does not take yet: MLA's
+    `latent` cache, an `ssm` state (the SSM and hybrid families), an
+    enc-dec model's `cross` K/V (ROADMAP, Queue C)."""
+    what = [w for w, bad in (("MLA's latent cache", latent),
+                             ("an SSM state", ssm),
+                             ("an enc-dec model's cross K/V", cross)) if bad]
+    if what:
+        raise ValueError("a decode state laid out over a process mesh takes "
+                         "the dense and MoE families' caches only; not "
+                         + " or ".join(what))
+
+
+def shard_decode_state(state, mesh):
+    """This rank's block of a whole layer-stacked `DecodeState` over a
+    process mesh, by the reference's `decode_state_pspecs` (`state_layout`):
+    a copy of its batch rows, kv-heads and slots of every cache field,
+    carrying the layout (`kv.rows`, `kv.heads`, `kv.shard`). A head-split
+    block is a plain cache of Hk/n heads; a slot-split one decodes by the
+    sharded race. The state itself where nothing splits. Refuses the
+    families `check_layout_family` names."""
+    kv = state.kv
+    layout = None if kv is None else state_layout(mesh, kv.k.shape)
+    if layout is None and state.ssm is None:
+        return state
+    check_layout_family(kv is not None and kv.v is None,
+                        state.ssm is not None, state.cross is not None)
+    return dataclasses.replace(state, kv=cut_cache(kv, layout, batch_dim=1,
+                                                   copy=True))
 
 
 def check_slot_shard(cache: KVCache, prune: PruneConfig,
                      latent: bool = False) -> None:
-    """Refuse a decode step on a slot-sharded cache unless `prune` runs the
-    race the reference shards (unicaim, select_blocks > 1 — one block a
-    rank —; for a GQA cache the top-k race too, while MLA's `latent` race
-    ignores select_mode). Called before the step writes anything."""
+    """Refuse a decode step on a slot-sharded cache unless `prune` runs a
+    race the slot ranks can share: the unicaim top-k race, global
+    (select_blocks 1) or blocked with one block a rank; MLA's `latent`
+    race (which ignores select_mode) only blocked. The threshold race, the
+    dense, streaming and h2o policies and any other block count are
+    refused. Called before the step writes anything."""
     shard = cache.shard
     if shard is None:
         return
     blocks = shard.total // cache.slots
-    if (prune.policy != "unicaim" or prune.select_blocks != blocks
+    races = (blocks,) if latent else (1, blocks)
+    if (prune.policy != "unicaim" or prune.select_blocks not in races
             or (not latent and prune.select_mode != "topk")):
         raise ValueError(
             f"a cache slot-sharded over {blocks} ranks needs the unicaim "
-            f"blocked race with select_blocks={blocks}"
+            f"race with select_blocks in {races}"
             f"{'' if latent else ' and select_mode=topk'}; got "
             f"policy={prune.policy} select_blocks={prune.select_blocks} "
             f"select_mode={prune.select_mode}")
 
 
-def _blocked_attend_shardmap(cache: KVCache, q: torch.Tensor,
-                             biased: torch.Tensor, prune: PruneConfig,
-                             group) -> torch.Tensor:
-    """Shard-local top-k + gather + flash-decode combine: this rank races
-    its own slot block (k/select_blocks winners), gathers and attends
-    locally, and only the softmax statistics and the [B,Hq,dv] partial
-    outputs cross `group`: one all-reduce of the row max, one of the
-    denominators with the partial outputs. q [B,Hq,d] → out [B,Hq,dv]."""
+def _owned_attend_shardmap(cache: KVCache, q: torch.Tensor,
+                           idx: torch.Tensor, group) -> torch.Tensor:
+    """Exact attention over winners split across the slot ranks, combined
+    flash-decode style: idx [B,Hk,k] holds slots of this rank's block
+    (those outside [0, S) are another rank's and count nothing here); this
+    rank gathers and attends over its own valid winners, and only the
+    softmax statistics and the [B,Hq,dv] partial outputs cross `group`:
+    one all-reduce of the row max, one of the denominators with the
+    partial outputs. q [B,Hq,d] → out [B,Hq,dv]."""
     b, hq, d = q.shape
-    hk = cache.k.shape[1]
+    hk, s = cache.k.shape[1], cache.slots
     g = hq // hk
-    k_loc = prune.select_k // prune.select_blocks
-    _, idx = topk.exact_topk(biased, k_loc)                     # [B,Hk,kl]
+    mine = (idx >= 0) & (idx < s)
+    idx = idx.clamp(0, s - 1)
 
     def rows(x):
         return torch.gather(x, 2, idx[..., None].expand(-1, -1, -1,
                                                         x.shape[-1]))
 
     k_sel, v_sel = rows(cache.k), rows(cache.v)
-    valid_sel = torch.gather(cache.valid, 2, idx)
+    valid_sel = torch.gather(cache.valid, 2, idx) & mine
     if cache.quantized_kv:
         k_sel = k_sel.float() * torch.gather(cache.kscale, 2, idx)[..., None]
         v_sel = v_sel.float() * torch.gather(cache.vscale, 2, idx)[..., None]
@@ -234,12 +338,33 @@ def _blocked_attend_shardmap(cache: KVCache, q: torch.Tensor,
     logits = torch.where(valid_sel[:, :, None, :], logits,
                          torch.full_like(logits, NEG_INF))
     m = sharding.all_reduce(logits.amax(dim=-1, keepdim=True), "max", group)
-    e = torch.exp(logits - m) * (logits > NEG_INF / 2)         # [B,Hk,g,kl]
+    e = torch.exp(logits - m) * (logits > NEG_INF / 2)         # [B,Hk,g,k]
     o = torch.matmul(e, v_sel.float())                         # [B,Hk,g,dv]
     oz = sharding.all_reduce(torch.cat([o, e.sum(dim=-1, keepdim=True)], -1),
                              "sum", group)
     out = oz[..., :-1] / torch.clamp(oz[..., -1:], min=1e-30)
     return out.reshape(b, hq, -1)
+
+
+def _blocked_attend_shardmap(cache: KVCache, q: torch.Tensor,
+                             biased: torch.Tensor, prune: PruneConfig,
+                             group) -> torch.Tensor:
+    """The blocked race of one block a rank: this rank races its own slot
+    block (k/select_blocks winners), then `_owned_attend_shardmap`.
+    q [B,Hq,d] → out [B,Hq,dv]."""
+    _, idx = topk.exact_topk(biased, prune.select_k // prune.select_blocks)
+    return _owned_attend_shardmap(cache, q, idx, group)
+
+
+def _global_topk_shardmap(biased: torch.Tensor, k: int,
+                          shard: SlotShard) -> torch.Tensor:
+    """The global race over slots split across `shard.group`: each rank's
+    top min(k, S) candidates with their global slots, all-gathered in
+    block order and raced again (`topk.merge_candidates`) → idx [B,Hk,k]
+    global slots, the set `exact_topk` gives over the whole cache, with its
+    tie rule (the lower global slot)."""
+    cands = topk.block_candidates(biased, k, shard.offset)
+    return topk.merge_candidates(sharding.gather_blocks(cands, shard), k)
 
 
 def fused_auto_decision(device) -> dict:
@@ -280,13 +405,14 @@ def _fused_enabled(prune: PruneConfig, device: torch.device) -> bool:
 
 def _fused_eligible(cache: KVCache, prune: PruneConfig) -> bool:
     """The fused engine covers the paper-default decode configuration; the
-    threshold race, exact accumulation, MLA's latent cache (no V) and any
-    active mesh stay on the composed path (under a mesh the composed path
-    owns distribution, as in the reference)."""
+    threshold race, exact accumulation and MLA's latent cache (no V) stay
+    on the composed path. A cache laid out over a process mesh takes it
+    too, whatever mesh is active: a block of kv-heads or batch rows (or a
+    whole cache) as an unsharded cache does, a slot-split block by the
+    kernels' sharded route (the global race or one block a rank:
+    `check_slot_shard` refused the rest)."""
     if not (_fused_enabled(prune, cache.k.device)
             and prune.policy == "unicaim"):
-        return False
-    if sharding.active_mesh() is not None or cache.shard is not None:
         return False
     if prune.select_mode != "topk" or prune.accumulate != "approx":
         return False
@@ -299,7 +425,9 @@ def _fused_decode_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
                          active: Optional[torch.Tensor]) -> torch.Tensor:
     """Single-pass fused engine: one kernel does CAM scoring, selection,
     the winner gather, exact attention AND emits the charge-domain
-    probabilities. Updates `cache.acc` in place; returns out [B,Hq,dv]."""
+    probabilities. Updates `cache.acc` in place; returns out [B,Hq,dv].
+    On a slot-split block, the kernels' sharded route (`ops.
+    sharded_decode`) over this rank's slots."""
     b, hq, d = q.shape
     hk = cache.k.shape[1]
     g = hq // hk
@@ -320,12 +448,17 @@ def _fused_decode_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
 
     nb = max(1, prune.select_blocks)
     fills = torch.repeat_interleave(cache.fill, hk) if nb == 1 else None
-    out, probs = ops.fused_decode(
-        q.reshape(b * hk, g, d), qq.reshape(b * hk, g, d),
-        qs.reshape(b * hk, g), bhf(mirror), bhf(cache.kscale), bhf(kscale),
-        bhf(vscale), bhf(cache.valid.to(torch.int8)),
-        bhf(prot.to(torch.int8)), bhf(cache.k), bhf(cache.v),
-        select_k=prune.select_k, num_blocks=nb, fills=fills)
+    args = (q.reshape(b * hk, g, d), qq.reshape(b * hk, g, d),
+            qs.reshape(b * hk, g), bhf(mirror), bhf(cache.kscale),
+            bhf(kscale), bhf(vscale), bhf(cache.valid.to(torch.int8)),
+            bhf(prot.to(torch.int8)), bhf(cache.k), bhf(cache.v))
+    if cache.shard is None:
+        out, probs = ops.fused_decode(*args, select_k=prune.select_k,
+                                      num_blocks=nb, fills=fills)
+    else:
+        out, probs = ops.sharded_decode(*args, select_k=prune.select_k,
+                                        num_blocks=nb, shard=cache.shard,
+                                        fills=fills)
     _set_acc(cache, cache.acc * prune.acc_decay + probs.reshape(b, hk, s),
              active)
     return out.reshape(b, hq, dv)
@@ -349,9 +482,9 @@ def decode_attention(cache: KVCache, q: torch.Tensor, k_new: torch.Tensor,
     freezes the other lanes' cache rows. Returns the attention output
     [B, Hq, dv] f32 (rows of inactive lanes are not meaningful).
 
-    On a slot-sharded cache (`shard_cache`; module docstring), `cache` is
-    this rank's shard and q, k_new and v_new are its batch rows
-    (`shard_rows`)."""
+    On a cache laid out over a process mesh (`shard_cache`,
+    `shard_decode_state`; module docstring), `cache` is this rank's block
+    and q, k_new and v_new are its batch rows and heads."""
     check_slot_shard(cache, prune)
     write_token(cache, k_new, v_new, prune, active)
     return _policy_attend(cache, q, prune, active)
@@ -361,8 +494,8 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Post-write half of a decode step: policy dispatch (dense / h2o /
     unicaim fused, or composed with the global top-k, the block-local race
-    — slot-sharded on a sharded cache — or the threshold race) +
-    charge-domain accumulation."""
+    or the threshold race; the global and blocked races over the slot
+    ranks on a slot-sharded cache) + charge-domain accumulation."""
     head_dim = q.shape[-1]
     hk = cache.k.shape[1]
     shard = cache.shard
@@ -418,6 +551,10 @@ def _policy_attend(cache: KVCache, q: torch.Tensor, prune: PruneConfig,
             _, idx = topk.exact_topk(biased.reshape(b, hk, nb, s // nb),
                                      prune.select_k // nb)  # [B,Hk,nb,kl]
             out = _gathered_attend_blocked(cache, q, idx, head_dim)
+    elif shard is not None:
+        biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
+        idx = _global_topk_shardmap(biased, prune.select_k, shard)
+        out = _owned_attend_shardmap(cache, q, idx - shard.offset, group)
     else:
         biased = topk.apply_selection_bias(grouped, prot, ~cache.valid)
         _, idx = topk.exact_topk(biased, prune.select_k)         # [B,Hk,k]

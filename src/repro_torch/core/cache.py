@@ -29,12 +29,16 @@ FIELDS = ("k", "v", "kq", "kscale", "vscale", "acc", "valid", "pos", "fill",
 
 @dataclass(frozen=True)
 class SlotShard:
-    """This rank's block of a slot axis sharded over a process group: the
-    cache it holds is global slots [offset, offset + its slots) of
-    `total`; every rank of `group` holds the same batch rows."""
+    """This rank's block of one axis of a cache split over a process group:
+    it holds [offset, offset + its size) of `total` along the axis (the
+    slots as `KVCache.shard`; the batch rows as `KVCache.rows`, the
+    kv-heads as `KVCache.heads`). Every rank of `group` holds the same
+    block of the other axes. `order[i]` is the block index of the group's
+    rank i (None: the same as i; `ProcessMesh.block_order`)."""
     group: Any
     offset: int
     total: int
+    order: Optional[Tuple[int, ...]] = None
 
 
 @dataclass
@@ -50,10 +54,15 @@ class KVCache:
     pos: torch.Tensor                # [B, Hk, S] int32 (absolute; -1 empty)
     fill: torch.Tensor               # [B] int32 slots filled
     step: torch.Tensor               # [B] int32 tokens seen (next abs pos)
-    # Optional[SlotShard], not a field (the fields are the reference's
-    # ten): set by `attention.shard_cache` on one rank's slot block, whose
-    # decode step races and writes over every rank's slots
+    # Optional[SlotShard]s, not fields (the fields are the reference's
+    # ten): a rank's block of a cache laid out over a process mesh
+    # (`attention.shard_cache`, `attention.shard_decode_state`). `shard`:
+    # its slot block, whose decode step races and writes over every rank's
+    # slots; `rows` and `heads`: its batch rows and kv-heads, which the
+    # model's decode step cuts its inputs to and gathers its outputs over
     shard = None
+    rows = None
+    heads = None
 
     @property
     def slots(self) -> int:
@@ -75,10 +84,10 @@ class KVCache:
         return self.v
 
     def map(self, fn) -> "KVCache":
-        """Apply `fn` to every present field (the slot shard is kept)."""
+        """Apply `fn` to every present field (the layout is kept)."""
         out = KVCache(*(None if getattr(self, f) is None
                         else fn(getattr(self, f)) for f in FIELDS))
-        out.shard = self.shard
+        out.shard, out.rows, out.heads = self.shard, self.rows, self.heads
         return out
 
     def layer(self, li: int) -> "KVCache":

@@ -25,6 +25,28 @@ def exact_topk(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def block_candidates(scores: torch.Tensor, k: int,
+                     offset: int) -> torch.Tensor:
+    """One block's candidates for a race over slots split into blocks:
+    its top min(k, S) scores (ties to the lower slot) and their global
+    slots (`offset` + local), as f64 pairs [..., min(k, S), 2] (exact for
+    an f32 score and a slot below 2^53)."""
+    vals, idx = exact_topk(scores, min(k, scores.shape[-1]))
+    return torch.stack([vals.double(), (idx + offset).double()], dim=-1)
+
+
+def merge_candidates(cands: torch.Tensor, k: int) -> torch.Tensor:
+    """The global top-k from every block's `block_candidates`, cands [n,
+    ..., kc, 2] in block order → global slots [..., k] int64, the set
+    `exact_topk` gives over the whole axis: equal scores lie in global slot
+    order (block by block, each block's in slot order), and the stable
+    sort keeps that order."""
+    flat = torch.movedim(cands, 0, -3)                     # [..., n, kc, 2]
+    flat = flat.reshape(flat.shape[:-3] + (-1, 2))          # [..., n·kc, 2]
+    _, pos = exact_topk(flat[..., 0], k)
+    return torch.gather(flat[..., 1], -1, pos).long()
+
+
 def threshold_race(scores: torch.Tensor, k, iters: int = 8,
                    eligible: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CAM-style selection: binary-search a threshold so ~k survive.

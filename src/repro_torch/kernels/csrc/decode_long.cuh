@@ -38,6 +38,16 @@
 //      chunk from the scores and the merged (max, sum), so the row's G·S
 //      scores stream back at the card's rate rather than a cluster's.
 //   Every sum runs in a fixed order: two launches are bit-equal.
+//
+// The sharded route (`LaunchShard`) runs the same kernels one stage a
+// launch on one rank's block of a cache whose slots are split over ranks;
+// the wrapper runs the collectives between the launches (torch.distributed
+// on its stream). The race kernel takes a mode (`X.mode`): race, write the
+// candidates of a global race (each winner's key and global slot), attend
+// over picks written before it, write the attention's partials (max,
+// denominator, unnormalised p·v) in place of out, and merge the score
+// kernel's (max, sum) into X.mz. `shard_merge_kernel` races the ranks'
+// gathered candidates for the global winners.
 
 #pragma once
 
@@ -54,6 +64,14 @@ constexpr int kLongRing = 48 * 1024;   // score kernel's mirror ring
 constexpr int kChunkMax = 2048;        // slots a score CTA takes, at most
 constexpr int kChunkWords = 8192;      // [G][chunk] f32 scores, at most
 constexpr int kLongCap = 128;          // winners a race CTA stages at once
+
+// The race kernel's stages (bits of Scratch::mode).
+constexpr int kRace = 1;      // race the keys into picks
+constexpr int kCand = 2;      // write the picks' (key, global slot)
+constexpr int kAttend = 4;    // attend over the valid picks of this block
+constexpr int kPartial = 8;   // write (max, den) and Σ p·v, not out
+constexpr int kMz = 16;       // merge the score kernel's (max, sum) into mz
+constexpr int kWhole = kRace | kAttend | kMz;  // the unsharded long route
 
 // Slots a score CTA takes at G query rows: kChunkMax, halved until its
 // [G][chunk] scores fit kChunkWords (at least 512 at G <= 16). The shared
@@ -73,15 +91,22 @@ struct Scratch {
   int* hist;       // [BH][num_blocks][256] top-byte counts (zeroed first)
   int* picks;      // [BH][select_k] winners, in select_topk's order
   float2* mz;      // [BH][G] (max, sum of exp) of each g over the row
+  int2* cand;      // sharded: [BH][select_k] (key, global slot) of the picks
+  float2* opart;   // sharded: [BH][G] (max, den) of the attention partials
   int Sp, ch, nch;
+  int mode;        // the race kernel's stages (kRace, ...)
+  int offset;      // sharded: the block's first global slot
   size_t hist_bytes;
 };
 
 // Carve `base` (or, with base == nullptr, only count) into a Scratch;
 // returns its bytes. Sp pads a row of keys to 16 bytes, so the race reads
-// them in 16-byte words.
+// them in 16-byte words. `shard` adds the sharded route's candidates and
+// partials; `offs`, if given, takes the byte offsets of cand, mz, opart
+// and picks.
 inline size_t long_scratch(int BH, int S, int G, int num_blocks,
-                           int select_k, unsigned char* base, Scratch* x) {
+                           int select_k, unsigned char* base, Scratch* x,
+                           bool shard = false, size_t* offs = nullptr) {
   const int Sp = (S + 3) & ~3;
   const int bs = S / num_blocks;
   const int ch = long_chunk(G) < bs ? long_chunk(G) : bs;
@@ -93,6 +118,14 @@ inline size_t long_scratch(int BH, int S, int G, int num_blocks,
   const size_t hist = take(at, 4 * 256 * (size_t)BH * num_blocks);
   const size_t picks = take(at, 4 * (size_t)BH * select_k);
   const size_t mz = take(at, 8 * (size_t)BH * G);
+  const size_t cand = shard ? take(at, 8 * (size_t)BH * select_k) : 0;
+  const size_t opart = shard ? take(at, 8 * (size_t)BH * G) : 0;
+  if (offs != nullptr) {
+    offs[0] = cand;
+    offs[1] = mz;
+    offs[2] = opart;
+    offs[3] = picks;
+  }
   if (x != nullptr) {
     x->sc = reinterpret_cast<float*>(base + sc);
     x->key = reinterpret_cast<uint32_t*>(base + key);
@@ -100,9 +133,13 @@ inline size_t long_scratch(int BH, int S, int G, int num_blocks,
     x->hist = reinterpret_cast<int*>(base + hist);
     x->picks = reinterpret_cast<int*>(base + picks);
     x->mz = reinterpret_cast<float2*>(base + mz);
+    x->cand = shard ? reinterpret_cast<int2*>(base + cand) : nullptr;
+    x->opart = shard ? reinterpret_cast<float2*>(base + opart) : nullptr;
     x->Sp = Sp;
     x->ch = ch;
     x->nch = nch;
+    x->mode = kWhole;
+    x->offset = 0;
     x->hist_bytes = 4 * 256 * (size_t)BH * num_blocks;
   }
   return at;
@@ -506,10 +543,12 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   }
 
   // -- 2. the race, one selection block after another -----------------------
-  for (int blk = 0; blk < nb; ++blk)
-    cluster_select(cl, key, blk * bs, (blk + 1) * bs, kl,
-                   X.hist + ((size_t)row * nb + blk) * 256, hist, mhist, sel,
-                   scan, cnt, red, picks + (size_t)blk * kl);
+  const int mode = X.mode;
+  if (mode & kRace)
+    for (int blk = 0; blk < nb; ++blk)
+      cluster_select(cl, key, blk * bs, (blk + 1) * bs, kl,
+                     X.hist + ((size_t)row * nb + blk) * 256, hist, mhist,
+                     sel, scan, cnt, red, picks + (size_t)blk * kl);
   __threadfence();
   cl.sync();  // every CTA's winners are written
 
@@ -517,12 +556,17 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   //         staged cap at a time, online softmax across the chunks ----------
   const int p0 = (int)((long)K * rank / kCluster);
   const int p1 = (int)((long)K * (rank + 1) / kCluster);
+  if (mode & kCand)  // the candidates of a global race: key, global slot
+    for (int j = p0 + tid; j < p1; j += kThreads) {
+      const int p = __ldcg(picks + j);
+      X.cand[(size_t)row * K + j] = make_int2((int)key[p], p + X.offset);
+    }
   const bool bulk_k = granule(d * (int)sizeof(KV)) == 16;
   const bool bulk_v = granule(dv * (int)sizeof(KV)) == 16;
   const KV* k_row = static_cast<const KV*>(P.k) + rs * d;
   const KV* v_row = static_cast<const KV*>(P.v) + rs * dv;
   int uses = 0;
-  for (int c0 = p0; c0 < p1; c0 += L.cap) {
+  for (int c0 = (mode & kAttend) ? p0 : p1; c0 < p1; c0 += L.cap) {
     const int n = min(L.cap, p1 - c0);
     __syncthreads();  // the previous chunk's rows and winners are read
     if (warp == 0) {
@@ -587,7 +631,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 
   // each g's (max, sum of exp) over the row, from the score kernel's
   // chunks, for the probs kernel
-  if (rank == 0) {
+  if (rank == 0 && (mode & kMz)) {
     const float2* cp = X.part + (size_t)row * X.nch * G;
     for (int g = warp; g < G; g += kWarps) {
       float mx = -INFINITY;
@@ -605,8 +649,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   }
   cl.sync();  // every CTA's attention partials are in its shared memory
 
-  // -- the cluster's partials, merged in rank order by rank 0 ---------------
-  if (rank == 0) {
+  // -- the cluster's partials, merged in rank order by rank 0; with
+  //    kPartial they are written as they are (max, den and Σ p·v) --------
+  if (rank == 0 && (mode & kAttend)) {
     float* out_row = P.out + (size_t)row * G * dv;
     for (int x = tid; x < G * dv; x += kThreads) {
       const int g = x / dv;
@@ -622,7 +667,12 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
           num += cl.map_shared_rank(acc, r)[x] * w;
           den += cl.map_shared_rank(lg, r)[g] * w;
         }
-      out_row[x] = mx > -INFINITY ? num / den : 0.f;
+      if (mode & kPartial) {
+        out_row[x] = num;
+        if (x == g * dv) X.opart[(size_t)row * G + g] = make_float2(mx, den);
+      } else {
+        out_row[x] = mx > -INFINITY ? num / den : 0.f;
+      }
     }
   }
 
@@ -692,6 +742,100 @@ struct LaunchLong {
     err = (int)cudaGetLastError();
     if (err != 0) return err;
     long_probs_kernel<<<dim3(x.nch, BH), kThreads, 0, stream>>>(p, x);
+    return (int)cudaGetLastError();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the sharded route's global race and its launches
+// ---------------------------------------------------------------------------
+
+// The global race of a sharded cache: one CTA a row takes the n·kc
+// candidates the ranks gathered (cand [n][BH][kc] (key, global slot), the
+// blocks in slot order, each block's candidates in select_topk's order, so
+// that equal keys lie in global slot order), selects the K largest keys,
+// ties to the lower position and so to the lower global slot, and writes
+// the row's picks as slots of this rank's block (global - X.offset: a
+// winner that another rank holds falls outside [0, S) and is not
+// attended here). The winner set is the unsharded race's.
+__host__ __device__ inline size_t merge_smem(int n, int kc) {
+  return 4 * (256 + 4 + 2 * (size_t)kWarps) + 4 * (size_t)n * kc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    shard_merge_kernel(const int2* __restrict__ cand, int n, int kc, int K,
+                       int BH, const Scratch X) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* hist = reinterpret_cast<int*>(smem);
+  int* sel = hist + 256;
+  int* scan = sel + 4;
+  uint32_t* keys = reinterpret_cast<uint32_t*>(scan + 2 * kWarps);
+  const int row = blockIdx.x, tid = threadIdx.x, m = n * kc;
+  for (int i = tid; i < m; i += kThreads) {
+    const int b = i / kc;
+    keys[i] = static_cast<uint32_t>(
+        cand[((size_t)b * BH + row) * kc + (i - b * kc)].x);
+  }
+  __syncthreads();
+  int* out = X.picks + (size_t)row * K;
+  select_topk(CtaGroup{scan}, keys, 0, m, K, hist, sel, out, false);
+  __syncthreads();
+  for (int i = tid; i < K; i += kThreads) {
+    const int pos = out[i], b = pos / kc;
+    out[i] = cand[((size_t)b * BH + row) * kc + (pos - b * kc)].y - X.offset;
+  }
+}
+
+// One stage of the sharded route on one rank's block (S slots from global
+// slot `offset`; Params.num_blocks is 1, select_k the launch's race size),
+// over a scratch carved for `scratch_k` picks a row:
+//   stage 0: zero the histograms, score, race kernel in `mode`;
+//   stage 1: shard_merge_kernel over `cand` ([n][BH][kc] gathered);
+//   stage 2: race kernel in `mode` (no score: picks written before);
+//   stage 3: the probs kernel (X.mz holds the row's global (max, sum)).
+// run() returns the CUDA error (0 on success); by_kind dispatches to it.
+template <int VEC, typename KV>
+struct LaunchShard {
+  static int run(const Params& p, int BH, void* scratch, int scratch_k,
+                 int stage, int mode, int offset, const void* cand, int n,
+                 int kc, cudaStream_t stream) {
+    if (p.G < 1 || p.G > kMaxG || p.num_blocks != 1)
+      return (int)cudaErrorInvalidValue;
+    Scratch x;
+    long_scratch(BH, p.S, p.G, 1, scratch_k,
+                 static_cast<unsigned char*>(scratch), &x, true);
+    x.mode = mode;
+    x.offset = offset;
+    int err = 0;
+    if (stage == 0) {
+      err = (int)cudaMemsetAsync(x.hist, 0, x.hist_bytes, stream);
+      if (err != 0) return err;
+      const size_t smem1 = score_layout(p.G, p.d).total;
+      err = allow_smem(long_score_kernel<VEC>, smem1);
+      if (err != 0) return err;
+      long_score_kernel<VEC><<<dim3(x.nch, BH), kThreads, smem1, stream>>>(
+          p, x);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+    if (stage == 0 || stage == 2) {
+      const size_t smem2 = race_layout(p.G, p.d, p.dv, (int)sizeof(KV)).total;
+      err = allow_smem(long_race_kernel<KV>, smem2);
+      if (err != 0) return err;
+      long_race_kernel<KV><<<dim3(kCluster, BH), kThreads, smem2, stream>>>(
+          p, x);
+    } else if (stage == 1) {
+      const size_t smem = merge_smem(n, kc);
+      if (kc < 1 || p.select_k > n * kc) return (int)cudaErrorInvalidValue;
+      err = allow_smem(shard_merge_kernel, smem);
+      if (err != 0) return err;
+      shard_merge_kernel<<<BH, kThreads, smem, stream>>>(
+          static_cast<const int2*>(cand), n, kc, p.select_k, BH, x);
+    } else if (stage == 3) {
+      long_probs_kernel<<<dim3(x.nch, BH), kThreads, 0, stream>>>(p, x);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
   }
 };

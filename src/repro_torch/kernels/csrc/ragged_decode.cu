@@ -38,7 +38,15 @@
 // shared memory fits, which is every served shape, and the long route of
 // decode_long.cuh (a score grid, then a cluster of CTAs a row racing and
 // attending over device-memory scratch) at any larger S, up to long_500k's
-// 524,288 slots. The wrapper picks by the row's layout.
+// 524,288 slots. The wrapper picks by the row's layout. On a cache whose
+// slots are split over ranks, the wrapper runs the long route's kernels
+// one stage a launch on the rank's block (LaunchShard): the global race's
+// candidates a rank, the ranks' candidates raced again for the global
+// winners (shard_merge_kernel), the attention's partials over the winners
+// the rank holds, and probs from the row's merged (max, sum). The blocked
+// race of one selection block a rank (fused_decode's, over as many ranks
+// as blocks) runs here too: every slot of the block scored, its race
+// final. The collectives between the launches are the wrapper's.
 
 #include "decode_common.cuh"
 #include "decode_long.cuh"
@@ -133,6 +141,62 @@ int ragged_decode_launch(int route, int kv_kind, const void* fills,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 0) return by_kind<Launch>(d, kv_kind, p, BH, st);
   return by_kind<LaunchLong>(d, kv_kind, p, BH, scratch, st);
+}
+
+// The sharded route's device scratch for one call over a block of S slots
+// with select_k picks a row, in bytes; offs[0..3] take the byte offsets of
+// its candidates ([BH][select_k] int2), the rows' (max, sum of exp)
+// ([BH][G] float2, global once the wrapper has merged them), the
+// attention partials' (max, den) ([BH][G] float2) and the picks
+// ([BH][select_k] int, slots of the block).
+size_t ragged_decode_shard_scratch_bytes(int BH, int S, int G, int select_k,
+                                         size_t* offs) {
+  return long_scratch(BH, S, G, 1, select_k, nullptr, nullptr, true, offs);
+}
+
+// One stage of the sharded route (decode_long.cuh, LaunchShard) on this
+// rank's block of S slots from global slot `offset`: `fills` holds the
+// block's own live counts (rounded up to `block_s`), or is null to score
+// every slot (the blocked race, block_s = S); select_k is the stage's
+// race size, scratch_k the picks the scratch was carved for; `cand`
+// ([n][BH][kc] int2) only for stage 1. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); never synchronises.
+int ragged_decode_shard_launch(int stage, int mode, int kv_kind,
+                               const void* fills, const void* q, const void* qq,
+                               const void* qscale, const void* mirror,
+                               const void* mscale, const void* kscale,
+                               const void* vscale, const void* valid,
+                               const void* prot, const void* k, const void* v,
+                               void* out, void* probs, void* scratch, int BH,
+                               int S, int G, int d, int dv, int select_k,
+                               int scratch_k, int block_s, float scale,
+                               int offset, const void* cand, int n, int kc,
+                               void* stream) {
+  const Params p{static_cast<const int*>(fills),
+                 static_cast<const float*>(q),
+                 static_cast<const int8_t*>(qq),
+                 static_cast<const float*>(qscale),
+                 static_cast<const int8_t*>(mirror),
+                 static_cast<const float*>(mscale),
+                 static_cast<const float*>(kscale),
+                 static_cast<const float*>(vscale),
+                 static_cast<const int8_t*>(valid),
+                 static_cast<const int8_t*>(prot),
+                 k,
+                 v,
+                 static_cast<float*>(out),
+                 static_cast<float*>(probs),
+                 S,
+                 G,
+                 d,
+                 dv,
+                 select_k,
+                 1,
+                 block_s,
+                 scale};
+  return by_kind<LaunchShard>(d, kv_kind, p, BH, scratch, scratch_k, stage,
+                              mode, offset, cand, n, kc,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,8 +13,15 @@ select_k / num_blocks winners. Two routes, picked as in
 layout fits, the long route (whose race cluster takes the selection
 blocks one after another) at any larger S.
 
+On a cache whose slots are split over as many ranks as there are
+selection blocks, the blocked race runs on each rank's block as one
+block: `ragged_decode.ShardStages` (ragged_decode's library, every slot
+of the block scored), driven by `kernels/ops.sharded_decode`, whose
+collectives merge the ranks' partials.
+
 `LAUNCHES["fused_decode"]` counts the single-CTA route's launches,
-`LAUNCHES["fused_decode_long"]` the long route's.
+`LAUNCHES["fused_decode_long"]` the long route's and
+`LAUNCHES["fused_decode_shard"]` the sharded route's (one a call).
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ragged_decode import (KV_KIND, decode_spec,
                                                  long_route)
 
-LAUNCHES = {"fused_decode": 0, "fused_decode_long": 0}
+LAUNCHES = {"fused_decode": 0, "fused_decode_long": 0,
+            "fused_decode_shard": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _Z = ctypes.c_size_t

@@ -18,10 +18,13 @@ from repro_torch.kernels.flash_prefill import (
     LATENT, check_latent_v, flash_prefill as _flash_kernel)
 from repro_torch.kernels.flash_prefill_bwd import (
     flash_prefill_bwd as _flash_bwd_kernel)
+from repro_torch.kernels import fused_decode as fused_mod
+from repro_torch.kernels import ragged_decode as ragged_mod
 from repro_torch.kernels.fused_decode import fused_decode as _fused_kernel
 from repro_torch.kernels.gather_attention import (
     gather_attention as _gather_kernel)
 from repro_torch.kernels.ragged_decode import ragged_decode
+from repro_torch.runtime import sharding
 
 
 def _on_card(x: torch.Tensor, kernel: str) -> bool:
@@ -91,6 +94,63 @@ def fused_decode(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
                                           select_k=select_k,
                                           num_blocks=num_blocks)
     return out, probs[:, :s]
+
+
+def sharded_decode(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
+                   prot, k, v, *, select_k: int, num_blocks: int, shard,
+                   fills=None):
+    """The fused decode on this rank's block of a cache whose slots are
+    split over `shard.group` (a `core.cache.SlotShard`; the inputs are the
+    block's, shapes as `fused_decode`'s over its S slots) → (out [BH,G,dv]
+    f32: the whole row's attention, probs [BH,S] f32: the block's slots of
+    the row's probabilities).
+
+    `num_blocks` 1 is the global race: each rank's top select_k candidates
+    (key, global slot), one all-gather, the same race over the gathered
+    candidates (ties to the lower global slot), so the winner set is the
+    unsharded race's; then the attention's partials over the winners the
+    block holds. `num_blocks` equal to the slot ranks is the blocked race
+    of one block a rank, final on its block. Then the rows' softmax
+    statistics for probs and the attention's partials are merged over the
+    ranks (`sharding.merge_shards`: two all-reduces and a few elementwise
+    ops between the kernels, plain PyTorch on the card too: the
+    flash-decode combine's epilogue). On the card the stages are the decode
+    kernels' sharded route (`ragged_decode.ShardStages`, counted as
+    `ragged_decode_shard` for the global race and `fused_decode_shard`
+    for the blocked one), on the CPU their plain versions
+    (`ref.ShardStagesRef`). `fills` ([BH] int32, the whole cache's) skips
+    the block's dead slots on the global race."""
+    s = mirror.shape[1]
+    n = shard.total // s
+    if num_blocks not in (1, n) or select_k % num_blocks:
+        raise ValueError(f"sharded decode over {n} slot blocks: num_blocks "
+                         f"{num_blocks} must be 1 or {n} and divide "
+                         f"select_k={select_k}")
+    ins = (q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot, k, v)
+    name = "ragged_decode" if num_blocks == 1 else "fused_decode"
+    if _on_card(q, name):
+        mod = ragged_mod if num_blocks == 1 else fused_mod
+        st = ragged_mod.ShardStages(
+            name, mod.LAUNCHES, fills if num_blocks == 1 else None, *ins,
+            select_k=select_k, offset=shard.offset)
+    else:
+        st = ref.ShardStagesRef(*ins, offset=shard.offset)
+    return shard_route(st, shard, select_k, num_blocks)
+
+
+def shard_route(st, shard, select_k: int, num_blocks: int):
+    """`sharded_decode`'s stages `st` (the kernels' `ragged_decode.
+    ShardStages` or the plain `ref.ShardStagesRef`) with the collectives
+    over `shard.group` between them → (out, probs)."""
+    if num_blocks == 1:
+        st.race(select_k, final=False)
+        st.merge(sharding.gather_blocks(st.candidates(), shard), select_k)
+        st.attend()
+    else:
+        st.race(select_k // (shard.total // st.slots), final=True)
+    mz, out = sharding.merge_shards(st.mz(), *st.partials(), shard.group)
+    st.set_mz(mz)
+    return out, st.probs()
 
 
 def flash_prefill(q, k, v, group: int = 1, lengths=None):

@@ -30,8 +30,16 @@ cluster of CTAs a row that races and attends over a device scratch the
 wrapper allocates for the call. Both are hand-written kernels; neither
 falls back to the other or to the plain version.
 
+On a cache whose slots are split over ranks, `ShardStages` runs the long
+route's kernels on this rank's block one stage a launch, and
+`kernels/ops.sharded_decode` runs the collectives between them: the global
+race (select_blocks 1) and the blocked race of one block a rank (the
+one `kernels/fused_decode.py` runs whole), both on this source's
+library.
+
 `LAUNCHES["ragged_decode"]` counts the single-CTA route's launches,
-`LAUNCHES["ragged_decode_long"]` the long route's.
+`LAUNCHES["ragged_decode_long"]` the long route's and
+`LAUNCHES["ragged_decode_shard"]` the sharded route's (one a call).
 """
 from __future__ import annotations
 
@@ -42,7 +50,8 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"ragged_decode": 0, "ragged_decode_long": 0}
+LAUNCHES = {"ragged_decode": 0, "ragged_decode_long": 0,
+            "ragged_decode_shard": 0}
 BLOCK_S = 64                 # slots per live block (the skip granularity)
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_GROUPS = 16              # query rows per kv-head (kMaxG in the source)
@@ -158,3 +167,129 @@ def ragged_decode(fills, q, qq, qscale, mirror, mscale, kscale, vscale,
     build.check_launch("ragged_decode", rc)
     LAUNCHES["ragged_decode_long" if long else "ragged_decode"] += 1
     return out, probs
+
+
+# the race kernel's stages (csrc/decode_long.cuh, Scratch::mode)
+RACE, CAND, ATTEND, PARTIAL, MZ = 1, 2, 4, 8, 16
+
+
+def _bind_shard(lib):
+    fn = lib.ragged_decode_shard_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_I] * 3 + [_P] * 15 + [_I] * 8
+                       + [ctypes.c_float, _I, _P, _I, _I, _P])
+        fn.restype = _I
+        nb = lib.ragged_decode_shard_scratch_bytes
+        nb.argtypes = [_I] * 4 + [_P]
+        nb.restype = _Z
+    return fn, lib.ragged_decode_shard_scratch_bytes
+
+
+class ShardStages:
+    """The sharded route's kernels on this rank's block of a cache whose
+    slots are split over ranks (csrc/decode_long.cuh, `LaunchShard`), one
+    stage a launch on the current stream, over one device scratch: `race`
+    (score, then the race kernel: the global race's candidates, or the
+    blocked race's final winners and their partials), `merge` (the ranks'
+    gathered candidates raced again by `shard_merge_kernel`), `attend`
+    (the partials over the winners the block holds), `probs` (with the
+    row's merged (max, sum) that `set_mz` writes). The interface is
+    `ref.ShardStagesRef`'s, which `ops.sharded_decode` drives; the
+    collectives between the stages are its. Inputs as `ragged_decode`'s
+    for the block (`fills`: the row's whole-cache fill, or None to score
+    every slot, as the blocked race does), checked by `decode_spec`; both
+    races launch this source's library, and `name` ("ragged_decode", or
+    "fused_decode" for the blocked race) picks the count in `counter`
+    that `race` adds to. Raises where a launch fails; nothing falls
+    back."""
+
+    def __init__(self, name, counter, fills, q, qq, qscale, mirror, mscale,
+                 kscale, vscale, valid, prot, k, v, *, select_k: int,
+                 offset: int):
+        s = mirror.shape[1]
+        q, ins, (bh, s, g, d, dv) = decode_spec(
+            q, qq, qscale, mirror, mscale, kscale, vscale, valid, prot, k,
+            v, min(select_k, s), name)
+        dev = q.device
+        self.name, self.counter, self.dims = name, counter, (bh, s, g, d, dv)
+        self.ins, self.offset, self.select_k = ins, offset, select_k
+        self.slots = s
+        self.kv = KV_KIND[k.dtype]
+        self.fills = None
+        if fills is not None:
+            build.check_tensors(name, {"fills": (fills, (bh,), torch.int32)},
+                                dev)
+            self.fills = (fills - offset).clamp(0, s).to(torch.int32)
+        self.fn, nbytes = _bind_shard(build.load("ragged_decode"))
+        offs = (ctypes.c_size_t * 4)()
+        self.scratch = torch.empty(nbytes(bh, s, g, select_k, offs),
+                                   dtype=torch.uint8, device=dev)
+
+        def view(at, dtype, shape):
+            n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+            return self.scratch[at:at + n].view(dtype).view(shape)
+        self._cand = view(offs[0], torch.int32, (bh, select_k, 2))
+        self._mz = view(offs[1], torch.float32, (bh, g, 2))
+        self._opart = view(offs[2], torch.float32, (bh, g, 2))
+        self._picks = view(offs[3], torch.int32, (bh, select_k))
+        self.out = torch.empty((bh, g, dv), dtype=torch.float32, device=dev)
+        self._probs = torch.empty((bh, s), dtype=torch.float32, device=dev)
+        self.kc = min(select_k, s)
+
+    def _launch(self, stage: int, mode: int, k: int, cand=None,
+                n: int = 0) -> None:
+        bh, s, g, d, dv = self.dims
+        dev = self.out.device
+        fills, block_s = ((None, s) if self.fills is None
+                          else (self.fills.data_ptr(), BLOCK_S))
+        with torch.cuda.device(dev):
+            rc = self.fn(
+                stage, mode, self.kv, fills,
+                *(t.data_ptr() for t in self.ins), self.out.data_ptr(),
+                self._probs.data_ptr(), self.scratch.data_ptr(), bh, s, g, d,
+                dv, k, self.select_k, block_s,
+                ctypes.c_float(1.0 / math.sqrt(d)), self.offset,
+                None if cand is None else cand.data_ptr(), n, self.kc,
+                torch.cuda.current_stream(dev).cuda_stream)
+        build.check_launch(self.name, rc)
+
+    def race(self, k: int, final: bool) -> None:
+        self.counter[f"{self.name}_shard"] += 1
+        if final:
+            self._launch(0, RACE | ATTEND | PARTIAL | MZ, k)
+        else:
+            self.kc = min(k, self.dims[1])
+            self._launch(0, RACE | CAND | MZ, self.kc)
+
+    def candidates(self):
+        return self._cand.view(-1)[:self.dims[0] * self.kc * 2].view(
+            self.dims[0], self.kc, 2)
+
+    def merge(self, gathered, k: int) -> None:
+        n = gathered.shape[0]
+        if 4 * n * self.kc > build.smem_limit(self.out.device) - 2048:
+            raise ValueError(f"{self.name}: {n} x {self.kc} candidates "
+                             "exceed the merge kernel's shared memory")
+        self._gathered = gathered.contiguous()
+        self._launch(1, 0, k, cand=self._gathered, n=n)
+
+    def attend(self) -> None:
+        self._launch(2, ATTEND | PARTIAL, self.select_k)
+
+    def mz(self):
+        return self._mz
+
+    def set_mz(self, mz) -> None:
+        self._mz.copy_(mz)
+
+    def winners(self):
+        """The global race's winners [BH, select_k], global slots (after
+        `merge`)."""
+        return self._picks.long() + self.offset
+
+    def probs(self):
+        self._launch(3, 0, self.select_k)
+        return self._probs
+
+    def partials(self):
+        return self.out, self._opart[..., 0], self._opart[..., 1]

@@ -11,6 +11,8 @@ import math
 import torch
 
 from repro_torch.core.quant import unpack_int4
+from repro_torch.core.topk import (block_candidates, exact_topk,
+                                   merge_candidates)
 
 NEG_INF = -1e30
 PROT_WIN = 1e30
@@ -48,6 +50,23 @@ def gather_attention_ref(q, k, v, valid):
     return torch.matmul(torch.softmax(s, dim=-1), v.float())
 
 
+def race_keys(qq, qscale, mirror, mscale, valid, prot):
+    """The decode kernels' CAM scores and selection values (shapes as in
+    `fused_decode_ref`) → (raw [BH,G,S] f32 scores, NEG_INF at invalid
+    slots; keys [BH,S]: the G rows' scores summed in row order, as the
+    kernels add them, PROT_WIN at protected slots)."""
+    g = qq.shape[1]
+    # the integer contraction is exact in f32 (see core/scoring.py)
+    raw = torch.matmul(qq.float(), mirror.float().transpose(1, 2))
+    raw = raw * qscale.float()[..., None] * mscale.float()[:, None, :]
+    raw = torch.where(valid[:, None, :] != 0, raw,
+                      torch.full_like(raw, NEG_INF))            # [BH,G,S]
+    ssel = raw[:, 0]
+    for gi in range(1, g):
+        ssel = ssel + raw[:, gi]
+    return raw, torch.where(prot != 0, torch.full_like(ssel, PROT_WIN), ssel)
+
+
 def decode_race(qq, qscale, mirror, mscale, valid, prot, *, select_k: int,
                 num_blocks: int = 1):
     """The fused decode's CAM race (shapes as in `fused_decode_ref`) →
@@ -59,20 +78,11 @@ def decode_race(qq, qscale, mirror, mscale, valid, prot, *, select_k: int,
     protected slots win), and races each of the `num_blocks` equal slot
     blocks for select_k / num_blocks winners, ties to the lower slot."""
     bh, s = valid.shape
-    g = qq.shape[1]
     nb = num_blocks
     assert s % nb == 0 and select_k % nb == 0, (s, select_k, nb)
     k_loc, bs = select_k // nb, s // nb
     assert k_loc <= bs, (k_loc, bs)
-    # the integer contraction is exact in f32 (see core/scoring.py)
-    raw = torch.matmul(qq.float(), mirror.float().transpose(1, 2))
-    raw = raw * qscale.float()[..., None] * mscale.float()[:, None, :]
-    raw = torch.where(valid[:, None, :] != 0, raw,
-                      torch.full_like(raw, NEG_INF))            # [BH,G,S]
-    ssel = raw[:, 0]
-    for gi in range(1, g):
-        ssel = ssel + raw[:, gi]
-    ssel = torch.where(prot != 0, torch.full_like(ssel, PROT_WIN), ssel)
+    raw, ssel = race_keys(qq, qscale, mirror, mscale, valid, prot)
     _, idx = torch.sort(ssel.reshape(bh, nb, bs), dim=-1, descending=True,
                         stable=True)
     idx = (idx[..., :k_loc] + torch.arange(0, s, bs, device=idx.device)[
@@ -122,6 +132,116 @@ def fused_decode_ref(q, qq, qscale, mirror, mscale, kscale, vscale, valid,
     zg = torch.clamp(eg.sum(dim=-1, keepdim=True), min=1e-30)
     probs = (eg / zg).sum(dim=1)                                # [BH,S]
     return out, probs
+
+
+# ---------------------------------------------------------------------------
+# The decode kernels' sharded route, stage by stage, on one rank's block of
+# a cache whose slots are split over ranks: the plain versions of the
+# kernels' stages (csrc/decode_long.cuh, LaunchShard). `kernels/ops.
+# sharded_decode` runs them with the collectives between them.
+# ---------------------------------------------------------------------------
+
+
+def shard_score_ref(qq, qscale, mirror, mscale, valid, prot, scale: float):
+    """Stage a, the score kernel on a block → (raw, keys) as `race_keys`
+    and mz [BH,G,2]: each g's (max of raw·scale, Σ exp(raw·scale - max))
+    over the block's valid slots (-inf and 0 where it has none)."""
+    raw, keys = race_keys(qq, qscale, mirror, mscale, valid, prot)
+    lg = raw * scale
+    live = raw > NEG_INF / 2
+    m = torch.where(live, lg, torch.full_like(lg, -math.inf)).amax(dim=-1)
+    e = torch.where(live, torch.exp(lg - m[..., None]), torch.zeros_like(lg))
+    return raw, keys, torch.stack([m, e.sum(dim=-1)], dim=-1)
+
+
+def shard_attend_ref(q, k, v, kscale, vscale, valid, picks, scale: float):
+    """Stage c, the race kernel's winner stage writing partials: attention
+    over the valid winners this block holds, picks [BH,K] slots of the
+    block (those outside [0, S) are another rank's) → (num [BH,G,dv] =
+    Σ exp(l - mx)·v, mx [BH,G] (-inf where it holds none), den [BH,G] =
+    Σ exp(l - mx)), logits l = q·(k·kscale)·scale over the valid winners."""
+    s = valid.shape[1]
+    mine = (picks >= 0) & (picks < s)
+    idx = picks.clamp(0, s - 1)
+
+    def rows(x, sc):
+        y = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+        return y.float() * torch.gather(sc.float(), 1, idx)[..., None]
+
+    k_sel, v_sel = rows(k, kscale), rows(v, vscale)
+    ok = mine & (torch.gather(valid, 1, idx) != 0)              # [BH,K]
+    logits = torch.matmul(q.float(), k_sel.transpose(1, 2)) * scale
+    logits = torch.where(ok[:, None, :], logits,
+                         torch.full_like(logits, -math.inf))
+    mx = logits.amax(dim=-1)
+    e = torch.where(ok[:, None, :], torch.exp(logits - mx[..., None]),
+                    torch.zeros_like(logits))
+    return torch.matmul(e, v_sel), mx, e.sum(dim=-1)
+
+
+def shard_probs_ref(raw, mz, scale: float):
+    """Stage d, the probs kernel with the row's merged mz [BH,G,2]:
+    probs[s] = Σ_g exp(raw·scale - M_g) / Z_g, exactly 0 at invalid
+    slots."""
+    live = raw > NEG_INF / 2
+    e = torch.where(live, torch.exp(raw * scale - mz[..., 0:1]),
+                    torch.zeros_like(raw))
+    return (e / torch.clamp(mz[..., 1:2], min=1e-30)).sum(dim=1)
+
+
+class ShardStagesRef:
+    """The plain stages of the sharded route on one rank's block (the CPU's;
+    `kernels/ragged_decode.ShardStages` holds the kernels'), with the
+    interface `ops.sharded_decode` drives: `race` (score, then the block's
+    race: the global race's candidates, or the blocked race's final
+    winners and their partials), `candidates` / `merge` (the global race's
+    gathered candidates raced again), `attend`, `mz` / `set_mz`, `probs`
+    and `partials`. Inputs as `fused_decode_ref`'s, for the block."""
+
+    def __init__(self, q, qq, qscale, mirror, mscale, kscale, vscale, valid,
+                 prot, k, v, offset: int):
+        self.q, self.k, self.v = q, k, v
+        self.kscale, self.vscale, self.valid = kscale, vscale, valid
+        self.offset, self.slots = offset, valid.shape[1]
+        self.scale = 1.0 / math.sqrt(q.shape[-1])
+        self.raw, self.keys, self._mz = shard_score_ref(
+            qq, qscale, mirror, mscale, valid, prot, self.scale)
+        self.picks = self.cand = self._part = None
+
+    def race(self, k: int, final: bool) -> None:
+        """The block's top k keys: the final winners (`final`, then their
+        partials), or the global race's candidates."""
+        if final:
+            _, self.picks = exact_topk(self.keys, k)
+            self.attend()
+        else:
+            self.cand = block_candidates(self.keys, k, self.offset)
+
+    def candidates(self):
+        return self.cand
+
+    def merge(self, gathered, k: int) -> None:
+        self.picks = merge_candidates(gathered, k) - self.offset
+
+    def attend(self) -> None:
+        self._part = shard_attend_ref(self.q, self.k, self.v, self.kscale,
+                                      self.vscale, self.valid, self.picks,
+                                      self.scale)
+
+    def mz(self):
+        return self._mz
+
+    def set_mz(self, mz) -> None:
+        self._mz = mz
+
+    def winners(self):
+        return self.picks + self.offset
+
+    def probs(self):
+        return shard_probs_ref(self.raw, self._mz, self.scale)
+
+    def partials(self):
+        return self._part
 
 
 def flash_prefill_ref(q, k, v, group: int = 1, lengths=None):

@@ -17,13 +17,18 @@ from repro_torch.core.cache import KVCache
 from repro_torch.core.pruning import prefill_and_prune
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
+from repro_torch.runtime import sharding
 
 
-def _qkv(p, x: torch.Tensor):
+def _qkv(p, x: torch.Tensor, cols=(slice(None),) * 3):
     """The three projections of x, each with its bias where the config has
-    one (`qkv_bias`: bq, bk, bv, added before RoPE)."""
-    return tuple(x @ p[w] + p[b] if b in p else x @ p[w]
-                 for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    one (`qkv_bias`: bq, bk, bv, added before RoPE). `cols`: the columns
+    of wq, wk and wv (and their biases) to project, as slices (views of
+    the weights: a rank's heads)."""
+    return tuple(x @ p[w][..., c] + p[b][..., c] if b in p
+                 else x @ p[w][..., c]
+                 for (w, b), c in zip((("wq", "bq"), ("wk", "bk"),
+                                       ("wv", "bv")), cols))
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
@@ -99,12 +104,19 @@ def attention_prefill_chunk(p, x: torch.Tensor, cfg: ModelConfig, positions,
 
 def decode_qkv(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache):
     """Decode projections: x [B,d] → q [B,Hq,dh], k/v [B,Hk,dh], rotated
-    at each lane's position `cache.step`."""
+    at each lane's position `cache.step`. On a block of kv-heads
+    (`cache.heads`) the projections of its heads only: Hk the block's,
+    Hq its G-fold."""
     b, _ = x.shape
-    q, k, v = _qkv(p, x)
-    q = q.reshape(b, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, cfg.n_kv_heads, cfg.head_dim)
+    hk, dh = cache.k.shape[1], cfg.head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
+    h0 = 0 if cache.heads is None else cache.heads.offset
+    cols = (slice(h0 * g * dh, (h0 + hk) * g * dh),
+            slice(h0 * dh, (h0 + hk) * dh), slice(h0 * dh, (h0 + hk) * dh))
+    q, k, v = _qkv(p, x, cols)
+    q = q.reshape(b, hk * g, dh)
+    k = k.reshape(b, hk, dh)
+    v = v.reshape(b, hk, dh)
     if cfg.pos == "rope":
         pos = cache.step[:, None]                           # [B,1]
         q = rope(q, pos, cfg.rope_theta)
@@ -116,10 +128,15 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                      prune: PruneConfig,
                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step, writing `cache` (views of one layer of the stacked
-    cache) in place. x: [B,d] → y [B,d]."""
+    cache) in place. x: [B,d] → y [B,d]. On a block of kv-heads
+    (`cache.heads`) the rank attends with its heads and all-gathers the
+    outputs over the head ranks before `wo`, so y is the whole step's."""
+    b = x.shape[0]
     q, k, v = decode_qkv(p, x, cfg, cache)
-    out = decode_attention(cache, q, k, v, prune, active)
-    return out.reshape(x.shape[0], cfg.q_dim).to(x.dtype) @ p["wo"]
+    out = decode_attention(cache, q, k, v, prune, active).reshape(b, -1)
+    if cache.heads is not None:
+        out = sharding.gather_blocks(out, cache.heads).transpose(0, 1)
+    return out.reshape(b, cfg.q_dim).to(x.dtype) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig, PruneConfig
+from repro_torch.core import attention
 from repro_torch.core import cache as kvcache
 from repro_torch.core.cache import KVCache, init_cache
 from repro_torch.device import resolve_device
@@ -174,9 +175,10 @@ def lanes_insert(state: DecodeState, src, fresh: DecodeState) -> DecodeState:
 
 def _store_layer(state: DecodeState, li: int, filled: KVCache) -> None:
     """Copy a filled one-layer cache into layer `li` of the stacked state."""
-    for name, dst in vars(state.kv.layer(li)).items():
-        if dst is not None:
-            dst.copy_(getattr(filled, name))
+    dst = state.kv.layer(li)
+    for name in kvcache.FIELDS:
+        if getattr(dst, name) is not None:
+            getattr(dst, name).copy_(getattr(filled, name))
 
 
 def layer_params(params_seg, li: int):
@@ -462,6 +464,64 @@ class Model:
 
     # -- shared pieces ------------------------------------------------------
 
+    def _mesh_layout(self, batch_size: int):
+        """This rank's `Layout` of the decode state under the active process
+        mesh (`core.attention.state_layout`, the reference's
+        `decode_state_pspecs`); None without one or where nothing splits.
+        Refuses the families the layout does not take yet, before any
+        work."""
+        mesh = sharding.active_process_mesh()
+        if mesh is None:
+            return None
+        cfg = self.cfg
+        n_attn = self.attn_layer_count()
+        layout = None if not n_attn else attention.state_layout(
+            mesh, (n_attn, batch_size, cfg.n_kv_heads if cfg.mla is None
+                   else 1, self.prune.slots, cfg.head_dim))
+        if layout is not None or not n_attn:
+            attention.check_layout_family(
+                cfg.mla is not None, cfg.family in ("ssm", "hybrid"),
+                cfg.family == "encdec")
+        return layout
+
+    def _laid_out_state(self, batch_size: int, layout) -> DecodeState:
+        """An empty state of this rank's block under `layout`."""
+        cfg = self.cfg
+        blocks = [batch_size, cfg.n_kv_heads, self.prune.slots]
+        for i, blk in enumerate(layout):
+            if blk is not None:
+                blocks[i] //= sharding.group_size(blk.group)
+        kv = init_cache(blocks[0], blocks[1], cfg.head_dim, blocks[2],
+                        self.prune, self.dtype, device=self.device,
+                        layers=self.attn_layer_count())
+        kv.rows, kv.heads, kv.shard = layout
+        return DecodeState(kv=kv)
+
+    def _prompt_state(self, b: int, cross_len: int = 0):
+        """(the state a prompt pass fills, the one-layer cache each layer's
+        static pruning fills first): a whole state (and None), filled
+        through views of its layers; or, under an active process mesh that
+        lays it out, this rank's block and ONE whole layer's empty cache,
+        each filled layer cut to the block (`_store_prompt_layer`)."""
+        layout = self._mesh_layout(b)
+        if layout is None:
+            return self.init_decode_state(b, cross_len=cross_len), None
+        whole = init_cache(b, self.cfg.n_kv_heads, self.cfg.head_dim,
+                           self.prune.slots, self.prune, self.dtype,
+                           device=self.device)
+        return self._laid_out_state(b, layout), whole
+
+    @staticmethod
+    def _store_prompt_layer(state: DecodeState, li: int, filled: KVCache,
+                            whole: Optional[KVCache]) -> None:
+        """Store a layer's filled cache, cut to the state's block when the
+        prompt pass filled a `whole` one."""
+        if whole is not None:
+            kv = state.kv
+            filled = attention.cut_cache(filled, (kv.rows, kv.heads,
+                                                  kv.shard))
+        _store_layer(state, li, filled)
+
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """The final norm and the head, in f32."""
         x = L.apply_norm(params["final_norm"], x, self.cfg.norm)
@@ -554,7 +614,14 @@ class Model:
         F rows sit in front of the tokens and are always valid, so the
         cache holds F + length positions. An enc-dec model takes
         `batch["enc_embed"]` ([B, S, d]) for its encoder, refuses a
-        `length`, and its state carries the cross K/V."""
+        `length`, and its state carries the cross K/V.
+
+        Under an active process mesh whose `decode_state_pspecs` split the
+        state (`core.attention.state_layout`), every rank computes the
+        whole prompt pass and keeps its block of each layer's cache, cut
+        right after the layer's static pruning: the returned state is the
+        rank's block (`decode_step` gathers its outputs), the logits the
+        whole batch's."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         length = batch.get("length")
@@ -579,7 +646,7 @@ class Model:
         eff_len = None if length is None else length + n_front
         pos = torch.arange(x.shape[1], device=self.device)[None]
         x = self._add_positions(x, pos)
-        state = self.init_decode_state(b, cross_len=cross_len)
+        state, whole = self._prompt_state(b, cross_len)
         if cross_len:
             self._encode(params, batch, state.cross)
         for kind, p, li, si in self._blocks(params):
@@ -591,8 +658,9 @@ class Model:
             attend = mla_prefill if kind.startswith("mla") \
                 else attention_prefill
             a, filled = attend(p["attn"], h, cfg, pos, self.prune,
-                               state.kv.layer(li), length=eff_len)
-            _store_layer(state, li, filled)
+                               state.kv.layer(li) if whole is None else whole,
+                               length=eff_len)
+            self._store_prompt_layer(state, li, filled, whole)
             x = x + a
             if kind == "encdec_dec":
                 x = x + self._cross_attend(p, x, state.cross, li)
@@ -705,15 +773,18 @@ class Model:
         """Finish a chunked prefill: the one-shot static pruning over the
         streamed buffers, and the logits at position length-1. x_last: the
         final chunk's hidden [B, C, d] (it holds that position); row0: its
-        absolute offset. Returns (logits [B, V], DecodeState)."""
+        absolute offset. Returns (logits [B, V], DecodeState): under an
+        active process mesh that lays the state out, this rank's block of
+        it (as `prefill`'s)."""
         length = torch.as_tensor(length, dtype=torch.int32,
                                  device=self.device)
         b = x_last.shape[0]
-        state = self.init_decode_state(b)
+        state, whole = self._prompt_state(b)
         for li in range(self.attn_layer_count()):
-            _store_layer(state, li, kvcache.prefill_fill(
-                state.kv.layer(li), pstate.k[li], pstate.v[li],
-                pstate.acc[li], self.prune, length=length))
+            self._store_prompt_layer(state, li, kvcache.prefill_fill(
+                state.kv.layer(li) if whole is None else whole,
+                pstate.k[li], pstate.v[li], pstate.acc[li], self.prune,
+                length=length), whole)
         x_sel = x_last[torch.arange(b, device=self.device),
                        length.long() - 1 - int(row0)]
         return self._logits(params, x_sel), state
@@ -728,9 +799,23 @@ class Model:
         `active` ([B] bool, optional) freezes the other lanes' cache rows
         and SSM state (finished lanes of a serving block). A sinusoidal
         config adds the table at each lane's position, layer 0's
-        `kv.step`."""
+        `kv.step`.
+
+        On a state laid out over a process mesh (`prefill` under one, or
+        `core.attention.shard_decode_state`), token and `active` stay the
+        whole batch's: the rank computes its batch rows (`kv.rows`) with
+        its kv-heads (`kv.heads`, the attention outputs gathered over the
+        head ranks) and its slots (`kv.shard`, the race shared over the
+        slot ranks), and the logits are all-gathered over the batch
+        ranks. Weights stay whole on every rank."""
         cfg = self.cfg
         token = torch.as_tensor(token, device=self.device)
+        rows = None if state.kv is None else state.kv.rows
+        if rows is not None:
+            b = state.kv.fill.shape[1]
+            token = token[rows.offset:rows.offset + b]
+            if active is not None:
+                active = active[rows.offset:rows.offset + b]
         x = self._embed(params, token)
         if state.kv is not None:
             x = self._add_positions(x, state.kv.step[0])
@@ -749,7 +834,11 @@ class Model:
             if kind == "encdec_dec":
                 x = x + self._cross_attend(p, x, state.cross, li)
             x = x + self._ffn(p, L.apply_norm(p["ln2"], x, cfg.norm))
-        return self._logits(params, x), state
+        logits = self._logits(params, x)
+        if rows is not None:
+            logits = sharding.gather_blocks(logits, rows).reshape(
+                -1, logits.shape[-1])
+        return logits, state
 
     # -- train ----------------------------------------------------------------
 

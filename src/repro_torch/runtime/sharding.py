@@ -119,6 +119,22 @@ class ProcessMesh:
             self._groups[axes] = mine
         return self._groups[axes]
 
+    def block_order(self, axes) -> Optional[Tuple[int, ...]]:
+        """The block index along `axes` (their combined coordinate, the
+        first axis major) of each rank of `group(axes)` in the group's rank
+        order, which is the global ranks' order; None where the two agree.
+        A group made of axes out of the mesh's order ranks its blocks
+        otherwise."""
+        axes = self._axes(axes)
+        dims = [self.names.index(a) for a in axes]
+        rest = [i for i in range(len(self.names)) if i not in dims]
+        rows = self.device_mesh.mesh.permute(rest + dims).reshape(
+            -1, self.size(axes)).tolist()
+        me = dist.get_rank()
+        row = next(r for r in rows if me in r)
+        order = tuple(row.index(r) for r in sorted(row))
+        return None if order == tuple(range(len(row))) else order
+
 
 def as_mesh(mesh):
     """A DeviceMesh becomes a ProcessMesh; anything else is kept."""
@@ -486,6 +502,10 @@ def decode_state_pspecs(tree, mesh=None):
 # ---------------------------------------------------------------------------
 
 
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
 def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     """`x` reduced over `group` ("sum" or "max"); a new tensor."""
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -503,6 +523,49 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
         dist.all_gather_into_tensor
     gather(out.view(-1), x.view(-1), group=group)
     return out
+
+
+def gather_blocks(x: torch.Tensor, shard) -> torch.Tensor:
+    """[n, *x.shape]: every rank's `x` over `shard.group` (a
+    `core.cache.SlotShard`), in block order (`shard.order`)."""
+    out = all_gather(x, shard.group)
+    if shard.order is None:
+        return out
+    perm = [shard.order.index(b) for b in range(len(shard.order))]
+    return out[torch.as_tensor(perm, device=out.device)]
+
+
+def merge_shards(mz: torch.Tensor, num: torch.Tensor, mx: torch.Tensor,
+                 den: torch.Tensor, group):
+    """Two sets of a block's softmax statistics → the whole row's, over
+    `group`, in one all-reduce of the maxima and one of the rescaled sums:
+      mz [..., 2]: (max, sum of exp(x - max)) over this rank's block →
+        the same over every rank's block (the row's softmax);
+      num [..., dv], mx [...], den [...]: attention partials over the
+        winners this rank holds (num = Σ exp(l - mx) v, den = Σ exp(l -
+        mx); mx -inf, num and den 0 where it holds none) → out [..., dv]
+        = Σ num w / Σ den w with w = exp(mx - M), M the maximum over the
+        ranks: the flash-decode combine; 0 where no rank holds a valid
+        winner.
+    → (mz merged, out)."""
+    m, z = mz[..., 0], mz[..., 1]
+    tops = all_reduce(torch.cat([m.reshape(-1), mx.reshape(-1)]), "max",
+                      group)
+    top_m, top_x = tops[:m.numel()].view(m.shape), tops[m.numel():].view(
+        mx.shape)
+
+    def weight(x, top):
+        return torch.where(x > -float("inf"), torch.exp(x - top),
+                           torch.zeros_like(x))
+    wz, wx = weight(m, top_m), weight(mx, top_x)
+    sums = all_reduce(torch.cat([(z * wz).reshape(-1),
+                                 (num * wx[..., None]).reshape(-1),
+                                 (den * wx).reshape(-1)]), "sum", group)
+    zs, nums, dens = torch.split(sums, [z.numel(), num.numel(), den.numel()])
+    live = (top_x > -float("inf"))[..., None]
+    out = torch.where(live, nums.view(num.shape) / torch.clamp(
+        dens.view(den.shape)[..., None], min=1e-30), torch.zeros_like(num))
+    return torch.stack([top_m, zs.view(z.shape)], dim=-1), out
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -20,11 +20,28 @@ file store, once for the whole file. Checks, each a test:
   experts, top-2, capacity factor 8, f32) against the reference's
   `apply_moe`, 2e-4 (and the aux loss where every rank routes every
   token);
+- the global race (select_blocks 1) on a cache slot-sharded over 4
+  ranks, composed and fused (the sharded route's plain stages), 48 steps
+  into 32 slots at the same shapes (8 slots a rank, fewer than select_k),
+  f32 and int8 KV: each step's output within 2e-4 of
+  the reference's single-device global race, winner sets equal to the
+  port's unsharded race's at every step, the final block's fields equal;
+- `Model.decode_step` on a state laid out by `decode_state_pspecs`
+  (reduced granite-3-2b with 4 kv-heads on (1 x 4), (2 x 2) at batch 1
+  and 2; reduced longchat-7b with 2 on (1 x 4) and (2 x 2) at batch 1;
+  2 layers, f32, S 64, select_k 16, bf16 and int8 KV, 24 greedy steps
+  past the point where the cache evicts, composed and fused): logits
+  within 1e-4 of the reference's unsharded decode, greedy tokens equal,
+  winner sets equal to the port's unsharded run's, each rank's final
+  block equal to the unsharded cache's (acc within 1e-5); reduced
+  grok-1-314b (MoE, expert parallelism) on (2 x 2) and (1 x 4) at batch
+  2, int8 KV: logits within 1e-5 of the port's unsharded decode, greedy
+  tokens equal; the families the layout does not take yet refused;
 - a whole (unsharded) state of reduced granite-3-2b and of reduced
   deepseek-v3-671b decoded by `Model.decode_step` under a (1 x 4) mesh
   that could slot-shard it: logits and cache bit-equal to the same steps
   with no mesh, through eviction; and a slot-sharded cache refuses a step
-  of another race before it writes anything;
+  of a race the slot ranks cannot share before it writes anything;
 - `compressed_psum` on four per-rank inputs: the all-gathered int8 codes
   and f32 scales equal the reference's `quantize_grad` of each input, and
   the mean is within 1e-6 relative of the reference's body (the
@@ -58,7 +75,10 @@ from repro.core.cache import (init_cache, protected_mask,  # noqa: E402
 from repro.core.topk import NEG_INF  # noqa: E402
 from repro.models.moe import apply_moe, init_moe  # noqa: E402
 from repro.models.transformer import Model as JaxModel  # noqa: E402
+from repro.launch.serve import (_decode_step_fn, _model_key,  # noqa: E402
+                                _prefill_fn)
 from repro.optim.compression import quantize_grad  # noqa: E402
+from torch_parity import model_pair  # noqa: E402
 
 import torch_mesh_worker as W  # noqa: E402
 
@@ -92,6 +112,34 @@ def _decode_ref(out, name, nb, kv, steps, heavy):
     for f, a in cache._asdict().items():
         if a is not None:
             out[f"{name}/cache/{f}"] = np.asarray(a)
+
+
+def _model_ref(out, m, arch, kw):
+    """The reference's unsharded greedy decode of reduced `arch` (f32,
+    `model_pair`'s weights) over two seeded prompts: its weights, the
+    prompts, and for each KV dtype every step's logits and tokens."""
+    from repro_torch.tree import flatten_with_paths
+    rng = np.random.default_rng(0)
+    for kv in W.MODEL_KV:
+        jm, jp, tm, _ = model_pair(arch, cfg_kw=dict(kw), kv_dtype=kv,
+                                   fused=False, **W.MODEL_PRUNE)
+        if f"model_{m}/tokens" not in out:
+            out[f"model_{m}/tokens"] = rng.integers(
+                0, tm.cfg.vocab_size, (2, W.MODEL_PROMPT)).astype(np.int32)
+            for path, a in flatten_with_paths(jax.tree.map(np.asarray, jp)):
+                out[f"model_{m}/p/{path}"] = a
+        logits, st = _prefill_fn(_model_key(jm))(
+            jp, {"tokens": jnp.asarray(out[f"model_{m}/tokens"])})
+        step = _decode_step_fn(_model_key(jm))
+        outs, toks = [np.asarray(logits)], []
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        for _ in range(W.MODEL_STEPS):
+            toks.append(np.asarray(tok))
+            logits, st = step(jp, st, tok)
+            outs.append(np.asarray(logits))
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        out[f"model_{m}_{kv}/logits"] = np.stack(outs)
+        out[f"model_{m}_{kv}/toks"] = np.stack(toks, 1)
 
 
 def _mla_ref(out, name, nb):
@@ -167,6 +215,10 @@ def world(tmp_path_factory):
     ref = {}
     for name, _, nb, kv, steps, heavy in W.DECODE:
         _decode_ref(ref, name, nb, kv, steps, heavy)
+    for name, _, kv, _ in W.GLOBAL:
+        _decode_ref(ref, name, 1, kv, W.GLOBAL_STEPS, W.GLOBAL_HEAVY)
+    for m, arch, kw, _ in W.MODELS:
+        _model_ref(ref, m, arch, kw)
     for name, _, nb in W.MLA:
         _mla_ref(ref, name, nb)
     _moe_ref(ref)
@@ -201,6 +253,24 @@ def _held(world, name):
 @pytest.mark.parametrize("name", [d[0] for d in W.DECODE])
 def test_slot_sharded_decode_matches_single_device_blocked(world, name):
     _held(world, name)
+
+
+@pytest.mark.parametrize("name", [g[0] for g in W.GLOBAL])
+def test_slot_sharded_global_race_matches_single_device(world, name):
+    _held(world, name)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in W.model_cases()])
+def test_laid_out_state_decodes_as_the_unsharded_model(world, name):
+    _held(world, name)
+
+
+def test_laid_out_moe_state_decodes_as_the_unsharded_model(world):
+    _held(world, "model_moe")
+
+
+def test_laid_out_state_refuses_the_other_families(world):
+    _held(world, "model_refusal")
 
 
 @pytest.mark.parametrize("name", [m[0] for m in W.MLA])
